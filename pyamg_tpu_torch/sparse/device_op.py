@@ -1,0 +1,59 @@
+"""Device-format selection for hierarchy operators.
+
+Priority: DIA (shift-multiply-add on the hand-written kernel) -> dense for
+small operators.  The JAX package's third choice, the padded-ELL gather
+format, is not ported yet: where it would be chosen this raises.
+
+Port of ``pyamg_tpu/sparse/device_op.py`` with the same thresholds.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..util.utils import not_ported, numpy_dtype
+from .dia import SparseDIA
+from .linop import DenseOp
+
+__all__ = ["device_operator"]
+
+DIA_MAX_OFFSETS = 512
+DIA_MEM_BUDGET = 10          # accept k*n up to this multiple of nnz
+DIA_MEM_FLOOR = 64_000_000   # ... or up to this many stored entries
+DENSE_MAX = 4096
+
+
+def _entry_rows_offsets(A_csr):
+    """(row, col - row) for every stored entry, in int32."""
+    rows = np.repeat(np.arange(A_csr.shape[0], dtype=np.int32),
+                     np.diff(A_csr.indptr))
+    return rows, A_csr.indices.astype(np.int32, copy=False) - rows
+
+
+def device_operator(A_csr, dia_max_offsets: int = DIA_MAX_OFFSETS,
+                    dense_max: int = DENSE_MAX, dtype=None, device="cpu"):
+    """The device representation of a host CSR operator: ``SparseDIA`` when
+    its diagonals fit the budget, else ``DenseOp`` when small."""
+    import scipy.sparse as sp
+
+    A_csr = sp.csr_matrix(A_csr)
+    npdt = numpy_dtype(dtype)
+    n, m = A_csr.shape
+    entry_rows, entry_offs = _entry_rows_offsets(A_csr)
+    offs = np.unique(entry_offs)
+    k = int(offs.size)
+    mem_ok = k * n <= max(DIA_MEM_BUDGET * max(A_csr.nnz, 1), DIA_MEM_FLOOR)
+    if k <= dia_max_offsets and mem_ok:
+        diags, uniq = SparseDIA.host_diags(
+            A_csr, max_offsets=dia_max_offsets, dtype=npdt, offsets=offs,
+            entry_offsets=entry_offs, entry_rows=entry_rows)
+        return SparseDIA(torch.as_tensor(diags, device=device), uniq,
+                         A_csr.shape)
+    if n <= dense_max and m <= dense_max:
+        if npdt is not None and A_csr.dtype != npdt:
+            A_csr = A_csr.astype(npdt)
+        return DenseOp(torch.as_tensor(A_csr.toarray(), device=device),
+                       (n, m))
+    raise not_ported(f"a {n}x{m} operator with {k} diagonals, which needs "
+                     "the padded-ELL format,", "SparseELL")

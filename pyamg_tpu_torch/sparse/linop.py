@@ -1,0 +1,222 @@
+"""Structured linear operators for the solve phase.
+
+Grid-block aggregation keeps every level grid-structured, so the transfer
+operators need no gathers:
+
+* tentative prolongation  T  = per-aggregate broadcast -> ``GridRepeatOp``
+  (reshape + repeat_interleave + crop + weight)
+* tentative restriction  T^T = per-aggregate reduction -> ``GridPoolOp``
+  (weight + pad + pooled sum)
+* smoothed P = S T with S = I - omega D^{-1} A -> ``ComposedOp`` of a
+  :class:`SparseDIA` with the grid operator.
+
+Each operator exposes ``matvec``, ``shape``, ``dtype`` and ``astype``.
+Port of ``pyamg_tpu/sparse/linop.py`` (the classical-AMG ``CptProlongOp`` and
+``CptRestrictOp`` are not ported yet).
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..util.utils import torch_dtype
+
+__all__ = ["ComposedOp", "GridRepeatOp", "GridPoolOp", "DenseOp"]
+
+
+class ComposedOp:
+    """``matvec = ops[0] @ (ops[1] @ (... @ x))``: right-to-left."""
+
+    def __init__(self, ops, shape):
+        self.ops = tuple(ops)
+        self.shape: Tuple[int, int] = tuple(shape)
+
+    @property
+    def dtype(self):
+        return self.ops[0].dtype
+
+    def matvec(self, x):
+        for op in reversed(self.ops):
+            x = op.matvec(x)
+        return x
+
+    def astype(self, dtype):
+        return ComposedOp([op.astype(dtype) for op in self.ops], self.shape)
+
+    def to_scipy(self):
+        mats = [op.to_scipy() for op in self.ops]
+        return functools.reduce(lambda a, b: (a @ b).tocsr(), mats)
+
+
+def _coarse_grid(fine_grid, block):
+    return tuple(-(-g // b) for g, b in zip(fine_grid, block))
+
+
+def _pool_pads(fine_grid, cg, block):
+    """``F.pad`` widths (last axis first) that round each grid axis up to a
+    whole number of blocks."""
+    pads = []
+    for d in reversed(range(len(cg))):
+        pads += [0, cg[d] * block[d] - fine_grid[d]]
+    return tuple(pads)
+
+
+class GridRepeatOp:
+    """Tentative prolongation on a d-dim grid with block aggregation.
+
+    ``matvec(xc)``: reshape xc to the coarse grid, repeat each axis by its
+    block size, crop to the fine grid, flatten, and scale by the per-fine-dof
+    weight map (the normalized near-nullspace values that fit_candidates
+    produces).
+
+    A 2-D ``wmap`` (n_fine_dofs, K) is the multi-candidate form: each coarse
+    grid node carries K values (node-major) and each fine dof value is the
+    K-term dot product with its weight row.  ``node_dofs`` (q) is the number
+    of fine dofs per grid node (node-major)."""
+
+    def __init__(self, wmap, fine_grid, block, shape, node_dofs=1):
+        self.wmap = wmap
+        self.fine_grid = tuple(int(g) for g in fine_grid)
+        self.block = tuple(int(b) for b in block)
+        self.shape: Tuple[int, int] = tuple(shape)
+        self.node_dofs = int(node_dofs)
+
+    @property
+    def dtype(self):
+        return self.wmap.dtype
+
+    @property
+    def coarse_grid(self):
+        return _coarse_grid(self.fine_grid, self.block)
+
+    def astype(self, dtype):
+        return GridRepeatOp(self.wmap.to(torch_dtype(dtype)), self.fine_grid,
+                            self.block, self.shape, self.node_dofs)
+
+    def matvec(self, xc):
+        cg = self.coarse_grid
+        crop = tuple(slice(0, g) for g in self.fine_grid)
+        if self.wmap.dim() == 1:
+            y = xc.reshape(cg)
+            for ax, b in enumerate(self.block):
+                if b > 1:
+                    y = torch.repeat_interleave(y, b, dim=ax)
+            return self.wmap * y[crop].reshape(-1)
+        K = self.wmap.shape[1]
+        q = self.node_dofs
+        y = xc.reshape(cg + (K,))
+        for ax, b in enumerate(self.block):
+            if b > 1:
+                y = torch.repeat_interleave(y, b, dim=ax)
+        y = y[crop].reshape(-1, K)                 # (n_nodes, K)
+        if q == 1:
+            return (self.wmap * y).sum(dim=1)
+        w = self.wmap.reshape(-1, q, K)            # (n_nodes, q, K)
+        return torch.einsum("nqk,nk->nq", w, y).reshape(-1)
+
+    def to_scipy(self):
+        import scipy.sparse as sp
+
+        n_f, _n_c = self.shape
+        q = self.node_dofs
+        cg = self.coarse_grid
+        coords = np.unravel_index(np.arange(n_f // q), self.fine_grid)
+        cidx = np.ravel_multi_index(
+            tuple(c // b for c, b in zip(coords, self.block)), cg)
+        w = self.wmap.cpu().numpy()
+        if w.ndim == 1:
+            return sp.coo_matrix(
+                (w, (np.arange(n_f), cidx)), shape=self.shape).tocsr()
+        K = w.shape[1]
+        cdof = np.repeat(cidx, q)
+        rows = np.repeat(np.arange(n_f), K)
+        cols = (cdof[:, None] * K + np.arange(K)[None, :]).ravel()
+        return sp.coo_matrix(
+            (w.ravel(), (rows, cols)), shape=self.shape).tocsr()
+
+
+class GridPoolOp:
+    """Tentative restriction T^T (``conj=False``) or T^H (``conj=True``):
+    weight, then sum-pool over each block.  The multi-candidate and
+    node-blocked forms mirror :class:`GridRepeatOp`."""
+
+    def __init__(self, wmap, fine_grid, block, shape, node_dofs=1,
+                 conj=True):
+        self.wmap = wmap
+        self.fine_grid = tuple(int(g) for g in fine_grid)
+        self.block = tuple(int(b) for b in block)
+        self.shape: Tuple[int, int] = tuple(shape)     # (n_coarse, n_fine)
+        self.node_dofs = int(node_dofs)
+        self.conj = bool(conj)
+
+    @property
+    def dtype(self):
+        return self.wmap.dtype
+
+    @property
+    def coarse_grid(self):
+        return _coarse_grid(self.fine_grid, self.block)
+
+    def astype(self, dtype):
+        return GridPoolOp(self.wmap.to(torch_dtype(dtype)), self.fine_grid,
+                          self.block, self.shape, self.node_dofs, self.conj)
+
+    def _pool(self, w, cg):
+        for ax, b in enumerate(self.block):
+            if b > 1:
+                w = w.reshape(w.shape[:ax] + (cg[ax], b)
+                              + w.shape[ax + 1:]).sum(dim=ax + 1)
+        return w.reshape(-1)
+
+    def matvec(self, xf):
+        cg = self.coarse_grid
+        wmap = torch.conj(self.wmap) if self.conj else self.wmap
+        pads = _pool_pads(self.fine_grid, cg, self.block)
+        if wmap.dim() == 1:
+            w = (wmap * xf).reshape(self.fine_grid)
+            return self._pool(F.pad(w, pads), cg)
+        K = wmap.shape[1]
+        q = self.node_dofs
+        w = wmap * xf[:, None]                   # (n_dofs, K)
+        if q > 1:
+            w = w.reshape(-1, q, K).sum(dim=1)   # (n_nodes, K)
+        w = w.reshape(self.fine_grid + (K,))
+        return self._pool(F.pad(w, (0, 0) + pads), cg)
+
+    def to_scipy(self):
+        T = GridRepeatOp(self.wmap, self.fine_grid, self.block,
+                         (self.shape[1], self.shape[0]),
+                         node_dofs=self.node_dofs).to_scipy()
+        return (T.conj() if self.conj else T).T.tocsr()
+
+
+class DenseOp:
+    """Small dense operator (a coarse level's A when no DIA form fits)."""
+
+    def __init__(self, mat, shape):
+        self.mat = mat
+        self.shape: Tuple[int, int] = tuple(shape)
+
+    @property
+    def dtype(self):
+        return self.mat.dtype
+
+    def astype(self, dtype):
+        return DenseOp(self.mat.to(torch_dtype(dtype)), self.shape)
+
+    def matvec(self, x):
+        return self.mat @ x
+
+    @property
+    def nnz(self) -> int:
+        return int(torch.count_nonzero(self.mat))
+
+    def to_scipy(self):
+        import scipy.sparse as sp
+
+        return sp.csr_matrix(self.mat.cpu().numpy())

@@ -1,0 +1,41 @@
+"""The port stands alone: importing it loads neither JAX nor pyamg_tpu, and
+no file of it (or chip_smoke.py, which drives it on the card) imports
+them."""
+
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "pyamg_tpu_torch").rglob("*.py")) \
+    + [ROOT / "chip_smoke.py"]
+FORBIDDEN = re.compile(r"^\s*(import\s+(jax|pyamg_tpu)\b(?!_torch)"
+                       r"|from\s+(jax|pyamg_tpu)\b(?!_torch))", re.M)
+
+
+def test_import_leaves_jax_and_pyamg_tpu_unloaded():
+    code = ("import sys, pyamg_tpu_torch\n"
+            "bad = [m for m in ('jax', 'jaxlib', 'pyamg_tpu') "
+            "if m in sys.modules]\n"
+            "print(pyamg_tpu_torch.__version__, bad)\n"
+            "sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_port_file_imports_jax_or_pyamg_tpu(path):
+    assert not FORBIDDEN.search(path.read_text()), path
+
+
+def test_public_surface():
+    import pyamg_tpu_torch
+
+    assert sorted(pyamg_tpu_torch.__all__) == sorted(
+        ["gallery", "smoothed_aggregation_solver", "MultilevelSolver",
+         "SparseDIA", "__version__"])

@@ -1,0 +1,142 @@
+"""The DIA kernel's build, wrapper and launches.
+
+This file imports only the port, so that it also runs on a machine with a
+card and no JAX.  There, from the repository root:
+
+    python -m pytest --noconftest tests/test_torch_kernel.py -q
+
+(``--noconftest`` skips tests/conftest.py, which configures JAX).  Here, on
+the CPU, the ``cuda``-marked tests skip and the build plumbing runs against
+a stand-in compiler.
+"""
+
+import os
+import stat
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from pyamg_tpu_torch import _build
+from pyamg_tpu_torch.gallery import poisson
+from pyamg_tpu_torch.sparse import SparseDIA, dia_kernel
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture
+def fake_nvcc(tmp_path, monkeypatch):
+    """A stand-in nvcc that records its arguments and writes the -o file
+    (or fails, when FAKE_NVCC_FAIL is set)."""
+    script = tmp_path / "nvcc"
+    script.write_text(
+        f"#!{sys.executable}\n"
+        "import os, sys\n"
+        "open(os.environ['FAKE_NVCC_LOG'], 'a').write(' '.join(sys.argv[1:])"
+        " + '\\n')\n"
+        "if os.environ.get('FAKE_NVCC_FAIL'):\n"
+        "    sys.stderr.write('error: bad source\\n'); sys.exit(2)\n"
+        "out = sys.argv[sys.argv.index('-o') + 1]\n"
+        "open(out, 'w').write('lib')\n"
+        "print('ptxas info    : Used 20 registers')\n")
+    script.chmod(script.stat().st_mode | stat.S_IEXEC)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
+    (tmp_path / "cuda" / "bin").mkdir(parents=True)
+    os.symlink(script, tmp_path / "cuda" / "bin" / "nvcc")
+    monkeypatch.setenv("FAKE_NVCC_LOG", str(tmp_path / "calls.log"))
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "_build")
+    return tmp_path
+
+
+def test_build_targets_sm90a_and_caches_by_source_hash(fake_nvcc):
+    out = _build.build("dia_matvec")
+    assert out.parent == fake_nvcc / "_build"
+    assert out.name.startswith("libdia_matvec-") and out.suffix == ".so"
+    assert "ptxas info" in out.with_name(out.name + ".log").read_text()
+    calls = (fake_nvcc / "calls.log").read_text().splitlines()
+    assert len(calls) == 1
+    assert "-gencode arch=compute_90a,code=sm_90a" in calls[0]
+    assert str(_build.CSRC / "dia_matvec.cu") in calls[0]
+    assert _build.build("dia_matvec") == out          # cached: no rebuild
+    assert len((fake_nvcc / "calls.log").read_text().splitlines()) == 1
+
+
+def test_build_failure_raises_with_the_compiler_message(fake_nvcc,
+                                                        monkeypatch):
+    monkeypatch.setenv("FAKE_NVCC_FAIL", "1")
+    with pytest.raises(RuntimeError, match="bad source"):
+        _build.build("dia_matvec")
+    assert not list((fake_nvcc / "_build").glob("*.so"))
+
+
+def test_cpu_tensors_never_load_the_kernel_library():
+    A = poisson((20, 20), format="csr")
+    D = SparseDIA.from_scipy(A, dtype=np.float32)
+    x = torch.ones(A.shape[0])
+    before = (dia_kernel._lib, dia_kernel.launches)
+    D.matvec(x)
+    assert (dia_kernel._lib, dia_kernel.launches) == before
+
+
+def test_other_devices_raise():
+    A = poisson((5, 5), format="csr")
+    D = SparseDIA.from_scipy(A)
+    meta = SparseDIA(D.diags.to("meta"), D.offsets, D.shape)
+    with pytest.raises(ValueError, match="no kernel"):
+        meta.matvec(torch.empty(A.shape[0], dtype=torch.float64,
+                                device="meta"))
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the DIA kernel runs only there")
+    return torch.device("cuda")
+
+
+def _ops(rng):
+    def rand(offsets, shape):
+        return SparseDIA(torch.as_tensor(
+            rng.standard_normal((len(offsets), shape[0]))), offsets, shape)
+
+    return [rand((-1024, -1, 0, 1, 1024), (1 << 20, 1 << 20)),
+            rand((-2999, -7, 0, 5, 1999), (3000, 2000)),
+            rand((-1999, -1, 0, 64, 2999), (2000, 3000)),
+            rand((-14, -13, -12, -1, 0, 1, 12, 13, 14), (169, 169)),
+            SparseDIA.from_scipy(poisson((37, 29), format="csr"))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_kernel_matches_plain_version(cuda_device, dtype):
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    rng = np.random.default_rng(0)
+    for op in _ops(rng):
+        op = SparseDIA(op.diags.to(cuda_device, dtype), op.offsets, op.shape)
+        x = torch.as_tensor(rng.standard_normal(op.shape[1]),
+                            device=cuda_device, dtype=dtype)
+        before = dia_kernel.launches
+        y = op.matvec(x)
+        torch.cuda.synchronize()
+        assert dia_kernel.launches == before + 1
+        y_ref = op.matvec_plain(x)
+        assert float((y - y_ref).abs().max()) <= \
+            tol * float(y_ref.abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_solve_runs_through_the_kernel(cuda_device):
+    import pyamg_tpu_torch
+
+    A = poisson((81, 81), format="csr")
+    b = A @ np.random.default_rng(0).random(A.shape[0])
+    ml = pyamg_tpu_torch.smoothed_aggregation_solver(
+        A, max_coarse=50, presmoother="chebyshev", postsmoother="chebyshev",
+        improve_candidates=None, op_dtype=torch.float32, device=cuda_device)
+    before = dia_kernel.launches
+    x = ml.solve_mp(b, tol=1e-10, method="defect")
+    assert dia_kernel.launches > before
+    assert x.device.type == "cuda"
+    x = x.cpu().numpy()
+    assert np.linalg.norm(b - A @ x) <= 5e-10 * np.linalg.norm(b)

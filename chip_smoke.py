@@ -1,11 +1,17 @@
 """Smoke run of pyamg_tpu_torch on one NVIDIA GPU.
 
-Builds the port's CUDA kernel from the sources in this checkout, holds it
-against its plain PyTorch version, drives the main path -- structured
-smoothed aggregation on the 1024^2 5-point Poisson problem (1,048,576
-unknowns), solved to a float64 relative residual of 1e-10 by float32
-V-cycle-preconditioned CG inside float64 defect correction -- and times the
-kernel beside its plain version.
+Builds the port's CUDA kernels from the sources in this checkout, holds
+each against its plain PyTorch version, drives the port's two paths on the
+1024^2 5-point Poisson problem (1,048,576 unknowns) and times each kernel
+beside its plain version:
+
+* the structured path: smoothed aggregation on the grid, solved to a
+  float64 relative residual of 1e-10 by float32 V-cycle-preconditioned CG
+  inside float64 defect correction (kernel: dia_matvec);
+* the general path: ``parallel.general_sa_setup_sharded`` in float32, its
+  Galerkin products on the card (kernels: masked_spgemm_banded and
+  masked_spgemm_gather), then CG with multicolor Gauss-Seidel V-cycles to
+  1e-8.
 
     python3 chip_smoke.py          # from the repository root, one GPU
 
@@ -14,22 +20,38 @@ raises on failure.  The line before the last is the kernels' record; the
 last line is ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
+import functools
 import json
+import pathlib
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
 GRID = (1024, 1024)
 TOL = 1e-10
 REL_TOL = {"float32": 1e-5, "float64": 1e-12}   # kernel vs plain, max rel
-KERNEL = {"name": "dia_matvec", "route": "cuda",
-          "source": "pyamg_tpu_torch/csrc/dia_matvec.cu",
-          "replaces": "pyamg_tpu/sparse/pallas_kernels.py:182"}
+KERNELS = {
+    "dia_matvec": {"route": "cuda",
+                   "source": "pyamg_tpu_torch/csrc/dia_matvec.cu",
+                   "replaces": "pyamg_tpu/sparse/pallas_kernels.py:182"},
+    "masked_spgemm_banded": {
+        "route": "cuda", "source": "pyamg_tpu_torch/csrc/masked_spgemm.cu",
+        "replaces": "pyamg_tpu/sparse/spgemm_dia.py:157"},
+    "masked_spgemm_gather": {
+        "route": "cuda", "source": "pyamg_tpu_torch/csrc/masked_spgemm.cu",
+        "replaces": "pyamg_tpu/sparse/spgemm_pallas.py:238"},
+}
 SETUP_KW = dict(max_coarse=500, presmoother="chebyshev",
                 postsmoother="chebyshev", improve_candidates=None)
+# the general path's hierarchy of GRID, as the JAX package builds it
+# (general_sa_setup_sharded, float32, one device): rows and nnz per level
+GENERAL_LEVELS = [(1048576, 5238784), (175104, 1572176), (19537, 175673),
+                  (2154, 21246), (219, 2359), (22, 194)]
 
 
 def phase(name):
@@ -54,22 +76,28 @@ def find_card(torch):
           f"cudnn={torch.backends.cudnn.allow_tf32}")
 
 
-def build_kernel():
+def build_kernels():
+    """One nvcc per source, all started together, then load each."""
     phase("2. build")
     from pyamg_tpu_torch import _build
-    from pyamg_tpu_torch.sparse import dia_kernel
+    from pyamg_tpu_torch.sparse import dia_kernel, spgemm_kernel
 
     t0 = time.perf_counter()
+    sources = ("dia_matvec", "masked_spgemm")
+    with ThreadPoolExecutor(len(sources)) as pool:
+        libs = list(pool.map(_build.build, sources))
     dia_kernel.load()
-    print(f"dia_matvec built and loaded in {time.perf_counter() - t0:.2f} s")
-    lib = _build.build("dia_matvec")
-    print(lib.with_name(lib.name + ".log").read_text().strip())
+    spgemm_kernel.load()
+    print(f"{', '.join(sources)} built and loaded in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for lib in libs:
+        print(lib.with_name(lib.name + ".log").read_text().strip())
 
 
 def check_kernel(torch, rng):
-    """Kernel vs plain version on the card; returns the largest absolute
-    difference seen."""
-    phase("3. kernel vs plain")
+    """DIA kernel vs plain version on the card; returns the largest
+    absolute difference seen."""
+    phase("3. dia_matvec vs plain")
     import pyamg_tpu_torch
     from pyamg_tpu_torch.gallery import poisson
     from pyamg_tpu_torch.sparse import SparseDIA
@@ -121,9 +149,9 @@ def check_kernel(torch, rng):
 
 
 def main_path(torch):
-    """The 1024^2 solve through the package's entry points; returns the
-    kernel's launch count over it."""
-    phase("4. main path")
+    """The structured 1024^2 solve through the package's entry points;
+    returns the hierarchy and the DIA kernel's launch count over it."""
+    phase("4. structured path")
     import pyamg_tpu_torch
     from pyamg_tpu_torch.gallery import poisson
     from pyamg_tpu_torch.sparse import dia_kernel
@@ -214,35 +242,193 @@ def main_path(torch):
     return ml, launches
 
 
-def time_kernel(torch, ml):
-    """Median of 20 CUDA-event samples (10 launches each) of the kernel and
-    its plain version at the level-0 shape, in float32 and float64.
+@contextlib.contextmanager
+def recording_products(store, limit):
+    """Keep the operands ``(label, A, B, pattern)`` of the general setup's
+    first ``limit`` masked products (S*T, A*P, R*AP of each level in turn)
+    while passing every call on unchanged."""
+    from pyamg_tpu_torch.parallel import setup
 
-    Each sample first parks the stream in a ~10 ms sleep kernel, so that
-    the host has queued all 10 launches before the first one starts: the
-    events then bracket device time alone, not the host's launch pace.
-    The host's own cost per call is printed beside it."""
-    phase("5. kernel time")
-    from pyamg_tpu_torch.sparse import SparseDIA
+    real = setup.masked_spgemm_auto
+    names = ("S*T", "A*P", "R*AP")
 
-    def sample(fn, inner=10):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(20_000_000)
-        start.record()
-        for _ in range(inner):
-            fn()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) / inner
+    def record(A, B, pattern):
+        if len(store) < limit:
+            k = len(store)
+            store.append((f"level {k // 3} {names[k % 3]}", A, B, pattern))
+        return real(A, B, pattern)
 
-    def host_us(fn, calls=200):
+    setup.masked_spgemm_auto = record
+    try:
+        yield
+    finally:
+        setup.masked_spgemm_auto = real
+
+
+def general_path(torch):
+    """The general device setup of the 1024^2 problem and its CG solve
+    through the package's entry points; returns the SpGEMM kernels' launch
+    counts over the setup and the recorded level-0 and level-1 products."""
+    phase("5. general path")
+    from pyamg_tpu_torch.gallery import poisson
+    from pyamg_tpu_torch.parallel import general_sa_setup_sharded
+    from pyamg_tpu_torch.sparse import spgemm_kernel
+
+    A = poisson(GRID, format="csr")
+    b = A @ np.random.default_rng(0).random(A.shape[0])
+    products = []
+    for name in spgemm_kernel.launches:
+        spgemm_kernel.launches[name] = 0
+    spgemm_kernel.plain_cuda_calls = 0
+    t0 = time.perf_counter()
+    with recording_products(products, 6):
+        sol = general_sa_setup_sharded(A, dtype=np.float32, device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    launches = dict(spgemm_kernel.launches)
+    plain_calls = spgemm_kernel.plain_cuda_calls
+    opc = sol.inner.operator_complexity()
+    print(sol)
+    print(f"setup_s {setup_s:.3f}  levels {len(sol.levels)}  "
+          f"operator_complexity {opc:.6f}  launches {launches}  plain twin "
+          f"calls on CUDA {plain_calls}")
+
+    runs = []
+    for _ in range(3):
+        res = []
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
+        x = sol.solve(b, tol=1e-8, accel="cg", maxiter=200, residuals=res)
         torch.cuda.synchronize()
-        return (time.perf_counter() - t0) / calls * 1e6
+        runs.append(time.perf_counter() - t0)
+    x = x.double().cpu().numpy()
+    relres = np.linalg.norm(b - A @ x) / np.linalg.norm(b)
+    iters = len(res) - 1
+    print(f"solve(accel='cg', tol=1e-8) float32: iterations {iters}  true "
+          f"f64 relres {relres:.3e}  finite {bool(np.isfinite(x).all())}  "
+          f"solve_s best of 3 {min(runs):.4f}  runs "
+          f"{[round(r, 4) for r in runs]}")
+
+    got = [(lvl.A_csr.shape[0], lvl.A_csr.nnz) for lvl in sol.levels]
+    if got != GENERAL_LEVELS:
+        raise AssertionError(f"levels (rows, nnz) {got}, expected "
+                             f"{GENERAL_LEVELS}")
+    if round(opc, 3) != 1.338:
+        raise AssertionError(f"expected operator complexity 1.338, got {opc}")
+    if abs(iters - 9) > 1:
+        raise AssertionError(f"CG iterations {iters}, expected 9±1")
+    if not (np.isfinite(x).all() and relres <= 5e-7):
+        raise AssertionError(f"relres {relres} > 5e-7")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a SpGEMM kernel never launched: {launches}")
+    if plain_calls:
+        raise AssertionError(f"the setup ran the plain twin on CUDA "
+                             f"{plain_calls} times")
+    return launches, products
+
+
+def check_spgemm(torch, products):
+    """Both SpGEMM kernels vs their plain twin on the card, on the test
+    shapes and on the recorded products of the 1M hierarchy, in float32
+    and float64; returns the largest absolute difference per kernel."""
+    phase("6. masked_spgemm kernels vs plain")
+    from pyamg_tpu_torch.sparse import SparseELL, spgemm_kernel
+    from pyamg_tpu_torch.sparse.spgemm_device import (pattern_spgemm,
+                                                      sentinel_cols)
+    from pyamg_tpu_torch.sparse.spgemm_dia import BandedSpgemmPlan
+
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "tests"))
+    import spgemm_cases
+
+    def ell(M):
+        return SparseELL.from_scipy(M, dtype=np.float64, device="cuda")
+
+    cases = []
+    for label, case in spgemm_cases.ALL.items():
+        A, B = case()
+        cases.append((label, ell(A), ell(B),
+                      pattern_spgemm(A, B, device="cuda")))
+    cases += products
+    worst = {name: 0.0 for name in spgemm_kernel.launches}
+    for dtype in (torch.float32, torch.float64):
+        name_dt = str(dtype).split(".")[-1]
+        for label, A, B, pattern in cases:
+            A, B = A.astype(dtype), B.astype(dtype)
+            pat = sentinel_cols(pattern)
+            ref = spgemm_kernel.masked_matmul_vals_plain(
+                A.data, A.cols, B.data, B.cols, pat)
+            plan = BandedSpgemmPlan(A, B, pattern)
+            outs = {"masked_spgemm_gather": spgemm_kernel.masked_spgemm_gather(
+                A.data, A.cols, B.data, B.cols, pat)}
+            if plan.feasible:
+                outs["masked_spgemm_banded"] = plan(A, B).data
+            torch.cuda.synchronize()
+            scale = max(float(ref.abs().max()), 1e-300)
+            for name, out in outs.items():
+                err = float((out - ref).abs().max())
+                if not (bool(torch.isfinite(out).all())
+                        and err <= REL_TOL[name_dt] * scale):
+                    raise AssertionError(f"{name} {name_dt} {label}: max rel "
+                                         f"error {err / scale:.3e}")
+                worst[name] = max(worst[name], err)
+                print(f"{name_dt:8s} {label:22s} {name:21s} {plan.describe():6s}"
+                      f" {tuple(A.data.shape)}x{tuple(B.data.shape)}->"
+                      f"{tuple(pat.shape)}  max abs {err:.3e} rel "
+                      f"{err / scale:.3e}")
+    return worst
+
+
+def _sample(torch, fn, inner=10):
+    """Device ms per call of ``fn``: CUDA events around ``inner`` calls
+    queued behind a ~10 ms sleep kernel, so that the host has queued every
+    launch before the first one starts and the events bracket device time
+    alone, not the host's launch pace."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
+    start.record()
+    for _ in range(inner):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / inner
+
+
+def _host_us(torch, fn, calls=200):
+    """Host microseconds per call of ``fn``, synchronized at both ends."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def _median_pair(torch, first, second, samples=20):
+    """Medians of alternating samples (second, first, first, second, ...)
+    after a warm-up: ``(first_ms, second_ms)``."""
+    for _ in range(3):
+        first()
+        second()
+    fs, ss = [], []
+    for i in range(samples):
+        order = (second, first) if i % 2 == 0 else (first, second)
+        for fn in order:
+            (ss if fn is second else fs).append(_sample(torch, fn))
+    return statistics.median(fs), statistics.median(ss)
+
+
+def time_kernels(torch, ml, products):
+    """The DIA kernel at the structured level-0 shape (float32 and
+    float64), and the SpGEMM kernels at the general path's level-0 A*P
+    (banded) and R*AP (gather) shapes (float32), each beside its plain
+    version; device time from :func:`_median_pair`, the host's own cost per
+    call beside it.  Then the banded kernel beside the gather kernel on
+    every recorded product the router sends to the banded one."""
+    phase("7. kernel time")
+    from pyamg_tpu_torch.sparse import SparseDIA, spgemm_kernel
+    from pyamg_tpu_torch.sparse.spgemm_device import sentinel_cols
+    from pyamg_tpu_torch.sparse.spgemm_dia import BandedSpgemmPlan
 
     A0 = ml.levels[0].A
     out = {}
@@ -250,24 +436,53 @@ def time_kernel(torch, ml):
         op = SparseDIA(A0.diags.to(dtype), A0.offsets, A0.shape)
         x = torch.rand(op.shape[1], device="cuda", dtype=dtype)
         kernel, plain = (lambda: op.matvec(x)), (lambda: op.matvec_plain(x))
-        for _ in range(3):
-            kernel()
-            plain()
-        ks, ps = [], []
-        for i in range(20):        # alternate: plain, kernel, kernel, plain
-            order = (plain, kernel) if i % 2 == 0 else (kernel, plain)
-            for fn in order:
-                (ps if fn is plain else ks).append(sample(fn))
+        k_ms, p_ms = _median_pair(torch, kernel, plain)
         name = str(dtype).split(".")[-1]
-        k_ms, p_ms = statistics.median(ks), statistics.median(ps)
         nbytes = (op.n_offsets + 2) * op.shape[0] * x.element_size()
-        print(f"{name}: level-0 {op.shape} {op.n_offsets} offsets  kernel "
-              f"{k_ms * 1e3:.1f} us device ({nbytes / k_ms / 1e6:.0f} GB/s "
-              f"of (k+2)n bytes), {host_us(kernel):.1f} us per call on the "
-              f"host clock;  plain {p_ms * 1e3:.1f} us device, "
-              f"{host_us(plain):.1f} us per call;  plain/kernel "
+        print(f"dia_matvec {name}: level-0 {op.shape} {op.n_offsets} offsets"
+              f"  kernel {k_ms * 1e3:.1f} us device ({nbytes / k_ms / 1e6:.0f}"
+              f" GB/s of (k+2)n bytes), {_host_us(torch, kernel):.1f} us per "
+              f"call on the host clock;  plain {p_ms * 1e3:.1f} us device, "
+              f"{_host_us(torch, plain):.1f} us per call;  plain/kernel "
               f"{p_ms / k_ms:.2f}")
+        if dtype == torch.float32:
+            out["dia_matvec"] = (k_ms, p_ms)
+
+    by_label = {label: (A, B, pat) for label, A, B, pat in products}
+
+    def spgemm(label):
+        """The banded kernel (None where the plan refuses A), the gather
+        kernel and the plain twin on a recorded product."""
+        A, B, pattern = by_label[label]
+        slabs = (A.data, A.cols, B.data, B.cols, sentinel_cols(pattern))
+        plan = BandedSpgemmPlan(A, B, pattern)
+        return (functools.partial(plan, A, B) if plan.feasible else None,
+                functools.partial(spgemm_kernel.masked_spgemm_gather, *slabs),
+                functools.partial(spgemm_kernel.masked_matmul_vals_plain,
+                                  *slabs), slabs)
+
+    for name, label in (("masked_spgemm_banded", "level 0 A*P"),
+                        ("masked_spgemm_gather", "level 0 R*AP")):
+        banded, gather, plain, slabs = spgemm(label)
+        kernel = banded if name == "masked_spgemm_banded" else gather
+        k_ms, p_ms = _median_pair(torch, kernel, plain)
+        print(f"{name} float32: {label} A {tuple(slabs[0].shape)} B "
+              f"{tuple(slabs[2].shape)} out {tuple(slabs[4].shape)}  kernel "
+              f"{k_ms * 1e3:.1f} us device, {_host_us(torch, kernel):.1f} us "
+              f"per call on the host clock;  plain {p_ms * 1e3:.1f} us "
+              f"device, {_host_us(torch, plain, 20):.1f} us per call;  "
+              f"plain/kernel {p_ms / k_ms:.2f}")
         out[name] = (k_ms, p_ms)
+
+    # the products the router sends to the banded kernel, on both kernels
+    for label in ("level 0 S*T", "level 0 A*P", "level 1 S*T",
+                  "level 1 A*P"):
+        banded, gather, _, slabs = spgemm(label)
+        b_ms, g_ms = _median_pair(torch, banded, gather)
+        print(f"banded vs gather float32: {label} A {tuple(slabs[0].shape)} "
+              f"B {tuple(slabs[2].shape)} out {tuple(slabs[4].shape)}  "
+              f"banded {b_ms * 1e3:.1f} us, gather {g_ms * 1e3:.1f} us "
+              f"device;  banded/gather {b_ms / g_ms:.2f}")
     return out
 
 
@@ -275,14 +490,18 @@ def main():
     import torch
 
     find_card(torch)
-    build_kernel()
+    build_kernels()
     rng = np.random.default_rng(0)
-    worst = check_kernel(torch, rng)
-    ml, launches = main_path(torch)
-    times = time_kernel(torch, ml)
+    worst = {"dia_matvec": check_kernel(torch, rng)}
+    ml, dia_launches = main_path(torch)
+    launches, products = general_path(torch)
+    launches["dia_matvec"] = dia_launches
+    worst.update(check_spgemm(torch, products))
+    times = time_kernels(torch, ml, products)
     print(json.dumps({"kernels": [dict(
-        KERNEL, launches=launches, max_abs_err=worst,
-        ms=times["float32"][0], plain_ms=times["float32"][1])]}))
+        name=name, **KERNELS[name], launches=launches[name],
+        max_abs_err=worst[name], ms=times[name][0], plain_ms=times[name][1])
+        for name in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

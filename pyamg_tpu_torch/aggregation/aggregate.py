@@ -1,8 +1,11 @@
-"""Aggregation on structured grids.
+"""Aggregation: block aggregation on structured grids, and the greedy
+standard and naive aggregations over a strength graph.
 
-Port of ``grid_aggregation`` and ``fit_aggop`` from
-``pyamg_tpu/aggregation/aggregate.py`` (numpy, unchanged).  The
-strength-based aggregations of the unstructured path are not ported yet.
+Port of ``grid_aggregation``, ``fit_aggop``, ``standard_aggregation`` and
+``naive_aggregation`` from ``pyamg_tpu/aggregation/aggregate.py``.  The
+greedy passes are the JAX package's pure-Python ones (equal to its native
+``amg_core`` kernels), run over Python lists rather than numpy scalars.
+The Lloyd, pairwise and parallel aggregations are not ported yet.
 """
 
 from __future__ import annotations
@@ -10,7 +13,10 @@ from __future__ import annotations
 import numpy as np
 import scipy.sparse as sp
 
-__all__ = ["grid_aggregation", "fit_aggop"]
+from ..util.utils import to_csr
+
+__all__ = ["grid_aggregation", "fit_aggop", "standard_aggregation",
+           "naive_aggregation"]
 
 
 def grid_aggregation(grid, block=None):
@@ -50,3 +56,84 @@ def fit_aggop(labels, n_agg=None):
     rows = np.flatnonzero(labels >= 0)
     return sp.coo_matrix((np.ones(rows.size), (rows, labels[rows])),
                          shape=(n, n_agg)).tocsr()
+
+
+def standard_aggregation(C):
+    """Three-pass greedy aggregation over the strength graph C.
+
+    Pass 1: a node whose neighbours are all unaggregated seeds an aggregate
+    of itself and them.  Pass 2: each unaggregated node joins the aggregate
+    of its first aggregated neighbour.  Pass 3: the leftovers seed
+    aggregates with their unaggregated neighbours.  Isolated nodes (no
+    neighbour but themselves) stay unaggregated: a zero row of AggOp.
+
+    Returns ``(AggOp, roots)``."""
+    C = to_csr(C)
+    n = C.shape[0]
+    indptr, indices = C.indptr.tolist(), C.indices.tolist()
+    isolated = -2
+    labels = [-1] * n
+    roots = []
+    nxt = 0
+
+    for i in range(n):                                  # pass 1
+        if labels[i] != -1:
+            continue
+        nbrs = [j for j in indices[indptr[i]:indptr[i + 1]] if j != i]
+        if not nbrs:
+            labels[i] = isolated
+            continue
+        if all(labels[j] == -1 for j in nbrs):
+            labels[i] = nxt
+            for j in nbrs:
+                labels[j] = nxt
+            roots.append(i)
+            nxt += 1
+
+    join = {}                                           # pass 2
+    for i in range(n):
+        if labels[i] != -1:
+            continue
+        for j in indices[indptr[i]:indptr[i + 1]]:
+            if labels[j] >= 0:
+                join[i] = labels[j]
+                break
+    for i, agg in join.items():
+        labels[i] = agg
+
+    for i in range(n):                                  # pass 3
+        if labels[i] != -1:
+            continue
+        labels[i] = nxt
+        roots.append(i)
+        for j in indices[indptr[i]:indptr[i + 1]]:
+            if j != i and labels[j] == -1:
+                labels[j] = nxt
+        nxt += 1
+
+    labels = np.array(labels, dtype=np.int64)
+    labels[labels == isolated] = -1
+    return fit_aggop(labels, nxt), np.array(roots, dtype=np.int64)
+
+
+def naive_aggregation(C):
+    """Single-pass greedy aggregation: each unaggregated node seeds an
+    aggregate of itself and its unaggregated neighbours.
+
+    Returns ``(AggOp, roots)``."""
+    C = to_csr(C)
+    n = C.shape[0]
+    indptr, indices = C.indptr.tolist(), C.indices.tolist()
+    labels = [-1] * n
+    roots = []
+    for i in range(n):
+        if labels[i] != -1:
+            continue
+        agg = len(roots)
+        labels[i] = agg
+        roots.append(i)
+        for j in indices[indptr[i]:indptr[i + 1]]:
+            if labels[j] == -1:
+                labels[j] = agg
+    return (fit_aggop(np.array(labels, dtype=np.int64), len(roots)),
+            np.array(roots, dtype=np.int64))

@@ -1,12 +1,17 @@
 """Multigrid hierarchy runtime: levels, the V-cycle, the coarse solve and the
 solve entry points.
 
-Port of ``pyamg_tpu/multilevel.py`` for the structured SA main path.  The
-JAX package compiles each solve into one XLA program; here the cycle is
-plain eager PyTorch on the hierarchy's device, every DIA matvec a launch of
-the hand-written kernel, and the Krylov loop reads one scalar per iteration
-for its stopping test.  Only the V-cycle, the ``pinv`` coarse solver and CG
-acceleration are ported; other choices raise ``NotImplementedError``.
+Port of ``pyamg_tpu/multilevel.py`` for the structured SA main path and
+the padded-ELL hierarchies of the general device setup.  The JAX package
+compiles each solve into one XLA program; here the cycle is plain eager
+PyTorch on the hierarchy's device, every DIA matvec a launch of the
+hand-written kernel, and the Krylov loop reads one scalar per iteration for
+its stopping test.  The cycle only needs each level's operators to have a
+``matvec``: DIA and grid operators, or padded-ELL operators with a coarse
+pseudoinverse padded to the coarsest level's padded size
+(``parallel.sharding.ShardedSolver``).  Only the V-cycle, the ``pinv``
+coarse solver and CG acceleration are ported; other choices raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations

@@ -1,10 +1,11 @@
 """Smoother steps of the solve phase, on the level's device.
 
-Port of ``pyamg_tpu/relaxation/device.py`` for the smoothers of the
-structured SA path: weighted Jacobi and the polynomial (Chebyshev) smoother,
-applied by Horner's rule so that every step is a DIA matvec plus vector
-updates.  The multicolor, block, line, Schwarz and Krylov smoothers are not
-ported yet and raise.
+Port of ``pyamg_tpu/relaxation/device.py`` for weighted Jacobi, the
+polynomial (Chebyshev) smoother, applied by Horner's rule so that every
+step is a matvec plus vector updates, and multicolor Gauss-Seidel in mask
+form (forward, backward and symmetric sweeps).  The gather-form multicolor,
+SOR, block, line, Schwarz and Krylov smoothers are not ported yet and
+raise.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import torch
 from ..util.utils import not_ported
 
 __all__ = ["SmootherData", "jacobi_step", "polynomial_step",
-           "apply_smoother"]
+           "multicolor_gs_step", "apply_smoother"]
 
 
 @dataclass(frozen=True)
@@ -26,8 +27,10 @@ class SmootherData:
 
     kind: str = "jacobi"
     iterations: int = 1
+    sweep: str = "forward"      # multicolor GS: forward/backward/symmetric
     omega: float = 1.0
     dinv: Optional[torch.Tensor] = None      # (n,) inverted diagonal
+    color_masks: Optional[torch.Tensor] = None   # (ncolors, n) 0/1 masks
     coefficients: Tuple[float, ...] = ()     # descending order
 
 
@@ -45,6 +48,16 @@ def polynomial_step(A, coefficients, x, b):
     return x + h
 
 
+def multicolor_gs_step(A, dinv, color_masks, x, b, reverse=False):
+    """One multicolor Gauss-Seidel sweep: per color c, in order (reversed
+    when ``reverse``), ``x += mask_c * D^{-1} (b - A x)``.  No two nodes of
+    one color are adjacent, so this is Gauss-Seidel in the color order."""
+    order = range(color_masks.shape[0])
+    for c in (reversed(order) if reverse else order):
+        x = x + color_masks[c] * dinv * (b - A.matvec(x))
+    return x
+
+
 def apply_smoother(sm: SmootherData, A, x, b):
     """Apply ``sm.iterations`` sweeps of the configured smoother."""
     if sm is None or sm.kind in ("none", None):
@@ -54,6 +67,13 @@ def apply_smoother(sm: SmootherData, A, x, b):
             x = jacobi_step(A, sm.dinv, x, b, sm.omega)
         elif sm.kind in ("polynomial", "chebyshev"):
             x = polynomial_step(A, sm.coefficients, x, b)
+        elif (sm.kind in ("gauss_seidel", "multicolor_gauss_seidel")
+              and sm.color_masks is not None):
+            if sm.sweep in ("forward", "symmetric"):
+                x = multicolor_gs_step(A, sm.dinv, sm.color_masks, x, b)
+            if sm.sweep in ("backward", "symmetric"):
+                x = multicolor_gs_step(A, sm.dinv, sm.color_masks, x, b,
+                                       reverse=True)
         else:
             raise not_ported(f"smoother kind {sm.kind!r}",
                              "multicolor GS/SOR/block smoothers")

@@ -1,8 +1,10 @@
 """Smoother factory: bind pre/post smoothers onto hierarchy levels.
 
 Port of ``pyamg_tpu/relaxation/smoothing.py`` for jacobi, chebyshev and
-polynomial smoothing.  Smoother state (inverted diagonals) is computed on
-the host in numpy and moved to the level's device once.
+polynomial smoothing, and the graph coloring of the multicolor
+Gauss-Seidel smoother on unstructured levels (``_coloring``,
+``_color_masks``).  Smoother state (inverted diagonals, color masks) is
+computed on the host in numpy and moved to the level's device once.
 """
 
 from __future__ import annotations
@@ -60,6 +62,27 @@ def rho_D_inv_A(A_csr, symmetric=None):
     except (AttributeError, TypeError):
         pass
     return rho
+
+
+def _coloring(A_csr):
+    """Graph coloring of A's nodes for the multicolor smoothers: greedy
+    first-fit, the JAX package's choice where its native library is
+    present.  The geometric colorings of structured grids are not ported
+    yet."""
+    from ..graph import vertex_coloring
+
+    return np.asarray(vertex_coloring(A_csr, method="FF"))
+
+
+def _color_masks(A_csr, dtype=None):
+    """(ncolors, n) 0/1 masks of the :func:`_coloring` of A, in ``dtype``
+    (default A's real dtype)."""
+    colors = _coloring(A_csr)
+    n = colors.shape[0]
+    rdt = dtype or np.real(np.zeros(0, dtype=A_csr.dtype)).dtype
+    masks = np.zeros((int(colors.max()) + 1, n), dtype=rdt)
+    masks[colors, np.arange(n)] = 1
+    return masks
 
 
 def _dinv(A_csr, dtype=None):

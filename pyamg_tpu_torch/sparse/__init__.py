@@ -1,9 +1,11 @@
-"""Sparse operators of the solve phase: DIA storage on the hand-written
-kernel, gather-free grid transfers, and the device-format chooser."""
+"""Sparse operators: DIA storage on the hand-written SpMV kernel, padded
+ELL with the masked-SpGEMM kernels of the device setup, gather-free grid
+transfers, and the device-format chooser."""
 
 from .dia import SparseDIA
+from .ell import SparseELL
 from .linop import ComposedOp, GridRepeatOp, GridPoolOp, DenseOp
 from .device_op import device_operator
 
-__all__ = ["SparseDIA", "ComposedOp", "GridRepeatOp", "GridPoolOp",
+__all__ = ["SparseDIA", "SparseELL", "ComposedOp", "GridRepeatOp", "GridPoolOp",
            "DenseOp", "device_operator"]

@@ -1,8 +1,7 @@
 """Device-format selection for hierarchy operators.
 
 Priority: DIA (shift-multiply-add on the hand-written kernel) -> dense for
-small operators.  The JAX package's third choice, the padded-ELL gather
-format, is not ported yet: where it would be chosen this raises.
+small operators -> padded-ELL gather for the rest.
 
 Port of ``pyamg_tpu/sparse/device_op.py`` with the same thresholds.
 """
@@ -12,8 +11,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..util.utils import not_ported, numpy_dtype
+from ..util.utils import numpy_dtype
 from .dia import SparseDIA
+from .ell import SparseELL
 from .linop import DenseOp
 
 __all__ = ["device_operator"]
@@ -34,7 +34,8 @@ def _entry_rows_offsets(A_csr):
 def device_operator(A_csr, dia_max_offsets: int = DIA_MAX_OFFSETS,
                     dense_max: int = DENSE_MAX, dtype=None, device="cpu"):
     """The device representation of a host CSR operator: ``SparseDIA`` when
-    its diagonals fit the budget, else ``DenseOp`` when small."""
+    its diagonals fit the budget, else ``DenseOp`` when small, else
+    ``SparseELL``."""
     import scipy.sparse as sp
 
     A_csr = sp.csr_matrix(A_csr)
@@ -55,5 +56,4 @@ def device_operator(A_csr, dia_max_offsets: int = DIA_MAX_OFFSETS,
             A_csr = A_csr.astype(npdt)
         return DenseOp(torch.as_tensor(A_csr.toarray(), device=device),
                        (n, m))
-    raise not_ported(f"a {n}x{m} operator with {k} diagonals, which needs "
-                     "the padded-ELL format,", "SparseELL")
+    return SparseELL.from_scipy(A_csr, dtype=npdt, device=device)

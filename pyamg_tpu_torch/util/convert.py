@@ -14,6 +14,17 @@ can run, and be compared, with the setup factored out:
 where a smoother dict holds ``kind`` ("none", "jacobi", "polynomial" or
 "chebyshev"), ``iterations``, ``omega``, ``dinv`` (array or None) and
 ``coefficients``.  ``coarse`` is the coarsest level's dense pseudoinverse.
+
+:func:`ell_hierarchy_from_numpy` does the same for the padded-ELL
+hierarchies of the general device setup (``parallel.setup``):
+
+``{"A": ELL dict, "P": ELL dict, "R": ELL dict,   # P, R: all but the last``
+`` "presmoother": smoother dict, "postsmoother": smoother dict}``
+
+where an ELL dict holds ``data``, ``cols``, ``row_nnz`` and ``shape``, and a
+smoother dict may also hold ``sweep`` and ``color_masks`` (the multicolor
+Gauss-Seidel smoother); with the padded ``sizes``, the unpadded size
+``n_orig`` of level 0 and the padded ``coarse`` pseudoinverse.
 """
 
 from __future__ import annotations
@@ -22,11 +33,27 @@ import numpy as np
 import torch
 
 from ..multilevel import Level, MultilevelSolver
+from ..parallel.sharding import ShardedSolver
 from ..relaxation.device import SmootherData
-from ..sparse import ComposedOp, GridPoolOp, GridRepeatOp, SparseDIA
+from ..sparse import (ComposedOp, GridPoolOp, GridRepeatOp, SparseDIA,
+                      SparseELL)
 from .utils import numpy_dtype, torch_dtype
 
-__all__ = ["hierarchy_from_numpy"]
+__all__ = ["hierarchy_from_numpy", "ell_hierarchy_from_numpy"]
+
+
+def _smoother(s, tensor):
+    """SmootherData from a smoother dict (layout in the module
+    docstring)."""
+    def opt(key):
+        return None if s.get(key) is None else tensor(s[key])
+
+    return SmootherData(kind=s["kind"], iterations=int(s.get("iterations", 1)),
+                        sweep=s.get("sweep", "forward"),
+                        omega=float(s.get("omega", 1.0)), dinv=opt("dinv"),
+                        color_masks=opt("color_masks"),
+                        coefficients=tuple(
+                            float(c) for c in s.get("coefficients", ())))
 
 
 def hierarchy_from_numpy(levels, coarse, device, dtype):
@@ -41,15 +68,6 @@ def hierarchy_from_numpy(levels, coarse, device, dtype):
 
     def dia(d):
         return SparseDIA(tensor(d["diags"]), d["offsets"], d["shape"])
-
-    def smoother(s):
-        dinv = s.get("dinv")
-        return SmootherData(kind=s["kind"],
-                            iterations=int(s.get("iterations", 1)),
-                            omega=float(s.get("omega", 1.0)),
-                            dinv=None if dinv is None else tensor(dinv),
-                            coefficients=tuple(
-                                float(c) for c in s.get("coefficients", ())))
 
     out = []
     for spec in levels:
@@ -69,10 +87,40 @@ def hierarchy_from_numpy(levels, coarse, device, dtype):
                 S, SH = dia(t["S"]), dia(t["SH"])
                 lvl.P = ComposedOp([S] * degree + [T], (n_f, n_c))
                 lvl.R = ComposedOp([Tt] + [SH] * degree, (n_c, n_f))
-            lvl.presmoother = smoother(spec["presmoother"])
-            lvl.postsmoother = smoother(spec["postsmoother"])
+            lvl.presmoother = _smoother(spec["presmoother"], tensor)
+            lvl.postsmoother = _smoother(spec["postsmoother"], tensor)
         out.append(lvl)
     ml = MultilevelSolver(out, device=device)
     ml._op_dtype = torch_dtype(dtype)
     ml._coarse_mat = tensor(coarse)
     return ml
+
+
+def ell_hierarchy_from_numpy(levels, sizes, n_orig, coarse, device, dtype):
+    """A :class:`~pyamg_tpu_torch.parallel.ShardedSolver` on ``device``
+    whose padded-ELL operators, smoother state and padded coarse
+    pseudoinverse are ``dtype`` tensors made from numpy arrays (layout in
+    the module docstring)."""
+    npdt = numpy_dtype(dtype)
+
+    def tensor(a):
+        return torch.as_tensor(np.array(a, dtype=npdt), device=device)
+
+    def ell(d):
+        return SparseELL(
+            tensor(d["data"]),
+            torch.as_tensor(np.array(d["cols"], dtype=np.int32),
+                            device=device),
+            torch.as_tensor(np.array(d["row_nnz"], dtype=np.int32),
+                            device=device), d["shape"])
+
+    out = []
+    for spec in levels:
+        lvl = Level(A=ell(spec["A"]))
+        if "P" in spec:
+            lvl.P, lvl.R = ell(spec["P"]), ell(spec["R"])
+        lvl.presmoother = _smoother(spec["presmoother"], tensor)
+        lvl.postsmoother = _smoother(spec["postsmoother"], tensor)
+        out.append(lvl)
+    return ShardedSolver.from_sharded_levels(out, sizes, n_orig, device,
+                                             coarse=tensor(coarse))

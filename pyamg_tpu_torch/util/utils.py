@@ -10,7 +10,8 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-__all__ = ["unpack_arg", "to_csr", "get_diagonal",
+__all__ = ["unpack_arg", "to_csr", "get_diagonal", "row_reduce",
+           "scale_rows_by_largest_entry",
            "levelize_strength_or_aggregation",
            "levelize_smooth_or_improve_candidates", "numpy_dtype",
            "torch_dtype", "not_ported"]
@@ -64,6 +65,26 @@ def get_diagonal(A, inv=False):
         dinv[mask] = 1.0 / d[mask]
         return dinv
     return d
+
+
+def row_reduce(vals, indptr, ufunc, empty=0.0):
+    """Per-CSR-row reduction of ``vals`` (length nnz) with ``ufunc``
+    (e.g. ``np.maximum``); rows with no entries get ``empty``."""
+    n = len(indptr) - 1
+    out = np.full(n, empty, dtype=vals.dtype)
+    if vals.size and n:
+        nz = np.diff(indptr) > 0
+        out[nz] = ufunc.reduceat(vals, indptr[:-1][nz])
+    return out
+
+
+def scale_rows_by_largest_entry(A):
+    """Scale each row of A so that its largest-magnitude entry is 1."""
+    A = to_csr(A).copy()
+    rowmax = row_reduce(np.abs(A.data), A.indptr, np.maximum, 0.0)
+    scale = np.where(rowmax != 0, 1.0 / np.where(rowmax != 0, rowmax, 1), 0.0)
+    A.data = A.data * np.repeat(scale, np.diff(A.indptr))
+    return A
 
 
 def _is_single_option(v):

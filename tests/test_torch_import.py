@@ -37,5 +37,5 @@ def test_public_surface():
     import pyamg_tpu_torch
 
     assert sorted(pyamg_tpu_torch.__all__) == sorted(
-        ["gallery", "smoothed_aggregation_solver", "MultilevelSolver",
-         "SparseDIA", "__version__"])
+        ["gallery", "parallel", "smoothed_aggregation_solver",
+         "MultilevelSolver", "SparseDIA", "SparseELL", "__version__"])

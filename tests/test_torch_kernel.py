@@ -1,4 +1,5 @@
-"""The DIA kernel's build, wrapper and launches.
+"""The kernels' builds, wrappers and launches: the DIA SpMV kernel and the
+two masked-SpGEMM kernels.
 
 This file imports only the port, so that it also runs on a machine with a
 card and no JAX.  There, from the repository root:
@@ -20,7 +21,12 @@ import torch
 
 from pyamg_tpu_torch import _build
 from pyamg_tpu_torch.gallery import poisson
-from pyamg_tpu_torch.sparse import SparseDIA, dia_kernel
+from pyamg_tpu_torch.sparse import SparseDIA, SparseELL, dia_kernel
+from pyamg_tpu_torch.sparse import spgemm_kernel
+from pyamg_tpu_torch.sparse.spgemm_device import pattern_spgemm, sentinel_cols
+from pyamg_tpu_torch.sparse.spgemm_dia import BandedSpgemmPlan
+
+import spgemm_cases
 
 torch.set_num_threads(1)
 
@@ -68,6 +74,27 @@ def test_build_failure_raises_with_the_compiler_message(fake_nvcc,
     with pytest.raises(RuntimeError, match="bad source"):
         _build.build("dia_matvec")
     assert not list((fake_nvcc / "_build").glob("*.so"))
+
+
+def test_masked_spgemm_builds_with_the_same_flags(fake_nvcc):
+    out = _build.build("masked_spgemm")
+    assert out.name.startswith("libmasked_spgemm-")
+    calls = (fake_nvcc / "calls.log").read_text().splitlines()
+    assert "-gencode arch=compute_90a,code=sm_90a" in calls[0]
+    assert str(_build.CSRC / "masked_spgemm.cu") in calls[0]
+
+
+def test_cpu_tensors_never_load_the_spgemm_library():
+    A = SparseELL.from_scipy(poisson((9, 9), format="csr"))
+    pat = sentinel_cols(pattern_spgemm(A.to_scipy(), A.to_scipy(),
+                                       dtype=np.float64))
+    before = (spgemm_kernel._lib, dict(spgemm_kernel.launches),
+              spgemm_kernel.plain_cuda_calls)
+    spgemm_kernel.masked_spgemm_gather(A.data, A.cols, A.data, A.cols, pat)
+    spgemm_kernel.masked_spgemm_banded(A.data, A.cols, A.data, A.cols, pat,
+                                       (-9, -1, 0, 1, 9))
+    assert (spgemm_kernel._lib, dict(spgemm_kernel.launches),
+            spgemm_kernel.plain_cuda_calls) == before
 
 
 def test_cpu_tensors_never_load_the_kernel_library():
@@ -140,3 +167,55 @@ def test_cuda_solve_runs_through_the_kernel(cuda_device):
     assert x.device.type == "cuda"
     x = x.cpu().numpy()
     assert np.linalg.norm(b - A @ x) <= 5e-10 * np.linalg.norm(b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_spgemm_kernels_match_plain_version(cuda_device, dtype):
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    for label, case in spgemm_cases.ALL.items():
+        A_csr, B_csr = case()
+        A = SparseELL.from_scipy(A_csr, dtype=dtype, device=cuda_device)
+        B = SparseELL.from_scipy(B_csr, dtype=dtype, device=cuda_device)
+        pat_ell = pattern_spgemm(A_csr, B_csr, device=cuda_device)
+        pat = sentinel_cols(pat_ell)
+        ref = spgemm_kernel.masked_matmul_vals_plain(A.data, A.cols, B.data,
+                                                     B.cols, pat)
+        scale = float(ref.abs().max())
+        plan = BandedSpgemmPlan(A, B, pat_ell)
+        runs = [("masked_spgemm_gather", lambda: spgemm_kernel.
+                 masked_spgemm_gather(A.data, A.cols, B.data, B.cols, pat))]
+        if plan.feasible:
+            runs.append(("masked_spgemm_banded", lambda: plan(A, B).data))
+        for name, run in runs:
+            before = spgemm_kernel.launches[name]
+            out = run()
+            torch.cuda.synchronize()
+            assert spgemm_kernel.launches[name] == before + 1
+            err = float((out - ref).abs().max())
+            assert err <= tol * scale, (label, name, err / scale)
+        assert plan.feasible == (label not in spgemm_cases.GENERAL), label
+
+
+@pytest.mark.cuda
+def test_cuda_general_setup_runs_through_the_kernels(cuda_device):
+    from pyamg_tpu_torch.parallel import general_sa_setup_sharded
+
+    A = poisson((96, 96), format="csr")
+    before = (dict(spgemm_kernel.launches), spgemm_kernel.plain_cuda_calls)
+    sol = general_sa_setup_sharded(A, dtype=np.float64, device=cuda_device)
+    for name in spgemm_kernel.launches:
+        assert spgemm_kernel.launches[name] > before[0][name], name
+    assert spgemm_kernel.plain_cuda_calls == before[1]
+    ref = general_sa_setup_sharded(A, dtype=np.float64, device="cpu")
+    assert len(sol.levels) == len(ref.levels)
+    for lo, lr in zip(sol.levels, ref.levels):
+        d = abs(lo.A_csr - lr.A_csr)
+        assert (d.max() if d.nnz else 0.0) <= 1e-12 * abs(lr.A_csr).max()
+    b = A @ np.random.default_rng(0).random(A.shape[0])
+    res, res_ref = [], []
+    x = sol.solve(b, tol=1e-8, accel="cg", maxiter=100, residuals=res)
+    ref.solve(b, tol=1e-8, accel="cg", maxiter=100, residuals=res_ref)
+    assert x.device.type == "cuda" and len(res) == len(res_ref)
+    x = x.cpu().numpy()
+    assert np.linalg.norm(b - A @ x) <= 1e-8 * np.linalg.norm(b)

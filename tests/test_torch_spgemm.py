@@ -1,0 +1,295 @@
+"""The port's padded ELL and masked SpGEMM against the JAX package's.
+
+The plain PyTorch twin of the two masked-SpGEMM kernels
+(``masked_matmul_vals_plain``, behind ``masked_spgemm_ell``) is held
+against the Pallas kernels K4 (banded) and K5 (one-hot), run in the Pallas
+interpreter as tests/test_pallas.py runs them, on the same cases
+(tests/spgemm_cases.py draws them as that file does), and
+against the JAX package's exact XLA formulation.  Tolerances, relative to
+the largest value of the reference product:
+
+* K4 is exact float32 arithmetic: 1e-6 (summation order only);
+* K5 contracts in three bf16 passes: 5e-5 (its own tests' bound);
+* the JAX XLA form: 1e-6 in float32, 1e-12 in float64.
+
+The CUDA kernels themselves run only on the card
+(tests/test_torch_kernel.py); here every wrapper takes its CPU branch.
+"""
+
+import numpy as np
+import pytest
+import scipy.sparse as sp
+import torch
+
+from pyamg_tpu.gallery import poisson
+from pyamg_tpu.sparse import spgemm_dia as jax_spd
+from pyamg_tpu.sparse import spgemm_pallas as jax_spp
+from pyamg_tpu.sparse.ell import SparseELL as JaxELL
+from pyamg_tpu.sparse.spgemm_device import ell_transpose_onto as jax_transpose
+from pyamg_tpu.sparse.spgemm_device import masked_spgemm_ell as jax_mm
+from pyamg_tpu.sparse.spgemm_device import pattern_spgemm as jax_pattern
+from pyamg_tpu.sparse.spgemm_device import rap_pattern as jax_rap_pattern
+from pyamg_tpu_torch.sparse import SparseELL, device_operator, spgemm_kernel
+from pyamg_tpu_torch.sparse.ell import ell_matvec
+from pyamg_tpu_torch.sparse.spgemm_device import (ell_transpose_onto,
+                                                  masked_spgemm_auto,
+                                                  masked_spgemm_ell,
+                                                  pattern_spgemm, rap_pattern,
+                                                  sentinel_cols)
+from pyamg_tpu_torch.sparse.spgemm_dia import BandedSpgemmPlan
+from spgemm_cases import BANDED, GENERAL, banded, irregular, near_band
+
+torch.set_num_threads(1)
+
+
+def _ell(M, dtype):
+    return SparseELL.from_scipy(M, dtype=dtype)
+
+
+def _jell(M, dtype):
+    return JaxELL.from_scipy(M, dtype=dtype)
+
+
+def _rel(out, ref):
+    o = np.asarray(out, dtype=np.float64)
+    r = np.asarray(ref, dtype=np.float64)
+    return np.abs(o - r).max() / (np.abs(r).max() or 1.0)
+
+
+@pytest.fixture
+def k4_interpret():
+    jax_spd._INTERPRET[0] = True
+    yield
+    jax_spd._INTERPRET[0] = False
+
+
+@pytest.fixture
+def k5_interpret():
+    jax_spp._INTERPRET[0] = True
+    yield
+    jax_spp._INTERPRET[0] = False
+
+
+# ---------------------------------------------------------------------------
+# the twin against K4 and K5 in the Pallas interpreter
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("case", sorted(BANDED))
+def test_twin_matches_k4_interpret(case, k4_interpret):
+    A_csr, B_csr = BANDED[case]()
+    jA, jB = _jell(A_csr, np.float32), _jell(B_csr, np.float32)
+    jpat = jax_pattern(A_csr, B_csr, dtype=np.float32)
+    jplan = jax_spd.BandedSpgemmPlan(jA, jB, jpat)
+    assert jplan.feasible, jplan.describe()
+    k4 = jplan(jA, jB)
+
+    A, B = _ell(A_csr, np.float32), _ell(B_csr, np.float32)
+    pat = pattern_spgemm(A_csr, B_csr, dtype=np.float32)
+    plan = BandedSpgemmPlan(A, B, pat)
+    assert plan.feasible and plan.offsets == jplan.offsets
+    twin = masked_spgemm_ell(A, B, pat)
+    assert _rel(twin.data, k4.data) <= 1e-6
+    # the banded plan on a CPU tensor runs the twin
+    assert torch.equal(plan(A, B).data, twin.data)
+
+
+@pytest.mark.parametrize("case", sorted(GENERAL))
+def test_twin_matches_k5_interpret(case, k5_interpret):
+    A_csr, B_csr = GENERAL[case]()
+    jA, jB = _jell(A_csr, np.float32), _jell(B_csr, np.float32)
+    jpat = jax_pattern(A_csr, B_csr, dtype=np.float32)
+    jplan = jax_spp.MaskedSpgemmPlan(jA, jB, jpat, T=64, Wc=64)
+    assert jplan.feasible
+    k5 = jplan(jA, jB)
+
+    A, B = _ell(A_csr, np.float32), _ell(B_csr, np.float32)
+    pat = pattern_spgemm(A_csr, B_csr, dtype=np.float32)
+    twin = masked_spgemm_ell(A, B, pat)
+    assert _rel(twin.data, k5.data) <= 5e-5
+    # the gather kernel's wrapper on a CPU tensor runs the twin
+    out = spgemm_kernel.masked_spgemm_gather(A.data, A.cols, B.data, B.cols,
+                                             sentinel_cols(pat))
+    assert torch.equal(out, twin.data)
+
+
+def test_twin_matches_k5_interpret_on_a_galerkin_chain(k5_interpret):
+    from pyamg_tpu.classical.classical import ruge_stuben_solver
+
+    A_csr = sp.csr_matrix(poisson((24, 24), format="csr"))
+    ml = ruge_stuben_solver(A_csr, max_levels=2, max_coarse=10)
+    P_csr = sp.csr_matrix(ml.levels[0].P_csr if hasattr(ml.levels[0], "P_csr")
+                          else ml.levels[0].P)
+    R_csr = sp.csr_matrix(P_csr.T)
+    R_csr.sort_indices()
+    jA, jP, jR = (_jell(M, np.float32) for M in (A_csr, P_csr, R_csr))
+    jpAP, jpRAP = jax_rap_pattern(R_csr, A_csr, P_csr, dtype=np.float32)
+    jAP = jax_spp.MaskedSpgemmPlan(jA, jP, jpAP, T=64, Wc=64)(jA, jP)
+    k5 = jax_spp.MaskedSpgemmPlan(jR, jpAP, jpRAP, T=64, Wc=64)(jR, jAP)
+
+    A, P, R = (_ell(M, np.float32) for M in (A_csr, P_csr, R_csr))
+    pAP, pRAP = rap_pattern(R_csr, A_csr, P_csr, dtype=np.float32)
+    np.testing.assert_array_equal(pRAP.cols.numpy(), np.asarray(jpRAP.cols))
+    AP = masked_spgemm_ell(A, P, pAP)
+    RAP = masked_spgemm_ell(R, AP, pRAP)
+    assert _rel(RAP.data, k5.data) <= 5e-5
+    exact = R_csr @ A_csr @ P_csr
+    got = RAP.to_scipy().astype(np.float64)
+    assert abs(got - exact).max() / abs(exact).max() <= 1e-6
+
+
+# ---------------------------------------------------------------------------
+# the twin against the JAX XLA formulation, in float32 and float64
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,tol", [(np.float32, 1e-6), (np.float64, 1e-12)])
+@pytest.mark.parametrize("case", ["5pt", "wideA", "rectangular",
+                                  "multichunk"])
+def test_twin_matches_jax_masked_spgemm_ell(case, dtype, tol):
+    A_csr, B_csr = {**BANDED, **GENERAL}[case]()
+    jpat = jax_pattern(A_csr, B_csr, dtype=dtype)
+    ref = jax_mm(_jell(A_csr, dtype), _jell(B_csr, dtype), jpat)
+    pat = pattern_spgemm(A_csr, B_csr, dtype=dtype)
+    np.testing.assert_array_equal(pat.cols.numpy(), np.asarray(jpat.cols))
+    np.testing.assert_array_equal(pat.row_nnz.numpy(),
+                                  np.asarray(jpat.row_nnz))
+    out = masked_spgemm_ell(_ell(A_csr, dtype), _ell(B_csr, dtype), pat)
+    assert out.dtype == torch.from_numpy(np.zeros(0, dtype)).dtype
+    assert _rel(out.data, ref.data) <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(np.float32, 1e-6), (np.float64, 0)])
+def test_transpose_onto_matches_jax(dtype, tol):
+    P_csr = near_band(400, 130, 3, per_row=3, seed=5)
+    patR = jax_pattern(sp.csr_matrix(P_csr.T), sp.identity(400), dtype=dtype)
+    ref = jax_transpose(_jell(P_csr, dtype), patR)
+    ours = ell_transpose_onto(_ell(P_csr, dtype),
+                              pattern_spgemm(P_csr.T, sp.identity(400),
+                                             dtype=dtype))
+    assert _rel(ours.data, ref.data) <= tol
+    assert abs(ours.to_scipy() - P_csr.T).max() <= 1e-6 * abs(P_csr).max()
+
+
+# ---------------------------------------------------------------------------
+# plans and the router
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("case", ["5pt", "9pt", "63_offsets", "121_offsets",
+                                  "irregular_left"])
+def test_banded_feasibility_agrees_with_jax(case):
+    if case == "irregular_left":         # test_infeasible_irregular_left
+        A_csr = irregular(800, 0.01, seed=0)
+        B_csr = A_csr
+    elif case.endswith("_offsets"):      # 3 entries a row, offsets |d| < bw
+        bw = {"63_offsets": 31, "121_offsets": 60}[case]
+        A_csr = near_band(3000, 3000, bw, per_row=3, seed=3)
+        B_csr = near_band(3000, 3000, 2, per_row=2, seed=4)
+    else:
+        A_csr, B_csr = BANDED[case]()
+    jplan = jax_spd.BandedSpgemmPlan(
+        _jell(A_csr, np.float32), _jell(B_csr, np.float32),
+        jax_pattern(A_csr, B_csr, dtype=np.float32))
+    A, B = _ell(A_csr, np.float32), _ell(B_csr, np.float32)
+    plan = BandedSpgemmPlan(A, B, pattern_spgemm(A_csr, B_csr))
+    assert plan.feasible == jplan.feasible
+    if not plan.feasible:
+        with pytest.raises(ValueError, match="infeasible"):
+            plan(A, B)
+
+
+def test_banded_probe_rejects_a_large_irregular_left_operand():
+    # more than 16384 rows: the 4096-row sample alone has > 64 offsets
+    A_csr = near_band(20000, 20000, 5000, per_row=3, seed=1)
+    A = _ell(A_csr, np.float64)
+    assert not BandedSpgemmPlan(A, A, pattern_spgemm(A_csr, A_csr)).feasible
+
+
+def test_plans_refuse_slabs_wider_than_64():
+    A_csr = sp.csr_matrix(np.ones((4, 70)))
+    B_csr = sp.csr_matrix(np.ones((70, 3)))
+    A, B = _ell(A_csr, np.float32), _ell(B_csr, np.float32)
+    pat = pattern_spgemm(A_csr, B_csr)
+    assert not BandedSpgemmPlan(A, B, pat).feasible
+    with pytest.raises(ValueError, match="up to 64"):
+        spgemm_kernel.masked_spgemm_gather(A.data, A.cols, B.data, B.cols,
+                                           sentinel_cols(pat))
+
+
+def test_router_on_cpu_runs_the_twin_and_launches_nothing():
+    A_csr, B_csr = BANDED["5pt"]()
+    A, B = _ell(A_csr, np.float64), _ell(B_csr, np.float64)
+    pat = pattern_spgemm(A_csr, B_csr, dtype=np.float64)
+    before = (dict(spgemm_kernel.launches), spgemm_kernel._lib)
+    out = masked_spgemm_auto(A, B, pat)
+    assert (dict(spgemm_kernel.launches), spgemm_kernel._lib) == before
+    assert torch.equal(out.data, masked_spgemm_ell(A, B, pat).data)
+
+
+@pytest.mark.parametrize("bad", ["dtype_mix", "int64_cols", "wide",
+                                 "offsets", "noncontiguous", "meta"])
+def test_wrapper_argument_checks(bad):
+    A_csr = banded(50, [-1, 0, 1], seed=0)
+    A = _ell(A_csr, np.float32)
+    Ad, Ac = A.data, A.cols
+    pat = sentinel_cols(pattern_spgemm(A_csr, A_csr))
+    Bd, Bc, offsets = Ad, Ac, (-1, 0, 1)
+    err = ValueError
+    if bad == "dtype_mix":
+        Bd, err = Ad.double(), TypeError
+    elif bad == "int64_cols":
+        Ac, err = Ac.long(), TypeError
+    elif bad == "wide":
+        Ad = torch.zeros((50, 65))
+        Ac = torch.zeros((50, 65), dtype=torch.int32)
+    elif bad == "offsets":
+        offsets = tuple(range(65))
+    elif bad == "noncontiguous":
+        pat = pat.t().contiguous().t()
+    else:
+        Ad, Ac, Bd, Bc, pat = (t.to("meta") for t in (Ad, Ac, Bd, Bc, pat))
+    with pytest.raises(err):
+        spgemm_kernel.masked_spgemm_banded(Ad, Ac, Bd, Bc, pat, offsets)
+    if bad != "offsets":
+        with pytest.raises(err):
+            spgemm_kernel.masked_spgemm_gather(Ad, Ac, Bd, Bc, pat)
+
+
+# ---------------------------------------------------------------------------
+# SparseELL and the device-format chooser
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(60, 60), (90, 31), (31, 90)])
+def test_ell_matches_jax_and_scipy(shape):
+    M = near_band(shape[0], shape[1], 4, per_row=4, seed=3)
+    M.data[M.indptr[3]:M.indptr[4]] = 0       # an empty row
+    M.eliminate_zeros()
+    E, J = _ell(M, np.float64), _jell(M, np.float64)
+    for ours, ref in ((E.data, J.data), (E.cols, J.cols),
+                      (E.row_nnz, J.row_nnz), (E.valid_mask(),
+                                               J.valid_mask())):
+        np.testing.assert_array_equal(ours.numpy(), np.asarray(ref))
+    np.testing.assert_array_equal(E.diagonal().numpy(),
+                                  np.asarray(J.diagonal()))
+    assert E.nnz == J.nnz == M.nnz and E.width == J.width
+    assert abs(E.to_scipy() - M).max() == 0
+    rng = np.random.default_rng(0)
+    x, y = rng.standard_normal(shape[1]), rng.standard_normal(shape[0])
+    np.testing.assert_allclose(E.matvec(torch.as_tensor(x)).numpy(), M @ x,
+                               rtol=1e-13, atol=1e-13)
+    np.testing.assert_allclose(E.rmatvec(torch.as_tensor(y)).numpy(),
+                               M.T @ y, rtol=1e-13, atol=1e-13)
+    np.testing.assert_allclose(
+        ell_matvec(E.data, E._cols_in_range(), torch.as_tensor(x)).numpy(),
+        np.asarray(J.matvec(x)), rtol=1e-14, atol=1e-14)
+    assert E.astype(torch.float32).dtype == torch.float32
+
+
+def test_wide_offset_operator_gets_ell():
+    # 2000 rows, > 512 distinct diagonals, too big for the dense form
+    M = near_band(5000, 5000, 2000, per_row=3, seed=2)
+    op = device_operator(M, dtype=np.float64)
+    assert isinstance(op, SparseELL)
+    x = np.random.default_rng(1).standard_normal(5000)
+    np.testing.assert_allclose(op.matvec(torch.as_tensor(x)).numpy(), M @ x,
+                               rtol=1e-12, atol=1e-12)
+    from pyamg_tpu.sparse import device_operator as jax_device_operator
+    assert type(jax_device_operator(M)).__name__ == "SparseELL"

@@ -1,17 +1,23 @@
 """Smoke run of pyamg_tpu_torch on one NVIDIA GPU.
 
 Builds the port's CUDA kernels from the sources in this checkout, holds
-each against its plain PyTorch version, drives the port's two paths on the
-1024^2 5-point Poisson problem (1,048,576 unknowns) and times each kernel
-beside its plain version:
+each against its plain PyTorch version, drives the port's three paths and
+times each kernel beside its plain version, its least possible time (its
+bytes over the card's memory rate) and the one PyTorch library call that
+computes the same function:
 
-* the structured path: smoothed aggregation on the grid, solved to a
-  float64 relative residual of 1e-10 by float32 V-cycle-preconditioned CG
-  inside float64 defect correction (kernel: dia_matvec);
-* the general path: ``parallel.general_sa_setup_sharded`` in float32, its
-  Galerkin products on the card (kernels: masked_spgemm_banded and
-  masked_spgemm_gather), then CG with multicolor Gauss-Seidel V-cycles to
-  1e-8.
+* the structured path on the 1024^2 5-point Poisson problem (1,048,576
+  unknowns): smoothed aggregation on the grid, solved to a float64
+  relative residual of 1e-10 by float32 V-cycle-preconditioned CG inside
+  float64 defect correction (kernel: dia_matvec);
+* the general path on the same problem: ``parallel.general_sa_setup_sharded``
+  in float32, its Galerkin products on the card (kernels:
+  masked_spgemm_banded and masked_spgemm_gather), then CG with multicolor
+  Gauss-Seidel V-cycles to 1e-8;
+* the DIA SpMV benchmark (``pyamg_tpu_torch.benchmarks.dia_spmv_bench``) at
+  2048^2 and 1024^2: every DIA kernel -- dia_matvec in float32 and on
+  bfloat16 diagonals, dia_matvec_v1, dia_matvec_v2 -- beside the plain form
+  and cuSPARSE's CSR SpMV.
 
     python3 chip_smoke.py          # from the repository root, one GPU
 
@@ -34,7 +40,10 @@ import numpy as np
 
 GRID = (1024, 1024)
 TOL = 1e-10
-REL_TOL = {"float32": 1e-5, "float64": 1e-12}   # kernel vs plain, max rel
+REL_TOL = {"float32": 1e-5, "float64": 1e-12,   # kernel vs plain, max rel
+           "bfloat16": 1e-6}    # bf16 diagonals: the twin's float32 sums
+BENCH_GRIDS = (2048, 1024)
+F32_FLOP_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
 KERNELS = {
     "dia_matvec": {"route": "cuda",
                    "source": "pyamg_tpu_torch/csrc/dia_matvec.cu",
@@ -45,6 +54,12 @@ KERNELS = {
     "masked_spgemm_gather": {
         "route": "cuda", "source": "pyamg_tpu_torch/csrc/masked_spgemm.cu",
         "replaces": "pyamg_tpu/sparse/spgemm_pallas.py:238"},
+    "dia_matvec_v2": {"route": "cuda",
+                      "source": "pyamg_tpu_torch/csrc/dia_matvec_v2.cu",
+                      "replaces": "pyamg_tpu/sparse/pallas_kernels.py:111"},
+    "dia_matvec_v1": {"route": "cuda",
+                      "source": "pyamg_tpu_torch/csrc/dia_matvec_v1.cu",
+                      "replaces": "pyamg_tpu/sparse/pallas_kernels.py:246"},
 }
 SETUP_KW = dict(max_coarse=500, presmoother="chebyshev",
                 postsmoother="chebyshev", improve_candidates=None)
@@ -80,14 +95,17 @@ def build_kernels():
     """One nvcc per source, all started together, then load each."""
     phase("2. build")
     from pyamg_tpu_torch import _build
-    from pyamg_tpu_torch.sparse import dia_kernel, spgemm_kernel
+    from pyamg_tpu_torch.sparse import dia_kernel, dia_variants, spgemm_kernel
 
     t0 = time.perf_counter()
-    sources = ("dia_matvec", "masked_spgemm")
+    sources = ("dia_matvec", "masked_spgemm", "dia_matvec_v2",
+               "dia_matvec_v1")
     with ThreadPoolExecutor(len(sources)) as pool:
         libs = list(pool.map(_build.build, sources))
     dia_kernel.load()
     spgemm_kernel.load()
+    dia_variants.load("dia_matvec_v2")
+    dia_variants.load("dia_matvec_v1")
     print(f"{', '.join(sources)} built and loaded in "
           f"{time.perf_counter() - t0:.2f} s")
     for lib in libs:
@@ -404,28 +422,97 @@ def _host_us(torch, fn, calls=200):
     return (time.perf_counter() - t0) / calls * 1e6
 
 
-def _median_pair(torch, first, second, samples=20):
-    """Medians of alternating samples (second, first, first, second, ...)
-    after a warm-up: ``(first_ms, second_ms)``."""
+def _medians(torch, *fns, samples=20):
+    """Median device ms per call of each of ``fns``, sampled in turn
+    (forward, then backward, alternately) after a warm-up."""
     for _ in range(3):
-        first()
-        second()
-    fs, ss = [], []
+        for fn in fns:
+            fn()
+    times = [[] for _ in fns]
     for i in range(samples):
-        order = (second, first) if i % 2 == 0 else (first, second)
-        for fn in order:
-            (ss if fn is second else fs).append(_sample(torch, fn))
-    return statistics.median(fs), statistics.median(ss)
+        order = range(len(fns)) if i % 2 else range(len(fns) - 1, -1, -1)
+        for j in order:
+            times[j].append(_sample(torch, fns[j]))
+    return [statistics.median(t) for t in times]
+
+
+def bound(nbytes, flops):
+    """``(ms, "bytes" or "operations")``: the least time the card could
+    take to move ``nbytes`` (each input read once, each output written
+    once) and do ``flops`` float32 operations, and which of the two sets
+    it."""
+    from pyamg_tpu_torch.benchmarks.dia_spmv_bench import HBM_BYTES_PER_S
+
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def dia_work(op, x):
+    """Bytes and flops of one DIA matvec of ``op`` with ``x``: the
+    diagonals, offsets and x read once, y written once; a multiply and an
+    add per in-range entry."""
+    n, m = op.shape
+    entries = sum(max(0, min(n, m - o) - max(0, -o)) for o in op.offsets)
+    nbytes = (op.diags.numel() * op.diags.element_size()
+              + op.offsets_dev.numel() * 4
+              + x.numel() * x.element_size() + n * x.element_size())
+    return nbytes, 2 * entries
+
+
+def spgemm_library(torch, A, B, pattern, out):
+    """cuSPARSE SpGEMM (``torch.sparse.mm`` of two CSR tensors) on the
+    masked product's operands: the call, whether its pattern equals the
+    mask (only then does it compute the masked product's values) and its
+    largest difference from the kernel's output ``out``, relative to the
+    largest |value|."""
+    import scipy.sparse as sp
+    from pyamg_tpu_torch.benchmarks.dia_spmv_bench import csr_tensor
+
+    As, Bs = (csr_tensor(M.to_scipy(), "cuda", torch.float32) for M in (A, B))
+    C = torch.sparse.mm(As, Bs)
+    Cs = sp.csr_matrix((C.values().cpu().numpy(),
+                        C.col_indices().cpu().numpy().astype(np.int64),
+                        C.crow_indices().cpu().numpy().astype(np.int64)),
+                       shape=tuple(C.shape))
+    Cs.sort_indices()
+    mask = pattern.to_scipy()
+    mask.sort_indices()
+    same = (Cs.shape == mask.shape
+            and np.array_equal(Cs.indptr, mask.indptr)
+            and np.array_equal(Cs.indices, mask.indices))
+    ours = masked_values(out, pattern).tocsr()
+    diff = abs(Cs - ours)
+    scale = max(abs(ours).max(), 1e-300)
+    rel = (diff.max() if diff.nnz else 0.0) / scale
+    return functools.partial(torch.sparse.mm, As, Bs), same, rel
+
+
+def masked_values(out, pattern):
+    """The masked product's output slab on its pattern, as scipy COO."""
+    import scipy.sparse as sp
+
+    valid = pattern.valid_mask().cpu().numpy()
+    n, w = valid.shape
+    rows = np.broadcast_to(np.arange(n)[:, None], (n, w))
+    return sp.coo_matrix((out.cpu().numpy()[valid],
+                          (rows[valid], pattern.cols.cpu().numpy()[valid])),
+                         shape=pattern.shape)
 
 
 def time_kernels(torch, ml, products):
     """The DIA kernel at the structured level-0 shape (float32 and
     float64), and the SpGEMM kernels at the general path's level-0 A*P
     (banded) and R*AP (gather) shapes (float32), each beside its plain
-    version; device time from :func:`_median_pair`, the host's own cost per
-    call beside it.  Then the banded kernel beside the gather kernel on
-    every recorded product the router sends to the banded one."""
+    version; device time from :func:`_medians`, the host's own cost per
+    call beside it.  The DIA kernel's level-0 set fits the card's L2, so it
+    is timed both warm (back to back on one operand) and cold (cycling
+    through copies that overflow L2).  The SpGEMM kernels also beside their
+    bound and library call; their record for the kernels line.  Then the
+    banded kernel beside the gather kernel on every recorded product the
+    router sends to the banded one."""
     phase("7. kernel time")
+    from pyamg_tpu_torch.benchmarks.dia_spmv_bench import L2_BYTES, csr_tensor
     from pyamg_tpu_torch.sparse import SparseDIA, spgemm_kernel
     from pyamg_tpu_torch.sparse.spgemm_device import sentinel_cols
     from pyamg_tpu_torch.sparse.spgemm_dia import BandedSpgemmPlan
@@ -436,17 +523,39 @@ def time_kernels(torch, ml, products):
         op = SparseDIA(A0.diags.to(dtype), A0.offsets, A0.shape)
         x = torch.rand(op.shape[1], device="cuda", dtype=dtype)
         kernel, plain = (lambda: op.matvec(x)), (lambda: op.matvec_plain(x))
-        k_ms, p_ms = _median_pair(torch, kernel, plain)
         name = str(dtype).split(".")[-1]
-        nbytes = (op.n_offsets + 2) * op.shape[0] * x.element_size()
-        print(f"dia_matvec {name}: level-0 {op.shape} {op.n_offsets} offsets"
-              f"  kernel {k_ms * 1e3:.1f} us device ({nbytes / k_ms / 1e6:.0f}"
-              f" GB/s of (k+2)n bytes), {_host_us(torch, kernel):.1f} us per "
-              f"call on the host clock;  plain {p_ms * 1e3:.1f} us device, "
-              f"{_host_us(torch, plain):.1f} us per call;  plain/kernel "
-              f"{p_ms / k_ms:.2f}")
+        nbytes, flops = dia_work(op, x)
         if dtype == torch.float32:
-            out["dia_matvec"] = (k_ms, p_ms)
+            csr = csr_tensor(op.to_scipy(), "cuda", dtype)
+            k_ms, p_ms, lib_ms = _medians(torch, kernel, plain,
+                                          lambda: torch.mv(csr, x))
+        else:
+            k_ms, p_ms = _medians(torch, kernel, plain)
+        print(f"dia_matvec {name}: level-0 {op.shape} {op.n_offsets} offsets"
+              f" ({nbytes / 1e6:.1f} MB; the card's L2 holds "
+              f"{L2_BYTES / 2**20:.0f} MiB), warm (L2-resident): kernel "
+              f"{k_ms * 1e3:.1f} us device, {_host_us(torch, kernel):.1f} us "
+              f"per call on the host clock;  plain {p_ms * 1e3:.1f} us "
+              f"device, {_host_us(torch, plain):.1f} us per call;  "
+              f"plain/kernel {p_ms / k_ms:.2f}")
+        if dtype == torch.float32:
+            copies = int(2 * L2_BYTES // nbytes) + 2
+            ops = [(SparseDIA(op.diags.clone(), op.offsets, op.shape),
+                    x.clone()) for _ in range(copies)]
+
+            def cold():
+                for o, xo in ops:
+                    o.matvec(xo)
+
+            cold_ms = _medians(torch, cold)[0] / copies
+            b_ms, _ = bound(nbytes, flops)
+            print(f"dia_matvec float32: level-0 cold (L2 flushed: {copies} "
+                  f"copies in turn) {cold_ms * 1e3:.2f} us device against "
+                  f"its bound of {b_ms * 1e3:.2f} us (bytes over the HBM "
+                  f"rate), kernel/bound {cold_ms / b_ms:.2f};  warm cuSPARSE "
+                  f"CSR SpMV (torch.mv, int32 indices) {lib_ms * 1e3:.1f} us "
+                  f"device, library/kernel {lib_ms / k_ms:.2f} (both "
+                  f"L2-resident)")
 
     by_label = {label: (A, B, pat) for label, A, B, pat in products}
 
@@ -465,25 +574,146 @@ def time_kernels(torch, ml, products):
                         ("masked_spgemm_gather", "level 0 R*AP")):
         banded, gather, plain, slabs = spgemm(label)
         kernel = banded if name == "masked_spgemm_banded" else gather
-        k_ms, p_ms = _median_pair(torch, kernel, plain)
+        A, B, pattern = by_label[label]
+        res = kernel()
+        res = res if torch.is_tensor(res) else res.data     # banded: an ELL
+        library, same, rel = spgemm_library(torch, A, B, pattern, res)
+        k_ms, p_ms, lib_ms = _medians(torch, kernel, plain, library)
         print(f"{name} float32: {label} A {tuple(slabs[0].shape)} B "
               f"{tuple(slabs[2].shape)} out {tuple(slabs[4].shape)}  kernel "
               f"{k_ms * 1e3:.1f} us device, {_host_us(torch, kernel):.1f} us "
               f"per call on the host clock;  plain {p_ms * 1e3:.1f} us "
               f"device, {_host_us(torch, plain, 20):.1f} us per call;  "
               f"plain/kernel {p_ms / k_ms:.2f}")
-        out[name] = (k_ms, p_ms)
+        nbytes = (sum(t.numel() * t.element_size() for t in slabs)
+                  + res.numel() * res.element_size())
+        As, Bs = A.to_scipy(), B.to_scipy()
+        products_needed = int(np.diff(Bs.indptr)[As.indices].sum())
+        b_ms, b_by = bound(nbytes, 2 * products_needed)
+        print(f"{name} float32: {label} bound {b_ms * 1e3:.1f} us "
+              f"({nbytes / 1e6:.1f} MB, {products_needed} products), "
+              f"kernel/bound {k_ms / b_ms:.2f};  cuSPARSE SpGEMM "
+              f"(torch.sparse.mm, int32 CSR) {lib_ms * 1e3:.1f} us device, "
+              f"library/kernel {lib_ms / k_ms:.2f}; library pattern equals "
+              f"the mask: {same}; max rel difference from the kernel "
+              f"{rel:.2e}")
+        out[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                         bound_by=b_by, library_ms=lib_ms)
 
     # the products the router sends to the banded kernel, on both kernels
     for label in ("level 0 S*T", "level 0 A*P", "level 1 S*T",
                   "level 1 A*P"):
         banded, gather, _, slabs = spgemm(label)
-        b_ms, g_ms = _median_pair(torch, banded, gather)
+        b_ms, g_ms = _medians(torch, banded, gather)
         print(f"banded vs gather float32: {label} A {tuple(slabs[0].shape)} "
               f"B {tuple(slabs[2].shape)} out {tuple(slabs[4].shape)}  "
               f"banded {b_ms * 1e3:.1f} us, gather {g_ms * 1e3:.1f} us "
               f"device;  banded/gather {b_ms / g_ms:.2f}")
     return out
+
+
+def _dia_variants(torch, D):
+    """``{name: (launch, plain)}`` of the DIA kernels the benchmark adds,
+    on the float32 operator ``D`` (on the card): the two variants, and
+    dia_matvec on bfloat16 diagonals."""
+    from pyamg_tpu_torch.sparse import SparseDIA, dia_variants
+
+    d, offs = D.diags, D.offsets
+    Db = SparseDIA(d.to(torch.bfloat16), offs, D.shape)
+    return {
+        "dia_matvec_v2": (lambda x: dia_variants.dia_matvec_v2(d, offs, x),
+                          lambda x: dia_variants.dia_matvec_v2_plain(
+                              d, offs, x)),
+        "dia_matvec_v1": (lambda x: dia_variants.dia_matvec_v1(d, offs, x),
+                          lambda x: dia_variants.dia_matvec_v1_plain(
+                              d, offs, x)),
+        "dia_matvec bf16 diags": (Db.matvec, Db.matvec_plain),
+    }
+
+
+def check_dia_variants(torch, rng, bench):
+    """dia_matvec_v2, dia_matvec_v1 and dia_matvec on bfloat16 diagonals
+    vs their plain twins on the card, on the CPU tests' operators and on
+    the benchmark's problem ``bench`` (2048^2); returns the largest
+    absolute difference per kernel."""
+    phase("8. DIA variants vs plain")
+    from pyamg_tpu_torch.sparse import SparseDIA
+
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "tests"))
+    import dia_cases
+
+    cases = [(label, SparseDIA.from_scipy(case(), dtype=np.float32,
+                                          device="cuda"))
+             for label, case in dia_cases.ALL.items()]
+    cases.append((f"bench {bench.G}^2 (Poisson / 8)", bench.D))
+    worst = {}
+    for label, D in cases:
+        x = torch.as_tensor(rng.random(D.shape[0], dtype=np.float32),
+                            device="cuda")
+        for name, (launch, plain) in _dia_variants(torch, D).items():
+            y, y_ref = launch(x), plain(x)
+            torch.cuda.synchronize()
+            err = float((y - y_ref).abs().max())
+            rel = err / max(float(y_ref.abs().max()), 1e-300)
+            tol = REL_TOL["bfloat16" if "bf16" in name else "float32"]
+            if not (y.dtype == torch.float32 and bool(torch.isfinite(y).all())
+                    and rel <= tol):
+                raise AssertionError(f"{name} {label}: max rel error "
+                                     f"{rel:.3e} > {tol}")
+            key = "dia_matvec" if "bf16" in name else name
+            worst[key] = max(worst.get(key, 0.0), err)
+            print(f"{name:22s} {label:28s} n={D.shape[0]:8d} offsets "
+                  f"{len(D.offsets)}  max abs {err:.3e} rel {rel:.3e}")
+    return worst
+
+
+def dia_bench(torch, bench):
+    """The DIA SpMV benchmark through its entry point at 2048^2 (on the
+    problem ``bench``) and 1024^2; returns the variant kernels' launch
+    counts over the 2048^2 run, and the float32 DIA kernels' records for
+    the kernels line from that run's rows: the kernel's time, its twin's,
+    cuSPARSE's SpMV and the bound of the 2048^2 operator, which streams
+    from HBM."""
+    phase("9. DIA SpMV benchmark")
+    from pyamg_tpu_torch.benchmarks import dia_spmv_bench
+    from pyamg_tpu_torch.sparse import dia_kernel, dia_variants
+
+    print(dia_spmv_bench.card())
+    for G in BENCH_GRIDS:
+        for name in dia_variants.launches:
+            dia_variants.launches[name] = 0
+        dia_kernel.launches = 0
+        records = dia_spmv_bench.run(G, p=bench if G == bench.G else None)
+        if G == bench.G:
+            launches = dict(dia_variants.launches)
+            dia_launches = dia_kernel.launches
+            timed = records
+        print(dia_spmv_bench.report(records))
+        print(json.dumps({"dia_spmv_bench": records}))
+        for r in records:
+            tol = REL_TOL["bfloat16" if "bf16" in r["row"] else "float32"]
+            if not (r["finite"] and r["max_rel_err"] <= tol):
+                raise AssertionError(f"dia_spmv_bench {G}: {r['row']} max rel "
+                                     f"error {r['max_rel_err']:.3e}")
+    print(f"launches over the {bench.G}^2 benchmark run: {launches},"
+          f" dia_matvec (float32 and bfloat16 rows) {dia_launches}")
+    if min(launches.values()) <= 0 or dia_launches <= 0:
+        raise AssertionError(f"a DIA kernel never launched: {launches}, "
+                             f"dia_matvec {dia_launches}")
+
+    b_ms, b_by = bound(*dia_work(bench.D, bench.x))
+    lib_us = next(r["us"] for r in timed if r["row"].startswith("cuSPARSE"))
+    out = {}
+    for r in timed:
+        if r["kernel"] in KERNELS and "bf16" not in r["row"]:
+            out[r["kernel"]] = dict(ms=r["us"] / 1e3,
+                                    plain_ms=r["plain_us"] / 1e3,
+                                    bound_ms=b_ms, bound_by=b_by,
+                                    library_ms=lib_us / 1e3)
+            print(f"{r['kernel']} float32 {bench.G}^2: kernel/bound "
+                  f"{r['us'] / 1e3 / b_ms:.2f} (bound {b_ms * 1e3:.2f} us), "
+                  f"library/kernel {lib_us / r['us']:.2f}")
+    return launches, out
 
 
 def main():
@@ -498,10 +728,19 @@ def main():
     launches["dia_matvec"] = dia_launches
     worst.update(check_spgemm(torch, products))
     times = time_kernels(torch, ml, products)
+    from pyamg_tpu_torch.benchmarks import dia_spmv_bench
+
+    bench = dia_spmv_bench.problem(BENCH_GRIDS[0], "cuda")
+    variant_worst = check_dia_variants(torch, rng, bench)
+    worst["dia_matvec"] = max(worst["dia_matvec"],
+                              variant_worst.pop("dia_matvec"))
+    worst.update(variant_worst)
+    bench_launches, bench_times = dia_bench(torch, bench)
+    launches.update(bench_launches)
+    times.update(bench_times)
     print(json.dumps({"kernels": [dict(
         name=name, **KERNELS[name], launches=launches[name],
-        max_abs_err=worst[name], ms=times[name][0], plain_ms=times[name][1])
-        for name in KERNELS]}))
+        max_abs_err=worst[name], **times[name]) for name in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

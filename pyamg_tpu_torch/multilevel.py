@@ -76,7 +76,7 @@ class MultilevelSolver:
     """
 
     def __init__(self, levels: List[Level], coarse_solver="pinv",
-                 device="cpu"):
+                 device="cuda"):
         name = unpack_arg(coarse_solver)[0]
         if name not in ("pinv", "pinv2"):
             raise not_ported(f"coarse solver {name!r}", _CYCLES_KRYLOV)

@@ -95,8 +95,8 @@ def _dinv(A_csr, dtype=None):
     return out
 
 
-def make_smoother_data(lvl, fn_name, kwargs, dtype=None,
-                       device="cpu") -> SmootherData:
+def make_smoother_data(lvl, fn_name, kwargs, dtype=None, *,
+                       device) -> SmootherData:
     """The precomputed SmootherData of one option on one level.
 
     ``dtype``: target dtype of the state arrays (cast on the host).

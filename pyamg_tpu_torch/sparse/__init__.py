@@ -1,6 +1,8 @@
-"""Sparse operators: DIA storage on the hand-written SpMV kernel, padded
-ELL with the masked-SpGEMM kernels of the device setup, gather-free grid
-transfers, and the device-format chooser."""
+"""Sparse operators: DIA storage on the hand-written SpMV kernel
+(``dia_kernel``; ``dia_variants`` holds two more DIA SpMV kernels in other
+layouts, which the DIA benchmark runs), padded ELL with the masked-SpGEMM
+kernels of the device setup, gather-free grid transfers, and the
+device-format chooser."""
 
 from .dia import SparseDIA
 from .ell import SparseELL

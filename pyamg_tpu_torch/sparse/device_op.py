@@ -32,7 +32,7 @@ def _entry_rows_offsets(A_csr):
 
 
 def device_operator(A_csr, dia_max_offsets: int = DIA_MAX_OFFSETS,
-                    dense_max: int = DENSE_MAX, dtype=None, device="cpu"):
+                    dense_max: int = DENSE_MAX, dtype=None, device="cuda"):
     """The device representation of a host CSR operator: ``SparseDIA`` when
     its diagonals fit the budget, else ``DenseOp`` when small, else
     ``SparseELL``."""

@@ -104,7 +104,7 @@ class SparseDIA:
 
     @staticmethod
     def from_scipy(A, max_offsets: int = 128, dtype=None,
-                   device="cpu") -> "SparseDIA":
+                   device="cuda") -> "SparseDIA":
         """Convert a scipy matrix; ``dtype`` is a numpy or torch dtype.
         Raises ValueError above ``max_offsets`` distinct diagonals."""
         diags, uniq = SparseDIA.host_diags(A, max_offsets=max_offsets,

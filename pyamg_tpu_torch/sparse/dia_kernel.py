@@ -1,7 +1,9 @@
 """The DIA SpMV kernel: its wrapper, its plain PyTorch twin and a launch count.
 
 ``y[i] = sum_k diags[k, i] * x[i + offsets[k]]`` with zero wherever
-``i + offsets[k]`` falls outside ``[0, m)``.
+``i + offsets[k]`` falls outside ``[0, m)``.  The diagonals and x are both
+float32 or both float64, or the diagonals are bfloat16 and x float32 (then
+y is float32, the products taken in float32).
 
 :func:`dia_matvec` launches the hand-written CUDA kernel
 (``csrc/dia_matvec.cu``) on a CUDA tensor and raises if it cannot; on a CPU
@@ -34,7 +36,8 @@ def load() -> ctypes.CDLL:
         args = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                 ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
-        for fn in (lib.dia_matvec_f32, lib.dia_matvec_f64):
+        for fn in (lib.dia_matvec_f32, lib.dia_matvec_f64,
+                   lib.dia_matvec_bf16_f32):
             fn.argtypes = args
             fn.restype = ctypes.c_int
         _lib = lib
@@ -56,13 +59,17 @@ def dia_matvec_plain(diags: torch.Tensor, offsets, x: torch.Tensor,
     return y
 
 
+# (diags dtype, x dtype) -> the library's entry point
+_ENTRY = {(torch.float32, torch.float32): "dia_matvec_f32",
+          (torch.float64, torch.float64): "dia_matvec_f64",
+          (torch.bfloat16, torch.float32): "dia_matvec_bf16_f32"}
+
+
 def _check(diags, offsets, x, m):
-    if x.dtype != diags.dtype:
-        raise TypeError(f"dia_matvec: x is {x.dtype} but diags are "
-                        f"{diags.dtype}")
-    if diags.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"dia_matvec takes float32 or float64, not "
-                        f"{diags.dtype}")
+    if (diags.dtype, x.dtype) not in _ENTRY:
+        raise TypeError(f"dia_matvec takes float32 or float64 diags and x of "
+                        f"one dtype, or bfloat16 diags with a float32 x; not "
+                        f"{diags.dtype} diags with a {x.dtype} x")
     if offsets.dtype != torch.int32:
         raise TypeError("dia_matvec: offsets must be int32")
     if not (diags.device == x.device == offsets.device):
@@ -98,9 +105,7 @@ def dia_matvec(diags: torch.Tensor, offsets: torch.Tensor, x: torch.Tensor,
     y = torch.empty(n, dtype=x.dtype, device=x.device)
     if n == 0:
         return y
-    lib = load()
-    fn = lib.dia_matvec_f32 if x.dtype == torch.float32 \
-        else lib.dia_matvec_f64
+    fn = getattr(load(), _ENTRY[diags.dtype, x.dtype])
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = fn(diags.data_ptr(), offsets.data_ptr(), diags.shape[0], n, m,
              x.data_ptr(), y.data_ptr(), stream, x.device.index)

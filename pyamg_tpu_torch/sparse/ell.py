@@ -70,7 +70,7 @@ class SparseELL:
 
     # -- constructors and views ----------------------------------------------
     @staticmethod
-    def from_scipy(A, dtype=None, device="cpu") -> "SparseELL":
+    def from_scipy(A, dtype=None, device="cuda") -> "SparseELL":
         """Padded ELL of a scipy matrix (any format) on ``device``, as wide
         as its longest row (at least 1)."""
         import scipy.sparse as sp

@@ -58,7 +58,7 @@ def _host_pattern(X):
     return X
 
 
-def pattern_spgemm(A, B, dtype=None, device="cpu") -> SparseELL:
+def pattern_spgemm(A, B, dtype=None, device="cuda") -> SparseELL:
     """Host-symbolic product pattern of A @ B as a structure-only ELL."""
     import scipy.sparse as sp
 
@@ -67,7 +67,7 @@ def pattern_spgemm(A, B, dtype=None, device="cpu") -> SparseELL:
     return SparseELL.from_scipy(C, dtype=dtype or np.float32, device=device)
 
 
-def rap_pattern(R, A, P, dtype=None):
+def rap_pattern(R, A, P, dtype=None, device="cuda"):
     """Host-symbolic patterns ``(pat_AP, pat_RAP)`` of the Galerkin
     product."""
     import scipy.sparse as sp
@@ -78,8 +78,8 @@ def rap_pattern(R, A, P, dtype=None):
     pRAP = sp.csr_matrix(pR @ pAP)
     pRAP.sort_indices()
     dt = dtype or np.float32
-    return (SparseELL.from_scipy(pAP, dtype=dt),
-            SparseELL.from_scipy(pRAP, dtype=dt))
+    return (SparseELL.from_scipy(pAP, dtype=dt, device=device),
+            SparseELL.from_scipy(pRAP, dtype=dt, device=device))
 
 
 def ell_transpose_onto(A: SparseELL, pattern: SparseELL) -> SparseELL:

@@ -69,7 +69,7 @@ def test_matvec_matches_jax_matvec_xla(case, dtype):
     x = _x(A.shape[1], dtype)
     y_ref = np.asarray(JaxDIA.from_scipy(A).astype(dtype)
                        .matvec_xla(jnp.asarray(x)))
-    D = SparseDIA.from_scipy(A, dtype=dtype)
+    D = SparseDIA.from_scipy(A, dtype=dtype, device="cpu")
     y = D.matvec(torch.from_numpy(x)).numpy()
     assert y.dtype == dtype
     scale = np.abs(y_ref).max()
@@ -85,7 +85,7 @@ def test_matvec_matches_pallas_kernel_interpret(case):
     J = JaxDIA.from_scipy(A).astype(jnp.float32)
     y_ref = np.asarray(dia_matvec_pallas(J.diags, J.offsets, jnp.asarray(x),
                                          interpret=True))
-    y = SparseDIA.from_scipy(A, dtype=np.float32).matvec(
+    y = SparseDIA.from_scipy(A, dtype=np.float32, device="cpu").matvec(
         torch.from_numpy(x)).numpy()
     assert np.abs(y - y_ref).max() <= 1e-5 * np.abs(y_ref).max()
 
@@ -110,7 +110,7 @@ def test_host_diags_and_transpose_equal_jax(case, dtype):
 
 def test_to_scipy_diagonal_astype_roundtrip():
     A = CASES["square"]()
-    D = SparseDIA.from_scipy(A)
+    D = SparseDIA.from_scipy(A, device="cpu")
     assert abs(D.to_scipy() - A).max() == 0
     np.testing.assert_array_equal(D.diagonal().numpy(), A.diagonal())
     D32 = D.astype(torch.float32)
@@ -121,7 +121,7 @@ def test_to_scipy_diagonal_astype_roundtrip():
 
 def test_wrapper_on_cpu_runs_plain_version_and_counts_no_launch():
     A = CASES["tall"]()
-    D = SparseDIA.from_scipy(A)
+    D = SparseDIA.from_scipy(A, device="cpu")
     x = torch.from_numpy(_x(A.shape[1], np.float64))
     before = dia_kernel.launches
     y = dia_kernel.dia_matvec(D.diags, D.offsets_dev, x, A.shape[1])
@@ -134,7 +134,7 @@ def test_wrapper_on_cpu_runs_plain_version_and_counts_no_launch():
                                  "offsets_dtype"])
 def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
     A = CASES["square"]()
-    D = SparseDIA.from_scipy(A)
+    D = SparseDIA.from_scipy(A, device="cpu")
     diags, offs, m = D.diags, D.offsets_dev, A.shape[1]
     x = torch.from_numpy(_x(m, np.float64))
     if bad == "mixed":

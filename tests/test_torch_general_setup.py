@@ -9,7 +9,8 @@ in float64 and from the same numpy inputs:
   and Jones-Plassmann colorings, the tentative fit -- exactly equal, on
   Poisson grids and on an unstructured graph;
 * the hierarchy: the level count, every level's A, P and R to 1e-12
-  relative, the color masks exactly, the operator complexity;
+  relative, the color masks exactly, the operator complexity -- whether or
+  not the JAX package's native library loaded in this process;
 * the solve: through ``ell_hierarchy_from_numpy`` on the JAX-built
   hierarchy, the CG iteration count exactly and the residual history to
   1e-10 relative; the port's own setup and solve, the same count;
@@ -23,6 +24,7 @@ import pytest
 import scipy.sparse as sp
 import torch
 
+import pyamg_tpu.amg_core as jax_core
 from pyamg_tpu.aggregation.aggregate import naive_aggregation as jax_naive
 from pyamg_tpu.aggregation.aggregate import standard_aggregation as jax_std
 from pyamg_tpu.aggregation.tentative import fit_candidates as jax_fit
@@ -155,7 +157,7 @@ def test_multicolor_gs_step_matches_jax(reverse):
     ours = apply_smoother(
         SmootherData(kind="multicolor_gauss_seidel", sweep=sweep,
                      dinv=t(dinv), color_masks=t(masks), iterations=2),
-        SparseELL.from_scipy(A), t(x), t(b))
+        SparseELL.from_scipy(A, device="cpu"), t(x), t(b))
     np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=1e-12,
                                atol=1e-12)
 
@@ -174,18 +176,21 @@ def _jax_matrix(N, drop_diag=False):
     return A
 
 
-@pytest.fixture(scope="module", params=["48", "128", "32-no-diagonal"])
-def pair(request):
-    N = int(request.param.split("-")[0])
-    A = _jax_matrix(N, drop_diag="no-diagonal" in request.param)
-    ref = jax_setup(A, mesh=make_mesh(1), dtype=np.float64)
-    ours = parallel.general_sa_setup_sharded(A.copy(), dtype=np.float64,
-                                             device="cpu")
-    return A, ours, ref
+def _jax_reference(A):
+    """The JAX package's setup of A in float64 with first-fit colors.
+
+    The JAX package colors with first-fit when its native library loaded
+    and with Jones-Plassmann when it did not
+    (pyamg_tpu/relaxation/smoothing.py:153-155), and each process builds
+    that library at first use, so a worker that lost the build race would
+    color otherwise.  The port always colors first-fit, which the JAX
+    package's Python fallback computes identically."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_core, "have_native", lambda: True)
+        return jax_setup(A, mesh=make_mesh(1), dtype=np.float64)
 
 
-def test_setup_matches_jax_level_by_level(pair):
-    A, ours, ref = pair
+def _assert_levels_match(A, ours, ref):
     assert len(ours.levels) == len(ref.levels) >= 3
     assert ours.sizes == ref.sizes and ours.n_orig == ref.n_orig
     for lo, lr in zip(ours.levels, ref.levels):
@@ -209,6 +214,29 @@ def test_setup_matches_jax_level_by_level(pair):
         ref.inner.operator_complexity()
     if A[0, 0] == 0:                  # P keeps the diagonal-less row
         assert abs(ours.levels[0].P.to_scipy()[0]).sum() > 0
+
+
+@pytest.fixture(scope="module", params=["48", "128", "32-no-diagonal"])
+def pair(request):
+    N = int(request.param.split("-")[0])
+    A = _jax_matrix(N, drop_diag="no-diagonal" in request.param)
+    ref = _jax_reference(A)
+    ours = parallel.general_sa_setup_sharded(A.copy(), dtype=np.float64,
+                                             device="cpu")
+    return A, ours, ref
+
+
+def test_setup_matches_jax_level_by_level(pair):
+    _assert_levels_match(*pair)
+
+
+def test_setup_matches_jax_without_its_native_library(monkeypatch):
+    monkeypatch.setattr(jax_core, "_lib", False)
+    assert not jax_core.have_native()
+    A = _jax_matrix(48)
+    ours = parallel.general_sa_setup_sharded(A.copy(), dtype=np.float64,
+                                             device="cpu")
+    _assert_levels_match(A, ours, _jax_reference(A))
 
 
 def _export(sol):

@@ -1,7 +1,9 @@
 """The port stands alone: importing it loads neither JAX nor pyamg_tpu, and
 no file of it (or chip_smoke.py, which drives it on the card) imports
-them."""
+them.  Its public constructors put their tensors on the card unless the
+caller asks for another device."""
 
+import inspect
 import re
 import subprocess
 import sys
@@ -39,3 +41,36 @@ def test_public_surface():
     assert sorted(pyamg_tpu_torch.__all__) == sorted(
         ["gallery", "parallel", "smoothed_aggregation_solver",
          "MultilevelSolver", "SparseDIA", "SparseELL", "__version__"])
+
+
+def _entry_points():
+    import pyamg_tpu_torch
+    from pyamg_tpu_torch.parallel import general_sa_setup_sharded
+    from pyamg_tpu_torch.sparse import device_operator
+    from pyamg_tpu_torch.sparse.spgemm_device import pattern_spgemm
+
+    return {"MultilevelSolver": pyamg_tpu_torch.MultilevelSolver,
+            "SparseDIA.from_scipy": pyamg_tpu_torch.SparseDIA.from_scipy,
+            "SparseELL.from_scipy": pyamg_tpu_torch.SparseELL.from_scipy,
+            "device_operator": device_operator,
+            "pattern_spgemm": pattern_spgemm,
+            "smoothed_aggregation_solver":
+                pyamg_tpu_torch.smoothed_aggregation_solver,
+            "general_sa_setup_sharded": general_sa_setup_sharded}
+
+
+@pytest.mark.parametrize("name", ["MultilevelSolver", "SparseDIA.from_scipy",
+                                  "SparseELL.from_scipy", "device_operator",
+                                  "pattern_spgemm",
+                                  "smoothed_aggregation_solver",
+                                  "general_sa_setup_sharded"])
+def test_entry_points_default_to_the_card(name):
+    param = inspect.signature(_entry_points()[name]).parameters["device"]
+    assert param.default == "cuda"
+
+
+def test_smoother_data_takes_its_device_from_the_caller():
+    from pyamg_tpu_torch.relaxation import make_smoother_data
+
+    param = inspect.signature(make_smoother_data).parameters["device"]
+    assert param.default is inspect.Parameter.empty

@@ -1,4 +1,5 @@
-"""The kernels' builds, wrappers and launches: the DIA SpMV kernel and the
+"""The kernels' builds, wrappers and launches: the DIA SpMV kernel (float32,
+float64 and bfloat16 diagonals), its two variants in other layouts and the
 two masked-SpGEMM kernels.
 
 This file imports only the port, so that it also runs on a machine with a
@@ -22,10 +23,11 @@ import torch
 from pyamg_tpu_torch import _build
 from pyamg_tpu_torch.gallery import poisson
 from pyamg_tpu_torch.sparse import SparseDIA, SparseELL, dia_kernel
-from pyamg_tpu_torch.sparse import spgemm_kernel
+from pyamg_tpu_torch.sparse import dia_variants, spgemm_kernel
 from pyamg_tpu_torch.sparse.spgemm_device import pattern_spgemm, sentinel_cols
 from pyamg_tpu_torch.sparse.spgemm_dia import BandedSpgemmPlan
 
+import dia_cases
 import spgemm_cases
 
 torch.set_num_threads(1)
@@ -84,10 +86,20 @@ def test_masked_spgemm_builds_with_the_same_flags(fake_nvcc):
     assert str(_build.CSRC / "masked_spgemm.cu") in calls[0]
 
 
+@pytest.mark.parametrize("source", ["dia_matvec_v2", "dia_matvec_v1"])
+def test_dia_variants_build_with_the_same_flags(fake_nvcc, source):
+    out = _build.build(source)
+    assert out.name.startswith(f"lib{source}-") and out.suffix == ".so"
+    calls = (fake_nvcc / "calls.log").read_text().splitlines()
+    assert len(calls) == 1
+    assert "-gencode arch=compute_90a,code=sm_90a" in calls[0]
+    assert str(_build.CSRC / f"{source}.cu") in calls[0]
+
+
 def test_cpu_tensors_never_load_the_spgemm_library():
-    A = SparseELL.from_scipy(poisson((9, 9), format="csr"))
+    A = SparseELL.from_scipy(poisson((9, 9), format="csr"), device="cpu")
     pat = sentinel_cols(pattern_spgemm(A.to_scipy(), A.to_scipy(),
-                                       dtype=np.float64))
+                                       dtype=np.float64, device="cpu"))
     before = (spgemm_kernel._lib, dict(spgemm_kernel.launches),
               spgemm_kernel.plain_cuda_calls)
     spgemm_kernel.masked_spgemm_gather(A.data, A.cols, A.data, A.cols, pat)
@@ -99,7 +111,7 @@ def test_cpu_tensors_never_load_the_spgemm_library():
 
 def test_cpu_tensors_never_load_the_kernel_library():
     A = poisson((20, 20), format="csr")
-    D = SparseDIA.from_scipy(A, dtype=np.float32)
+    D = SparseDIA.from_scipy(A, dtype=np.float32, device="cpu")
     x = torch.ones(A.shape[0])
     before = (dia_kernel._lib, dia_kernel.launches)
     D.matvec(x)
@@ -108,7 +120,7 @@ def test_cpu_tensors_never_load_the_kernel_library():
 
 def test_other_devices_raise():
     A = poisson((5, 5), format="csr")
-    D = SparseDIA.from_scipy(A)
+    D = SparseDIA.from_scipy(A, device="cpu")
     meta = SparseDIA(D.diags.to("meta"), D.offsets, D.shape)
     with pytest.raises(ValueError, match="no kernel"):
         meta.matvec(torch.empty(A.shape[0], dtype=torch.float64,
@@ -131,7 +143,8 @@ def _ops(rng):
             rand((-2999, -7, 0, 5, 1999), (3000, 2000)),
             rand((-1999, -1, 0, 64, 2999), (2000, 3000)),
             rand((-14, -13, -12, -1, 0, 1, 12, 13, 14), (169, 169)),
-            SparseDIA.from_scipy(poisson((37, 29), format="csr"))]
+            SparseDIA.from_scipy(poisson((37, 29), format="csr"),
+                                 device="cpu")]
 
 
 @pytest.mark.cuda
@@ -219,3 +232,44 @@ def test_cuda_general_setup_runs_through_the_kernels(cuda_device):
     assert x.device.type == "cuda" and len(res) == len(res_ref)
     x = x.cpu().numpy()
     assert np.linalg.norm(b - A @ x) <= 1e-8 * np.linalg.norm(b)
+
+
+def _variant(kernel, D, device):
+    """``(launch, plain)`` of one DIA kernel on the float32 operator ``D``
+    moved to ``device``: a variant, or dia_matvec on bfloat16 diagonals."""
+    d = D.diags.to(device, torch.float32)
+    if kernel == "dia_matvec_bf16":
+        Db = SparseDIA(d.to(torch.bfloat16), D.offsets, D.shape)
+        return Db.matvec, Db.matvec_plain
+    return (lambda x: getattr(dia_variants, kernel)(d, D.offsets, x),
+            lambda x: getattr(dia_variants, kernel + "_plain")(d, D.offsets,
+                                                               x))
+
+
+def _launches(kernel):
+    if kernel == "dia_matvec_bf16":
+        return dia_kernel.launches
+    return dia_variants.launches[kernel]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["dia_matvec_v2", "dia_matvec_v1",
+                                    "dia_matvec_bf16"])
+def test_cuda_dia_variants_match_plain_version(cuda_device, kernel):
+    # float32 sums of a few terms; bfloat16 diagonals: the twin does the
+    # same float32 arithmetic in the same order
+    tol = 1e-6 if kernel == "dia_matvec_bf16" else 1e-5
+    rng = np.random.default_rng(0)
+    for label, case in dia_cases.ALL.items():
+        D = SparseDIA.from_scipy(case(), dtype=np.float32, device="cpu")
+        launch, plain = _variant(kernel, D, cuda_device)
+        x = torch.as_tensor(rng.random(D.shape[0], dtype=np.float32),
+                            device=cuda_device)
+        before = _launches(kernel)
+        y = launch(x)
+        torch.cuda.synchronize()
+        assert _launches(kernel) == before + 1
+        y_ref = plain(x)
+        assert y.dtype == torch.float32 and bool(torch.isfinite(y).all())
+        err = float((y - y_ref).abs().max())
+        assert err <= tol * float(y_ref.abs().max()), (label, err)

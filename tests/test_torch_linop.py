@@ -71,7 +71,7 @@ def test_composed_op_matches_jax_and_astype():
     grid, block = (10, 7), (3, 3)
     A = poisson(grid, format="csr")
     (rep, pool), (jrep, jpool), rng = _ops(grid, block, None, 1)
-    S, JS = SparseDIA.from_scipy(A), JaxDIA.from_scipy(A)
+    S, JS = SparseDIA.from_scipy(A, device="cpu"), JaxDIA.from_scipy(A)
     P = ComposedOp([S, rep], rep.shape)
     R = ComposedOp([pool, S], pool.shape)
     JP = JComposed((JS, jrep), jrep.shape)

@@ -43,7 +43,7 @@ torch.set_num_threads(1)
 
 
 def _ell(M, dtype):
-    return SparseELL.from_scipy(M, dtype=dtype)
+    return SparseELL.from_scipy(M, dtype=dtype, device="cpu")
 
 
 def _jell(M, dtype):
@@ -84,7 +84,7 @@ def test_twin_matches_k4_interpret(case, k4_interpret):
     k4 = jplan(jA, jB)
 
     A, B = _ell(A_csr, np.float32), _ell(B_csr, np.float32)
-    pat = pattern_spgemm(A_csr, B_csr, dtype=np.float32)
+    pat = pattern_spgemm(A_csr, B_csr, dtype=np.float32, device="cpu")
     plan = BandedSpgemmPlan(A, B, pat)
     assert plan.feasible and plan.offsets == jplan.offsets
     twin = masked_spgemm_ell(A, B, pat)
@@ -103,7 +103,7 @@ def test_twin_matches_k5_interpret(case, k5_interpret):
     k5 = jplan(jA, jB)
 
     A, B = _ell(A_csr, np.float32), _ell(B_csr, np.float32)
-    pat = pattern_spgemm(A_csr, B_csr, dtype=np.float32)
+    pat = pattern_spgemm(A_csr, B_csr, dtype=np.float32, device="cpu")
     twin = masked_spgemm_ell(A, B, pat)
     assert _rel(twin.data, k5.data) <= 5e-5
     # the gather kernel's wrapper on a CPU tensor runs the twin
@@ -127,7 +127,8 @@ def test_twin_matches_k5_interpret_on_a_galerkin_chain(k5_interpret):
     k5 = jax_spp.MaskedSpgemmPlan(jR, jpAP, jpRAP, T=64, Wc=64)(jR, jAP)
 
     A, P, R = (_ell(M, np.float32) for M in (A_csr, P_csr, R_csr))
-    pAP, pRAP = rap_pattern(R_csr, A_csr, P_csr, dtype=np.float32)
+    pAP, pRAP = rap_pattern(R_csr, A_csr, P_csr, dtype=np.float32,
+                             device="cpu")
     np.testing.assert_array_equal(pRAP.cols.numpy(), np.asarray(jpRAP.cols))
     AP = masked_spgemm_ell(A, P, pAP)
     RAP = masked_spgemm_ell(R, AP, pRAP)
@@ -148,7 +149,7 @@ def test_twin_matches_jax_masked_spgemm_ell(case, dtype, tol):
     A_csr, B_csr = {**BANDED, **GENERAL}[case]()
     jpat = jax_pattern(A_csr, B_csr, dtype=dtype)
     ref = jax_mm(_jell(A_csr, dtype), _jell(B_csr, dtype), jpat)
-    pat = pattern_spgemm(A_csr, B_csr, dtype=dtype)
+    pat = pattern_spgemm(A_csr, B_csr, dtype=dtype, device="cpu")
     np.testing.assert_array_equal(pat.cols.numpy(), np.asarray(jpat.cols))
     np.testing.assert_array_equal(pat.row_nnz.numpy(),
                                   np.asarray(jpat.row_nnz))
@@ -164,7 +165,7 @@ def test_transpose_onto_matches_jax(dtype, tol):
     ref = jax_transpose(_jell(P_csr, dtype), patR)
     ours = ell_transpose_onto(_ell(P_csr, dtype),
                               pattern_spgemm(P_csr.T, sp.identity(400),
-                                             dtype=dtype))
+                                             dtype=dtype, device="cpu"))
     assert _rel(ours.data, ref.data) <= tol
     assert abs(ours.to_scipy() - P_csr.T).max() <= 1e-6 * abs(P_csr).max()
 
@@ -189,7 +190,8 @@ def test_banded_feasibility_agrees_with_jax(case):
         _jell(A_csr, np.float32), _jell(B_csr, np.float32),
         jax_pattern(A_csr, B_csr, dtype=np.float32))
     A, B = _ell(A_csr, np.float32), _ell(B_csr, np.float32)
-    plan = BandedSpgemmPlan(A, B, pattern_spgemm(A_csr, B_csr))
+    plan = BandedSpgemmPlan(A, B, pattern_spgemm(A_csr, B_csr,
+                                                   device="cpu"))
     assert plan.feasible == jplan.feasible
     if not plan.feasible:
         with pytest.raises(ValueError, match="infeasible"):
@@ -200,14 +202,15 @@ def test_banded_probe_rejects_a_large_irregular_left_operand():
     # more than 16384 rows: the 4096-row sample alone has > 64 offsets
     A_csr = near_band(20000, 20000, 5000, per_row=3, seed=1)
     A = _ell(A_csr, np.float64)
-    assert not BandedSpgemmPlan(A, A, pattern_spgemm(A_csr, A_csr)).feasible
+    assert not BandedSpgemmPlan(
+        A, A, pattern_spgemm(A_csr, A_csr, device="cpu")).feasible
 
 
 def test_plans_refuse_slabs_wider_than_64():
     A_csr = sp.csr_matrix(np.ones((4, 70)))
     B_csr = sp.csr_matrix(np.ones((70, 3)))
     A, B = _ell(A_csr, np.float32), _ell(B_csr, np.float32)
-    pat = pattern_spgemm(A_csr, B_csr)
+    pat = pattern_spgemm(A_csr, B_csr, device="cpu")
     assert not BandedSpgemmPlan(A, B, pat).feasible
     with pytest.raises(ValueError, match="up to 64"):
         spgemm_kernel.masked_spgemm_gather(A.data, A.cols, B.data, B.cols,
@@ -217,7 +220,7 @@ def test_plans_refuse_slabs_wider_than_64():
 def test_router_on_cpu_runs_the_twin_and_launches_nothing():
     A_csr, B_csr = BANDED["5pt"]()
     A, B = _ell(A_csr, np.float64), _ell(B_csr, np.float64)
-    pat = pattern_spgemm(A_csr, B_csr, dtype=np.float64)
+    pat = pattern_spgemm(A_csr, B_csr, dtype=np.float64, device="cpu")
     before = (dict(spgemm_kernel.launches), spgemm_kernel._lib)
     out = masked_spgemm_auto(A, B, pat)
     assert (dict(spgemm_kernel.launches), spgemm_kernel._lib) == before
@@ -230,7 +233,7 @@ def test_wrapper_argument_checks(bad):
     A_csr = banded(50, [-1, 0, 1], seed=0)
     A = _ell(A_csr, np.float32)
     Ad, Ac = A.data, A.cols
-    pat = sentinel_cols(pattern_spgemm(A_csr, A_csr))
+    pat = sentinel_cols(pattern_spgemm(A_csr, A_csr, device="cpu"))
     Bd, Bc, offsets = Ad, Ac, (-1, 0, 1)
     err = ValueError
     if bad == "dtype_mix":
@@ -286,7 +289,7 @@ def test_ell_matches_jax_and_scipy(shape):
 def test_wide_offset_operator_gets_ell():
     # 2000 rows, > 512 distinct diagonals, too big for the dense form
     M = near_band(5000, 5000, 2000, per_row=3, seed=2)
-    op = device_operator(M, dtype=np.float64)
+    op = device_operator(M, dtype=np.float64, device="cpu")
     assert isinstance(op, SparseELL)
     x = np.random.default_rng(1).standard_normal(5000)
     np.testing.assert_allclose(op.matvec(torch.as_tensor(x)).numpy(), M @ x,

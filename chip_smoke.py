@@ -13,7 +13,9 @@ computes the same function:
 * the general path on the same problem: ``parallel.general_sa_setup_sharded``
   in float32, its Galerkin products on the card (kernels:
   masked_spgemm_banded and masked_spgemm_gather), then CG with multicolor
-  Gauss-Seidel V-cycles to 1e-8;
+  Gauss-Seidel V-cycles to 1e-8; all 15 of the setup's masked products are
+  recorded, checked and timed on both kernel bodies (tiled, and the first
+  slotwise one kept as a comparator);
 * the DIA SpMV benchmark (``pyamg_tpu_torch.benchmarks.dia_spmv_bench``) at
   2048^2 and 1024^2: every DIA kernel -- dia_matvec in float32 and on
   bfloat16 diagonals, dia_matvec_v1, dia_matvec_v2 -- beside the plain form
@@ -286,7 +288,7 @@ def recording_products(store, limit):
 def general_path(torch):
     """The general device setup of the 1024^2 problem and its CG solve
     through the package's entry points; returns the SpGEMM kernels' launch
-    counts over the setup and the recorded level-0 and level-1 products."""
+    counts over the setup and all of its masked products, recorded."""
     phase("5. general path")
     from pyamg_tpu_torch.gallery import poisson
     from pyamg_tpu_torch.parallel import general_sa_setup_sharded
@@ -299,7 +301,7 @@ def general_path(torch):
         spgemm_kernel.launches[name] = 0
     spgemm_kernel.plain_cuda_calls = 0
     t0 = time.perf_counter()
-    with recording_products(products, 6):
+    with recording_products(products, 3 * (len(GENERAL_LEVELS) - 1)):
         sol = general_sa_setup_sharded(A, dtype=np.float32, device="cuda")
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
@@ -342,18 +344,52 @@ def general_path(torch):
     if plain_calls:
         raise AssertionError(f"the setup ran the plain twin on CUDA "
                              f"{plain_calls} times")
+    if len(products) != sum(launches.values()):
+        raise AssertionError(f"recorded {len(products)} masked products, "
+                             f"the kernels launched {launches}")
     return launches, products
 
 
+def spgemm_bodies(A, B, pattern):
+    """The slabs of one masked product and ``{kernel: (tiled, slotwise,
+    geometry)}``: the gather kernel's two bodies and the tiled body's
+    launch geometry, and the banded kernel's where its plan takes A --
+    which the router then chooses."""
+    from pyamg_tpu_torch.sparse import spgemm_kernel as sk
+    from pyamg_tpu_torch.sparse.spgemm_device import sentinel_cols
+    from pyamg_tpu_torch.sparse.spgemm_dia import BandedSpgemmPlan
+
+    slabs = (A.data, A.cols, B.data, B.cols, sentinel_cols(pattern))
+    shape = (A.data.shape[0], A.width, B.width, pattern.width,
+             A.data.element_size())
+    bodies = {"masked_spgemm_gather": (
+        functools.partial(sk.masked_spgemm_gather, *slabs),
+        functools.partial(sk._masked_spgemm_gather_slotwise, *slabs),
+        sk.tile_geometry(*shape))}
+    plan = BandedSpgemmPlan(A, B, pattern)
+    if plan.feasible:
+        bodies["masked_spgemm_banded"] = (
+            functools.partial(sk.masked_spgemm_banded, *slabs, plan.offsets),
+            functools.partial(sk._masked_spgemm_banded_slotwise, *slabs,
+                              plan.offsets),
+            sk.tile_geometry(*shape, len(plan.offsets)))
+    return slabs, bodies
+
+
+def routed(bodies):
+    """The kernel the router sends the product to."""
+    return "masked_spgemm_banded" if "masked_spgemm_banded" in bodies \
+        else "masked_spgemm_gather"
+
+
 def check_spgemm(torch, products):
-    """Both SpGEMM kernels vs their plain twin on the card, on the test
-    shapes and on the recorded products of the 1M hierarchy, in float32
-    and float64; returns the largest absolute difference per kernel."""
+    """Both SpGEMM kernels, tiled and slotwise bodies, vs their plain twin
+    on the card, on the test shapes and on every recorded product of the 1M
+    setup, in float32 and float64; returns the largest absolute difference
+    per kernel and body."""
     phase("6. masked_spgemm kernels vs plain")
     from pyamg_tpu_torch.sparse import SparseELL, spgemm_kernel
-    from pyamg_tpu_torch.sparse.spgemm_device import (pattern_spgemm,
-                                                      sentinel_cols)
-    from pyamg_tpu_torch.sparse.spgemm_dia import BandedSpgemmPlan
+    from pyamg_tpu_torch.sparse.spgemm_device import pattern_spgemm
 
     sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "tests"))
     import spgemm_cases
@@ -367,32 +403,32 @@ def check_spgemm(torch, products):
         cases.append((label, ell(A), ell(B),
                       pattern_spgemm(A, B, device="cuda")))
     cases += products
-    worst = {name: 0.0 for name in spgemm_kernel.launches}
+    worst = {}
     for dtype in (torch.float32, torch.float64):
         name_dt = str(dtype).split(".")[-1]
         for label, A, B, pattern in cases:
             A, B = A.astype(dtype), B.astype(dtype)
-            pat = sentinel_cols(pattern)
-            ref = spgemm_kernel.masked_matmul_vals_plain(
-                A.data, A.cols, B.data, B.cols, pat)
-            plan = BandedSpgemmPlan(A, B, pattern)
-            outs = {"masked_spgemm_gather": spgemm_kernel.masked_spgemm_gather(
-                A.data, A.cols, B.data, B.cols, pat)}
-            if plan.feasible:
-                outs["masked_spgemm_banded"] = plan(A, B).data
+            slabs, bodies = spgemm_bodies(A, B, pattern)
+            ref = spgemm_kernel.masked_matmul_vals_plain(*slabs)
+            outs = {}
+            for name, (tiled, slotwise, _) in bodies.items():
+                outs[name] = tiled()
+                outs[name + "_slotwise"] = slotwise()
             torch.cuda.synchronize()
             scale = max(float(ref.abs().max()), 1e-300)
+            errs = {}
             for name, out in outs.items():
-                err = float((out - ref).abs().max())
+                err = errs[name] = float((out - ref).abs().max())
                 if not (bool(torch.isfinite(out).all())
                         and err <= REL_TOL[name_dt] * scale):
                     raise AssertionError(f"{name} {name_dt} {label}: max rel "
                                          f"error {err / scale:.3e}")
-                worst[name] = max(worst[name], err)
-                print(f"{name_dt:8s} {label:22s} {name:21s} {plan.describe():6s}"
-                      f" {tuple(A.data.shape)}x{tuple(B.data.shape)}->"
-                      f"{tuple(pat.shape)}  max abs {err:.3e} rel "
-                      f"{err / scale:.3e}")
+                worst[name] = max(worst.get(name, 0.0), err)
+            print(f"{name_dt:8s} {label:16s} {tuple(slabs[0].shape)}x"
+                  f"{tuple(slabs[2].shape)}->{tuple(slabs[4].shape)}  max abs "
+                  + "  ".join(f"{name.removeprefix('masked_spgemm_')} "
+                              f"{err:.1e}" for name, err in errs.items()))
+    print(f"largest absolute difference from the twin: {worst}")
     return worst
 
 
@@ -508,14 +544,13 @@ def time_kernels(torch, ml, products):
     call beside it.  The DIA kernel's level-0 set fits the card's L2, so it
     is timed both warm (back to back on one operand) and cold (cycling
     through copies that overflow L2).  The SpGEMM kernels also beside their
-    bound and library call; their record for the kernels line.  Then the
-    banded kernel beside the gather kernel on every recorded product the
-    router sends to the banded one."""
+    slotwise bodies, bound and library call; their record for the kernels
+    line.  Then every product of the setup on the kernel the router chose,
+    tiled and slotwise bodies beside the bound (the banded kernel's
+    products also on the gather kernel), and their sums over the setup."""
     phase("7. kernel time")
     from pyamg_tpu_torch.benchmarks.dia_spmv_bench import L2_BYTES, csr_tensor
     from pyamg_tpu_torch.sparse import SparseDIA, spgemm_kernel
-    from pyamg_tpu_torch.sparse.spgemm_device import sentinel_cols
-    from pyamg_tpu_torch.sparse.spgemm_dia import BandedSpgemmPlan
 
     A0 = ml.levels[0].A
     out = {}
@@ -558,58 +593,92 @@ def time_kernels(torch, ml, products):
                   f"L2-resident)")
 
     by_label = {label: (A, B, pat) for label, A, B, pat in products}
-
-    def spgemm(label):
-        """The banded kernel (None where the plan refuses A), the gather
-        kernel and the plain twin on a recorded product."""
-        A, B, pattern = by_label[label]
-        slabs = (A.data, A.cols, B.data, B.cols, sentinel_cols(pattern))
-        plan = BandedSpgemmPlan(A, B, pattern)
-        return (functools.partial(plan, A, B) if plan.feasible else None,
-                functools.partial(spgemm_kernel.masked_spgemm_gather, *slabs),
-                functools.partial(spgemm_kernel.masked_matmul_vals_plain,
-                                  *slabs), slabs)
-
     for name, label in (("masked_spgemm_banded", "level 0 A*P"),
                         ("masked_spgemm_gather", "level 0 R*AP")):
-        banded, gather, plain, slabs = spgemm(label)
-        kernel = banded if name == "masked_spgemm_banded" else gather
         A, B, pattern = by_label[label]
+        slabs, bodies = spgemm_bodies(A, B, pattern)
+        kernel, slotwise, _ = bodies[name]
+        plain = functools.partial(spgemm_kernel.masked_matmul_vals_plain,
+                                  *slabs)
         res = kernel()
-        res = res if torch.is_tensor(res) else res.data     # banded: an ELL
         library, same, rel = spgemm_library(torch, A, B, pattern, res)
-        k_ms, p_ms, lib_ms = _medians(torch, kernel, plain, library)
+        k_ms, s_ms, p_ms, lib_ms = _medians(torch, kernel, slotwise, plain,
+                                            library)
         print(f"{name} float32: {label} A {tuple(slabs[0].shape)} B "
               f"{tuple(slabs[2].shape)} out {tuple(slabs[4].shape)}  kernel "
               f"{k_ms * 1e3:.1f} us device, {_host_us(torch, kernel):.1f} us "
-              f"per call on the host clock;  plain {p_ms * 1e3:.1f} us "
-              f"device, {_host_us(torch, plain, 20):.1f} us per call;  "
-              f"plain/kernel {p_ms / k_ms:.2f}")
-        nbytes = (sum(t.numel() * t.element_size() for t in slabs)
-                  + res.numel() * res.element_size())
-        As, Bs = A.to_scipy(), B.to_scipy()
-        products_needed = int(np.diff(Bs.indptr)[As.indices].sum())
-        b_ms, b_by = bound(nbytes, 2 * products_needed)
+              f"per call on the host clock;  slotwise body {s_ms * 1e3:.1f} "
+              f"us, slotwise/kernel {s_ms / k_ms:.2f};  plain "
+              f"{p_ms * 1e3:.1f} us device, {_host_us(torch, plain, 20):.1f}"
+              f" us per call;  plain/kernel {p_ms / k_ms:.2f}")
+        b_ms, b_by, nbytes, needed = spgemm_bound(A, B, slabs)
         print(f"{name} float32: {label} bound {b_ms * 1e3:.1f} us "
-              f"({nbytes / 1e6:.1f} MB, {products_needed} products), "
+              f"({nbytes / 1e6:.1f} MB, {needed} products), "
               f"kernel/bound {k_ms / b_ms:.2f};  cuSPARSE SpGEMM "
               f"(torch.sparse.mm, int32 CSR) {lib_ms * 1e3:.1f} us device, "
               f"library/kernel {lib_ms / k_ms:.2f}; library pattern equals "
               f"the mask: {same}; max rel difference from the kernel "
               f"{rel:.2e}")
         out[name] = dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                         bound_by=b_by, library_ms=lib_ms)
+                         bound_by=b_by, library_ms=lib_ms, slotwise_ms=s_ms,
+                         setup_ms=0.0, setup_slotwise_ms=0.0)
 
-    # the products the router sends to the banded kernel, on both kernels
-    for label in ("level 0 S*T", "level 0 A*P", "level 1 S*T",
-                  "level 1 A*P"):
-        banded, gather, _, slabs = spgemm(label)
-        b_ms, g_ms = _medians(torch, banded, gather)
-        print(f"banded vs gather float32: {label} A {tuple(slabs[0].shape)} "
-              f"B {tuple(slabs[2].shape)} out {tuple(slabs[4].shape)}  "
-              f"banded {b_ms * 1e3:.1f} us, gather {g_ms * 1e3:.1f} us "
-              f"device;  banded/gather {b_ms / g_ms:.2f}")
+    # every product of the setup on the kernel the router chose, both
+    # bodies; the banded kernel's products also on the gather kernel
+    total = dict.fromkeys(("tiled", "slotwise", "bound"), 0.0)
+    for label, A, B, pattern in products:
+        slabs, bodies = spgemm_bodies(A, B, pattern)
+        name = routed(bodies)
+        fns = [*bodies[name][:2]]
+        if name == "masked_spgemm_banded":
+            fns += bodies["masked_spgemm_gather"][:2]
+        times = _medians(torch, *fns)
+        geom = bodies[name][2]
+        b_ms, _, _, _ = spgemm_bound(A, B, slabs)
+        out[name]["setup_ms"] += times[0]
+        out[name]["setup_slotwise_ms"] += times[1]
+        for key, ms in zip(total, (times[0], times[1], b_ms)):
+            total[key] += ms
+        print(f"product {label:13s} {name.removeprefix('masked_spgemm_'):6s}"
+              f" A {tuple(slabs[0].shape)} B {tuple(slabs[2].shape)} out "
+              f"{tuple(slabs[4].shape)}  (tile {geom.rows} rows x "
+              f"{geom.lanes} lanes, {geom.blocks} blocks)  tiled "
+              f"{times[0] * 1e3:.1f} us, "
+              f"slotwise {times[1] * 1e3:.1f} us, bound {b_ms * 1e3:.1f} us;"
+              f"  slotwise/tiled {times[1] / times[0]:.2f}, tiled/bound "
+              f"{times[0] / b_ms:.2f}"
+              + (f";  gather tiled {times[2] * 1e3:.1f} us, slotwise "
+                 f"{times[3] * 1e3:.1f} us, banded/gather tiled "
+                 f"{times[0] / times[2]:.2f}, slotwise "
+                 f"{times[1] / times[3]:.2f}" if len(times) == 4 else ""))
+    print(f"setup's {len(products)} masked products, float32: tiled "
+          f"{total['tiled'] * 1e3:.1f} us, slotwise "
+          f"{total['slotwise'] * 1e3:.1f} us, bound {total['bound'] * 1e3:.1f}"
+          f" us;  slotwise/tiled {total['slotwise'] / total['tiled']:.2f}, "
+          f"tiled/bound {total['tiled'] / total['bound']:.2f};  per kernel "
+          + ", ".join(f"{name}: tiled {rec['setup_ms'] * 1e3:.1f} us, "
+                      f"slotwise {rec['setup_slotwise_ms'] * 1e3:.1f} us"
+                      for name, rec in out.items()
+                      if name.startswith("masked")))
+    for name in ("masked_spgemm_banded", "masked_spgemm_gather"):
+        rec = out[name]
+        if not (rec["ms"] < rec["slotwise_ms"]
+                and rec["setup_ms"] < rec["setup_slotwise_ms"]):
+            raise AssertionError(f"{name}: the tiled body is not faster than "
+                                 f"the slotwise one: {rec}")
     return out
+
+
+def spgemm_bound(A, B, slabs):
+    """``(ms, bound_by, bytes, products)`` of one masked product: every
+    slab read once and the output written once, and a multiply and an add
+    for each product of A's stored entries with B's."""
+    n, w_out = slabs[4].shape
+    nbytes = (sum(t.numel() * t.element_size() for t in slabs)
+              + n * w_out * slabs[0].element_size())
+    As, Bs = A.to_scipy(), B.to_scipy()
+    needed = int(np.diff(Bs.indptr)[As.indices].sum())
+    return (*bound(nbytes, 2 * needed), nbytes, needed)
 
 
 def _dia_variants(torch, D):

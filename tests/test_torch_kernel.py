@@ -207,7 +207,42 @@ def test_cuda_spgemm_kernels_match_plain_version(cuda_device, dtype):
             assert spgemm_kernel.launches[name] == before + 1
             err = float((out - ref).abs().max())
             assert err <= tol * scale, (label, name, err / scale)
-        assert plan.feasible == (label not in spgemm_cases.GENERAL), label
+        assert plan.feasible == (label not in spgemm_cases.NOT_BANDED), label
+
+
+@pytest.mark.cuda
+def test_cuda_spgemm_kernels_on_the_smallest_tile(cuda_device, monkeypatch):
+    # 16-row tiles: many tiles a block, so the persistent loop's double
+    # buffer turns over, and the slotwise bodies on the same operands
+    monkeypatch.setattr(spgemm_kernel, "SHARED_TARGET", 0)
+    for label, case in spgemm_cases.ALL.items():
+        A_csr, B_csr = case()
+        A = SparseELL.from_scipy(A_csr, dtype=np.float64, device=cuda_device)
+        B = SparseELL.from_scipy(B_csr, dtype=np.float64, device=cuda_device)
+        pat_ell = pattern_spgemm(A_csr, B_csr, device=cuda_device)
+        slabs = (A.data, A.cols, B.data, B.cols, sentinel_cols(pat_ell))
+        ref = spgemm_kernel.masked_matmul_vals_plain(*slabs)
+        plan = BandedSpgemmPlan(A, B, pat_ell)
+        outs = [spgemm_kernel.masked_spgemm_gather(*slabs),
+                spgemm_kernel._masked_spgemm_gather_slotwise(*slabs)]
+        if plan.feasible:
+            outs += [spgemm_kernel.masked_spgemm_banded(*slabs, plan.offsets),
+                     spgemm_kernel._masked_spgemm_banded_slotwise(
+                         *slabs, plan.offsets)]
+        torch.cuda.synchronize()
+        for out in outs:
+            assert torch.equal(out, ref), label
+
+
+@pytest.mark.cuda
+def test_cuda_shared_bytes_agree_with_the_kernel(cuda_device):
+    lib = spgemm_kernel.load()
+    for rows in spgemm_kernel.TILE_ROWS:
+        for w_a, w_out, itemsize, k in [(15, 10, 4, 0), (5, 6, 4, 5),
+                                        (64, 64, 8, 64), (1, 1, 8, 1)]:
+            assert lib.masked_spgemm_shared_bytes(rows, w_a, w_out, itemsize,
+                                                  k) == spgemm_kernel.\
+                shared_bytes(rows, w_a, w_out, itemsize, k)
 
 
 @pytest.mark.cuda

@@ -37,7 +37,10 @@ from pyamg_tpu_torch.sparse.spgemm_device import (ell_transpose_onto,
                                                   pattern_spgemm, rap_pattern,
                                                   sentinel_cols)
 from pyamg_tpu_torch.sparse.spgemm_dia import BandedSpgemmPlan
-from spgemm_cases import BANDED, GENERAL, banded, irregular, near_band
+from pyamg_tpu_torch.sparse.spgemm_kernel import (MAX_SHARED_BYTES, TILE_ROWS,
+                                                  shared_bytes, tile_geometry)
+from spgemm_cases import (BANDED, EDGES, GENERAL, NOT_BANDED, banded,
+                          irregular, near_band)
 
 torch.set_num_threads(1)
 
@@ -158,6 +161,132 @@ def test_twin_matches_jax_masked_spgemm_ell(case, dtype, tol):
     assert _rel(out.data, ref.data) <= tol
 
 
+# ---------------------------------------------------------------------------
+# the edges of the tiled kernels: the twin against K4 in the Pallas
+# interpreter where its plan takes A, and against the XLA form always
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,tol", [(np.float32, 1e-6), (np.float64, 1e-12)])
+@pytest.mark.parametrize("case", sorted(EDGES))
+def test_twin_matches_jax_on_tile_edges(case, dtype, tol):
+    A_csr, B_csr = EDGES[case]()
+    jpat = jax_pattern(A_csr, B_csr, dtype=dtype)
+    ref = jax_mm(_jell(A_csr, dtype), _jell(B_csr, dtype), jpat)
+    A, B = _ell(A_csr, dtype), _ell(B_csr, dtype)
+    pat = pattern_spgemm(A_csr, B_csr, dtype=dtype, device="cpu")
+    np.testing.assert_array_equal(pat.cols.numpy(), np.asarray(jpat.cols))
+    twin = masked_spgemm_ell(A, B, pat)
+    assert _rel(twin.data, ref.data) <= tol
+    if dtype == np.float64:
+        exact = (A_csr @ B_csr).tocsr()
+        assert abs(twin.to_scipy() - exact).max() <= tol * abs(exact).max()
+    # both wrappers on CPU tensors run the twin
+    slabs = (A.data, A.cols, B.data, B.cols, sentinel_cols(pat))
+    assert torch.equal(spgemm_kernel.masked_spgemm_gather(*slabs), twin.data)
+    plan = BandedSpgemmPlan(A, B, pat)
+    assert plan.feasible == (case not in NOT_BANDED)
+    if plan.feasible:
+        assert torch.equal(plan(A, B).data, twin.data)
+
+
+@pytest.mark.parametrize("case", sorted(set(EDGES) - NOT_BANDED))
+def test_twin_matches_k4_interpret_on_tile_edges(case, k4_interpret):
+    A_csr, B_csr = EDGES[case]()
+    jA, jB = _jell(A_csr, np.float32), _jell(B_csr, np.float32)
+    jplan = jax_spd.BandedSpgemmPlan(jA, jB, jax_pattern(A_csr, B_csr,
+                                                         dtype=np.float32))
+    A, B = _ell(A_csr, np.float32), _ell(B_csr, np.float32)
+    pat = pattern_spgemm(A_csr, B_csr, dtype=np.float32, device="cpu")
+    plan = BandedSpgemmPlan(A, B, pat)
+    twin = masked_spgemm_ell(A, B, pat)
+    if not jplan.feasible:
+        # the TPU plan's caps refuse 64 offsets; K4 cannot run it
+        assert case == "band64" and plan.offsets == tuple(range(-32, 32))
+        return
+    assert plan.offsets == jplan.offsets
+    assert _rel(twin.data, jplan(jA, jB).data) <= 1e-6
+
+
+@pytest.mark.parametrize("case", ["alias", "tile_plus_one"])
+def test_alias_cases_put_padding_on_a_stored_column(case):
+    # a padding slot of B's row j names column j, which row j stores; every
+    # row i of A with A[i, j] != 0 then has column j in its pattern, so the
+    # padding lane and the real lane of one step meet in one output slot
+    A_csr, B_csr = EDGES[case]()
+    B = _ell(B_csr, np.float64)
+    padded = (B.row_nnz < B.width).numpy()
+    stored = B_csr.diagonal() != 0
+    assert (padded & stored).sum() > B.shape[0] // 2
+    pat = pattern_spgemm(A_csr, B_csr, device="cpu").to_scipy()
+    rows, cols = A_csr.nonzero()
+    hit = padded[cols] & stored[cols]
+    assert np.all(pat[rows[hit], cols[hit]] != 0)
+
+
+# ---------------------------------------------------------------------------
+# the tiled kernels' launch geometry
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_tile_geometry_fits_every_width(itemsize):
+    # B is not staged, so w_b only sets the lanes a row; k = 64 is the
+    # banded kernel's widest case, k = 0 the gather kernel's
+    for w_a in range(1, 65):
+        for w_out in range(1, 65):
+            for w_b, k, n in ((1, 0, 1 << 20), (64, 64, 1000)):
+                g = tile_geometry(n, w_a, w_b, w_out, itemsize, k)
+                assert g.shared_bytes <= MAX_SHARED_BYTES
+                assert g.shared_bytes == shared_bytes(g.rows, w_a, w_out,
+                                                      itemsize, k)
+                assert g.rows in TILE_ROWS and g.blocks <= g.tiles
+                assert g.threads % 32 == 0 and g.threads <= 256
+    # R = 64 fits the widest case on its own
+    assert shared_bytes(64, 64, 64, 8, 64) <= MAX_SHARED_BYTES
+
+
+def test_tile_geometry_gives_few_rows_more_lanes():
+    # the level-0 products of the 1M setup: a thread walks its row alone
+    assert tile_geometry(1 << 20, 5, 4, 6, 4, 5).lanes == 1
+    assert tile_geometry(175104, 15, 6, 10, 4).lanes == 1
+    # coarse levels: more lanes a row, up to B's width, in one pass
+    g = tile_geometry(2154, 38, 9, 18, 4)
+    assert g.lanes == 16 and g.rows * g.lanes <= 256 and g.tiles >= 132
+    assert tile_geometry(219, 22, 1, 5, 4).lanes == 1
+
+
+@pytest.mark.parametrize("shape", [(15, 6, 10, 4, 0), (5, 4, 6, 4, 5),
+                                   (64, 64, 64, 8, 64), (3, 9, 1, 8, 3)])
+def test_tile_geometry_covers_every_row_once(shape):
+    w_a, w_b, w_out, itemsize, k = shape
+    R = tile_geometry(1 << 20, w_a, w_b, w_out, itemsize, k).rows
+    for n in (1, R - 1, R, R + 1, (1 << 20) + 3):
+        for sms in (132, 3):
+            g = tile_geometry(n, w_a, w_b, w_out, itemsize, k, sms=sms)
+            seen = np.zeros(n, dtype=np.int64)
+            for block in range(g.blocks):
+                for rows in g.block_rows(block):
+                    assert 0 < len(rows) <= g.rows
+                    seen[rows.start:rows.stop] += 1
+            assert (seen == 1).all(), (n, sms)
+
+
+def test_wrappers_raise_on_a_geometry_that_does_not_fit(monkeypatch):
+    A_csr, B_csr = EDGES["alias"]()
+    A, B = _ell(A_csr, np.float32), _ell(B_csr, np.float32)
+    pat = sentinel_cols(pattern_spgemm(A_csr, B_csr, device="cpu"))
+    monkeypatch.setattr(spgemm_kernel, "MAX_SHARED_BYTES", 1024)
+    before = (dict(spgemm_kernel.launches), spgemm_kernel.plain_cuda_calls,
+              spgemm_kernel._lib)
+    with pytest.raises(ValueError, match="shared memory"):
+        spgemm_kernel.masked_spgemm_gather(A.data, A.cols, B.data, B.cols,
+                                           pat)
+    with pytest.raises(ValueError, match="shared memory"):
+        spgemm_kernel.masked_spgemm_banded(A.data, A.cols, B.data, B.cols,
+                                           pat, (-2, -1, 0, 1, 2))
+    assert (dict(spgemm_kernel.launches), spgemm_kernel.plain_cuda_calls,
+            spgemm_kernel._lib) == before
+
+
 @pytest.mark.parametrize("dtype,tol", [(np.float32, 1e-6), (np.float64, 0)])
 def test_transpose_onto_matches_jax(dtype, tol):
     P_csr = near_band(400, 130, 3, per_row=3, seed=5)
@@ -228,7 +357,8 @@ def test_router_on_cpu_runs_the_twin_and_launches_nothing():
 
 
 @pytest.mark.parametrize("bad", ["dtype_mix", "int64_cols", "wide",
-                                 "offsets", "noncontiguous", "meta"])
+                                 "offsets", "unsorted_offsets",
+                                 "noncontiguous", "meta"])
 def test_wrapper_argument_checks(bad):
     A_csr = banded(50, [-1, 0, 1], seed=0)
     A = _ell(A_csr, np.float32)
@@ -245,13 +375,15 @@ def test_wrapper_argument_checks(bad):
         Ac = torch.zeros((50, 65), dtype=torch.int32)
     elif bad == "offsets":
         offsets = tuple(range(65))
+    elif bad == "unsorted_offsets":
+        offsets = (0, -1, 1)
     elif bad == "noncontiguous":
         pat = pat.t().contiguous().t()
     else:
         Ad, Ac, Bd, Bc, pat = (t.to("meta") for t in (Ad, Ac, Bd, Bc, pat))
     with pytest.raises(err):
         spgemm_kernel.masked_spgemm_banded(Ad, Ac, Bd, Bc, pat, offsets)
-    if bad != "offsets":
+    if not bad.endswith("offsets"):
         with pytest.raises(err):
             spgemm_kernel.masked_spgemm_gather(Ad, Ac, Bd, Bc, pat)
 

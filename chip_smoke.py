@@ -1,7 +1,7 @@
 """Smoke run of pyamg_tpu_torch on one NVIDIA GPU.
 
 Builds the port's CUDA kernels from the sources in this checkout, holds
-each against its plain PyTorch version, drives the port's three paths and
+each against its plain PyTorch version, drives the port's paths and
 times each kernel beside its plain version, its least possible time (its
 bytes over the card's memory rate) and the one PyTorch library call that
 computes the same function:
@@ -19,7 +19,14 @@ computes the same function:
 * the DIA SpMV benchmark (``pyamg_tpu_torch.benchmarks.dia_spmv_bench``) at
   2048^2 and 1024^2: every DIA kernel -- dia_matvec in float32 and on
   bfloat16 diagonals, dia_matvec_v1, dia_matvec_v2 -- beside the plain form
-  and cuSPARSE's CSR SpMV.
+  and cuSPARSE's CSR SpMV;
+* the front-door call ``smoothed_aggregation_solver(A)`` with every
+  argument at its default (float32 operators) on the same 1024^2 problem,
+  once as the gallery matrix with its grid metadata and once as plain CSR
+  without it: CG to 1e-8, stand-alone V-cycles and, on the first
+  hierarchy, one W, F and AMLI cycle and every dense coarse solver; then
+  ``aspreconditioner`` inside scipy's CG at 256^2 (kernel: dia_matvec on
+  every DIA level and DIA transfer).
 
     python3 chip_smoke.py          # from the repository root, one GPU
 
@@ -30,6 +37,7 @@ last line is ``{"ok": true, "device": {...}}``.
 
 import contextlib
 import functools
+import inspect
 import json
 import pathlib
 import statistics
@@ -69,6 +77,19 @@ SETUP_KW = dict(max_coarse=500, presmoother="chebyshev",
 # (general_sa_setup_sharded, float32, one device): rows and nnz per level
 GENERAL_LEVELS = [(1048576, 5238784), (175104, 1572176), (19537, 175673),
                   (2154, 21246), (219, 2359), (22, 194)]
+
+
+# the default call's hierarchies of GRID and their solves, measured on an
+# NVIDIA H100 80GB HBM3 (no record of the JAX package at this size exists):
+# rows per level, operator complexity to 3 places, CG iterations to 1e-8
+# and stand-alone V-cycles to a tracked relative residual of 1e-6, which
+# float32 cycling reaches (both +-1)
+DEFAULT_SA = {
+    "structured": dict(rows=[1048576, 116964, 12996, 1444, 169], opc=1.225,
+                       cg=9, cycles=10),
+    "unstructured": dict(rows=[1048576, 175104, 19537, 2154, 219], opc=1.338,
+                         cg=8, cycles=7),
+}
 
 
 def phase(name):
@@ -148,6 +169,17 @@ def check_kernel(torch, rng):
             cases.append((f"level {i} S {lvl.P.ops[0].shape}", lvl.P.ops[0]))
             cases.append((f"level {i} S^H {lvl.R.ops[-1].shape}",
                           lvl.R.ops[-1]))
+    return hold_dia_cases(torch, rng, cases)
+
+
+def hold_dia_cases(torch, rng, cases):
+    """``op.matvec`` (the kernel) against ``op.matvec_plain`` on the card
+    for every ``(label, SparseDIA)`` of ``cases``, in float32 and float64 on
+    a random x; raises beyond REL_TOL, returns the largest absolute
+    difference.  The kernel launches made here are taken off the count."""
+    from pyamg_tpu_torch.sparse import SparseDIA, dia_kernel
+
+    before = dia_kernel.launches
     worst = 0.0
     for dtype in (torch.float32, torch.float64):
         name = str(dtype).split(".")[-1]
@@ -165,7 +197,30 @@ def check_kernel(torch, rng):
                                      f"error {rel:.3e} > {REL_TOL[name]}")
             worst = max(worst, err)
             print(f"{name:8s} {label:42s} max abs {err:.3e} rel {rel:.3e}")
+    dia_kernel.launches = before
     return worst
+
+
+def dia_operators(ml):
+    """Every SparseDIA that a hierarchy's cycle applies, labelled: the
+    levels' A, the DIA factors of composed transfers and the embedded DIA
+    operators of Cpt transfers."""
+    from pyamg_tpu_torch.sparse import SparseDIA
+
+    def parts(op):
+        if isinstance(op, SparseDIA):
+            return [op]
+        if hasattr(op, "dia"):
+            return [op.dia]
+        return [o for o in getattr(op, "ops", ()) if isinstance(o, SparseDIA)]
+
+    cases = []
+    for i, lvl in enumerate(ml.levels):
+        for role in ("A", "P", "R"):
+            for op in parts(getattr(lvl, role, None)):
+                cases.append((f"level {i} {role} {tuple(op.shape)} offsets "
+                              f"{len(op.offsets)}", op))
+    return cases
 
 
 def main_path(torch):
@@ -785,6 +840,280 @@ def dia_bench(torch, bench):
     return launches, out
 
 
+@contextlib.contextmanager
+def counting_twin_calls(torch, count):
+    """Count in ``count[0]`` the calls of the DIA kernel's plain twin on a
+    CUDA tensor (the path must make none)."""
+    from pyamg_tpu_torch.sparse import dia_kernel
+
+    real = dia_kernel.dia_matvec_plain
+
+    def counted(diags, offsets, x, m):
+        count[0] += x.is_cuda
+        return real(diags, offsets, x, m)
+
+    dia_kernel.dia_matvec_plain = counted
+    try:
+        yield
+    finally:
+        dia_kernel.dia_matvec_plain = real
+
+
+def _launches_of(fn):
+    """dia_matvec launches that one call of ``fn`` makes."""
+    from pyamg_tpu_torch.sparse import dia_kernel
+
+    before = dia_kernel.launches
+    fn()
+    return dia_kernel.launches - before
+
+
+def describe_levels(torch, ml):
+    """One line per level of a default-call hierarchy: rows, nnz, the
+    operator classes of A, P and R, the Gauss-Seidel form, its colors and
+    (gather form) its ``(C, R, W)`` arrays' bytes, and the dia_matvec
+    launches that one V-cycle makes on that level.  Returns the launches of
+    a whole V-cycle, summed over the levels."""
+    from pyamg_tpu_torch.relaxation.device import apply_smoother
+
+    def name(op):
+        kind = type(op).__name__
+        if kind == "ComposedOp":
+            return "Composed(" + "+".join(
+                type(o).__name__.replace("Sparse", "") for o in op.ops) + ")"
+        return kind.replace("Sparse", "").replace("ProlongOp", "-DIA(P)") \
+            .replace("RestrictOp", "-DIA(R)").replace("Op", "")
+
+    total = 0
+    for i, lvl in enumerate(ml.levels):
+        A = lvl.A
+        line = (f"level {i}: rows {A.shape[0]:8d} nnz {lvl.nnz:9d}  A "
+                f"{name(A)}" + (f"({A.n_offsets})" if hasattr(A, "n_offsets")
+                                else ""))
+        if getattr(lvl, "P", None) is None:
+            print(line + "  (coarse solve)")
+            continue
+        sm = lvl.presmoother
+        x = torch.zeros(A.shape[1], device="cuda", dtype=A.dtype)
+        xc = torch.zeros(lvl.P.shape[1], device="cuda", dtype=A.dtype)
+        per = dict(
+            pre=_launches_of(lambda: apply_smoother(sm, A, x, x)),
+            residual=_launches_of(lambda: A.matvec(x)),
+            R=_launches_of(lambda: lvl.R.matvec(x)),
+            P=_launches_of(lambda: lvl.P.matvec(xc)),
+            post=_launches_of(
+                lambda: apply_smoother(lvl.postsmoother, A, x, x)))
+        total += sum(per.values())
+        if sm.color_rows is not None:
+            C, R, W = sm.color_data.shape
+            nbytes = sum(t.numel() * t.element_size() for t in
+                         (sm.color_rows, sm.color_cols, sm.color_data))
+            form = (f"gather form, {C} colors, (C, R, W) = ({C}, {R}, {W}) "
+                    f"{nbytes / 1e6:.1f} MB")
+        else:
+            form = f"mask form, {sm.color_masks.shape[0]} colors"
+        print(f"{line}  P {name(lvl.P)}  R {name(lvl.R)}  {sm.kind} "
+              f"{sm.sweep}, {form};  dia_matvec launches a V-cycle: {per}")
+    return total
+
+
+def default_sa(torch, which):
+    """``smoothed_aggregation_solver(A, device="cuda")`` with every other
+    argument but ``op_dtype`` at its default, on the 1024^2 problem:
+    ``which`` is "structured" (the gallery matrix, which carries its grid)
+    or "unstructured" (the same matrix as plain CSR without it).  CG to
+    1e-8, stand-alone V-cycles to 1e-8, and ``aspreconditioner`` applied
+    once; then every DIA operator of the hierarchy (A, and the DIA parts of
+    P and R, at the shapes and offset counts this path gives the kernel) is
+    held against the plain twin.  Returns the hierarchy, the path's
+    dia_matvec launches and the largest kernel-vs-plain difference."""
+    phase({"structured": "10. default SA, structured (A.grid)",
+           "unstructured": "11. default SA, unstructured (plain CSR)"}[which])
+    import scipy.sparse as sp
+    import pyamg_tpu_torch
+    import pyamg_tpu_torch.relaxation.relaxation as rel
+    from pyamg_tpu_torch.gallery import poisson
+    from pyamg_tpu_torch.sparse import dia_kernel, spgemm_kernel
+    from profile_general import stage_timer
+
+    A = poisson(GRID, format="csr")
+    if which == "unstructured":
+        A = sp.csr_matrix(A.tocoo())      # a fresh matrix: no grid metadata
+        if hasattr(A, "grid"):
+            raise AssertionError("the plain CSR copy kept its grid")
+    n = A.shape[0]
+    b = A @ np.random.default_rng(0).random(n)
+    normb = np.linalg.norm(b)
+
+    dia_kernel.launches = 0
+    spgemm_kernel.plain_cuda_calls = 0
+    twin, relax_s, relax_calls = [0], {"relax": 0.0}, {"relax": 0}
+    with counting_twin_calls(torch, twin):
+        t0 = time.perf_counter()
+        with stage_timer(torch.device("cuda"), relax_s, relax_calls,
+                         [("relax", rel, "gauss_seidel")]):
+            ml = pyamg_tpu_torch.smoothed_aggregation_solver(
+                A, op_dtype=torch.float32, device="cuda")
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        launches_setup = dia_kernel.launches
+
+        def timed_solve(**kw):
+            runs = []
+            for _ in range(3):
+                res = []
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                x = ml.solve(b, tol=1e-8, residuals=res, **kw)
+                torch.cuda.synchronize()
+                runs.append(time.perf_counter() - t0)
+            return x, res, runs
+
+        x_cg, res_cg, runs_cg = timed_solve(accel="cg")
+        launches_cg = dia_kernel.launches - launches_setup
+        x_sa, res_sa, runs_sa = timed_solve()
+        z = ml.aspreconditioner().matvec(torch.as_tensor(
+            b, device="cuda", dtype=torch.float32))
+        torch.cuda.synchronize()
+        launches = dia_kernel.launches
+    opc = ml.operator_complexity()
+    rows = [lvl.A.shape[0] for lvl in ml.levels]
+    print(ml)
+    print(f"setup_s {setup_s:.3f} of which improve_candidates (4 symmetric "
+          f"host Gauss-Seidel sweeps = 8 sparse triangular solves) "
+          f"{relax_s['relax']:.3f} = "
+          f"{100 * relax_s['relax'] / setup_s:.1f}%  levels "
+          f"{len(ml.levels)}  rows {rows}  operator_complexity {opc:.6f}  "
+          f"cycle_complexity V {ml.cycle_complexity('V'):.4f}")
+    per_cycle = describe_levels(torch, ml)
+    dia_kernel.launches = launches          # the description is no path
+    print("dia_matvec vs plain on this hierarchy's own DIA operators:")
+    worst = hold_dia_cases(torch, np.random.default_rng(4), dia_operators(ml))
+    relres = {}
+    for name, x in (("cg", x_cg), ("cycles", x_sa)):
+        x = x.double().cpu().numpy()
+        relres[name] = np.linalg.norm(b - A @ x) / normb
+        if not np.isfinite(x).all():
+            raise AssertionError(f"{name}: non-finite solution")
+    it_cg, it_sa = len(res_cg) - 1, len(res_sa) - 1
+    below = np.flatnonzero(np.asarray(res_sa) <= 1e-6 * res_sa[0])
+    it_1e6 = int(below[0]) if below.size else -1
+    print(f"solve(tol=1e-8, accel='cg') float32: iterations {it_cg}  true "
+          f"f64 relres {relres['cg']:.3e}  solve_s best of 3 "
+          f"{min(runs_cg):.4f}  runs {[round(r, 4) for r in runs_cg]}")
+    print(f"solve(tol=1e-8) stand-alone V-cycles float32: iterations {it_sa} "
+          f"(maxiter 100; {it_1e6} to a tracked relres of 1e-6)  last "
+          f"tracked relres {res_sa[-1] / res_sa[0]:.3e}  "
+          f"true f64 relres {relres['cycles']:.3e}  solve_s best of 3 "
+          f"{min(runs_sa):.4f}  runs {[round(r, 4) for r in runs_sa]}")
+    print(f"dia_matvec launches: setup {launches_setup}, 3 CG solves "
+          f"{launches_cg}, whole path {launches}; one V-cycle {per_cycle}; "
+          f"plain twin calls on CUDA {twin[0]} (DIA) "
+          f"{spgemm_kernel.plain_cuda_calls} (SpGEMM)")
+
+    want = DEFAULT_SA[which]
+    if rows != want["rows"] or round(opc, 3) != want["opc"]:
+        raise AssertionError(f"levels {rows} opc {opc}, expected "
+                             f"{want['rows']} and {want['opc']}")
+    if abs(it_cg - want["cg"]) > 1 or abs(it_1e6 - want["cycles"]) > 1:
+        raise AssertionError(
+            f"iterations CG {it_cg} cycles to 1e-6 {it_1e6}, expected "
+            f"{want['cg']}±1 and {want['cycles']}±1")
+    if not relres["cg"] <= 5e-7:
+        raise AssertionError(f"CG relres {relres['cg']} > 5e-7")
+    if it_1e6 < 0 or not relres["cycles"] <= 5e-6:
+        raise AssertionError(f"stand-alone cycling stalled at "
+                             f"{relres['cycles']}")
+    if not (bool(torch.isfinite(z).all()) and float(z.abs().max()) > 0):
+        raise AssertionError("aspreconditioner returned nothing finite")
+    if launches_cg <= 0 or launches <= launches_cg:
+        raise AssertionError("the default path launched no dia_matvec")
+    if twin[0] or spgemm_kernel.plain_cuda_calls:
+        raise AssertionError(f"a plain twin ran on CUDA: DIA {twin[0]}, "
+                             f"SpGEMM {spgemm_kernel.plain_cuda_calls}")
+    return ml, launches, worst
+
+
+def cycles_and_coarse_solvers(torch, ml):
+    """On the default structured hierarchy: one W, F and AMLI cycle (each
+    must reduce the residual of a random right-hand side, and more than a
+    V-cycle leaves), and the V-cycle with every dense coarse solver (lu,
+    cholesky and splu must agree with pinv to 1e-4 relative in float32)."""
+    phase("12. W, F, AMLI cycles and dense coarse solvers")
+    from pyamg_tpu_torch import MultilevelSolver
+
+    A0 = ml.levels[0].A
+    b = torch.as_tensor(np.random.default_rng(2).standard_normal(A0.shape[0]),
+                        device="cuda", dtype=A0.dtype)
+    zero = torch.zeros_like(b)
+    normb = float(b.norm())
+
+    def after(y):
+        if not bool(torch.isfinite(y).all()):
+            raise AssertionError("a cycle returned a non-finite vector")
+        return float((b - A0.matvec(y)).norm()) / normb
+
+    left = {}
+    for cycle in ("V", "W", "F", "AMLI"):
+        launches = _launches_of(lambda: ml.cycle_fn(cycle)(zero, b))
+        left[cycle] = after(ml.cycle_fn(cycle)(zero, b))
+        print(f"one {cycle:4s} cycle from 0: residual {left[cycle]:.4e} of "
+              f"||b||, {launches} dia_matvec launches, cycle_complexity "
+              f"{ml.cycle_complexity(cycle):.4f}")
+        if not left[cycle] < 0.5:
+            raise AssertionError(f"{cycle} cycle left {left[cycle]} of ||b||")
+    for cycle in ("W", "F", "AMLI"):
+        if not left[cycle] <= left["V"] * 1.001:
+            raise AssertionError(f"{cycle} cycle ({left[cycle]}) left more "
+                                 f"than the V-cycle ({left['V']})")
+
+    ys = {}
+    for solver in ("pinv", "lu", "cholesky", "splu"):
+        other = MultilevelSolver(ml.levels, coarse_solver=solver,
+                                 device="cuda")
+        other._op_dtype = ml._op_dtype
+        ys[solver] = other.cycle_fn("V")(zero, b)
+        rel = float((ys[solver] - ys["pinv"]).abs().max()
+                    / ys["pinv"].abs().max())
+        print(f"V-cycle with coarse_solver={solver!r:10s}: residual "
+              f"{after(ys[solver]):.4e} of ||b||, max rel difference from "
+              f"pinv {rel:.2e}")
+        if not (after(ys[solver]) < 0.5 and rel <= 1e-4):
+            raise AssertionError(f"coarse solver {solver}: differs from pinv "
+                                 f"by {rel}")
+
+
+def preconditioner_in_scipy(torch):
+    """``ml.aspreconditioner()`` handed to ``scipy.sparse.linalg.cg`` on the
+    256^2 problem (every application copies the vector to the card and
+    back: an interface check, not a timed path), beside the port's own CG
+    on the same float64 hierarchy."""
+    phase("13. aspreconditioner in scipy's CG, 256^2")
+    import scipy.sparse.linalg as spla
+    import pyamg_tpu_torch
+    from pyamg_tpu_torch.gallery import poisson
+
+    A = poisson((256, 256), format="csr")
+    b = A @ np.random.default_rng(3).random(A.shape[0])
+    ml = pyamg_tpu_torch.smoothed_aggregation_solver(A, device="cuda")
+    its = []
+    key = "rtol" if "rtol" in inspect.signature(spla.cg).parameters else "tol"
+    x, info = spla.cg(A, b, M=ml.aspreconditioner(),
+                      callback=lambda xk: its.append(1), **{key: 1e-8})
+    relres = np.linalg.norm(b - A @ x) / np.linalg.norm(b)
+    res = []
+    ml.solve(b, tol=1e-8, accel="cg", residuals=res)
+    print(f"scipy cg with M = ml.aspreconditioner(): info {info}, "
+          f"{len(its)} iterations, relres {relres:.3e};  ml.solve(accel='cg')"
+          f": {len(res) - 1} iterations (float64 hierarchy, "
+          f"{len(ml.levels)} levels)")
+    if info != 0 or not relres <= 1e-7:
+        raise AssertionError(f"scipy cg: info {info}, relres {relres}")
+    if abs(len(its) - (len(res) - 1)) > 1:
+        raise AssertionError(f"scipy cg took {len(its)} iterations, the "
+                             f"port's CG {len(res) - 1}")
+
+
 def main():
     import torch
 
@@ -807,6 +1136,15 @@ def main():
     bench_launches, bench_times = dia_bench(torch, bench)
     launches.update(bench_launches)
     times.update(bench_times)
+    ml_default, n_structured, err_a = default_sa(torch, "structured")
+    _, n_unstructured, err_b = default_sa(torch, "unstructured")
+    worst["dia_matvec"] = max(worst["dia_matvec"], err_a, err_b)
+    print(f"dia_matvec launches by path: structured Chebyshev path "
+          f"{dia_launches}, default structured {n_structured}, default "
+          f"unstructured {n_unstructured}")
+    launches["dia_matvec"] += n_structured + n_unstructured
+    cycles_and_coarse_solvers(torch, ml_default)
+    preconditioner_in_scipy(torch)
     print(json.dumps({"kernels": [dict(
         name=name, **KERNELS[name], launches=launches[name],
         max_abs_err=worst[name], **times[name]) for name in KERNELS]}))

@@ -61,9 +61,10 @@ def _sync(device):
 
 
 @contextlib.contextmanager
-def stage_timer(device, seconds, calls):
-    """Wrap every stage of ``STAGES`` so that its calls add to
-    ``seconds[label]`` and ``calls[label]``; restore them on exit."""
+def stage_timer(device, seconds, calls, stages=None):
+    """Wrap every stage of ``stages`` (default ``STAGES``) so that its
+    calls add to ``seconds[label]`` and ``calls[label]``; restore them on
+    exit."""
     depth = [0]
     saved = []
 
@@ -84,7 +85,7 @@ def stage_timer(device, seconds, calls):
                 depth[0] -= 1
         return run
 
-    for label, owner, attr in STAGES:
+    for label, owner, attr in (STAGES if stages is None else stages):
         raw = owner.__dict__[attr]
         saved.append((owner, attr, raw))
         if isinstance(raw, classmethod):
@@ -115,21 +116,23 @@ def profile(A, device):
     return sol, total, seconds, calls
 
 
-def profile_solve(sol, A, device):
-    """A warm solve's wall time, then a profiled one's device kernels."""
+def profile_solve(sol, A, device, **solve_kw):
+    """A warm solve's wall time, then a profiled one's device kernels;
+    ``solve_kw`` replaces the solve's ``accel="cg", maxiter=200``."""
     b = A @ np.random.default_rng(0).random(A.shape[0])
+    solve_kw = solve_kw or dict(accel="cg", maxiter=200)
 
     def solve(res=None):
         _sync(device)
         t0 = time.perf_counter()
-        sol.solve(b, tol=1e-8, accel="cg", maxiter=200, residuals=res)
+        sol.solve(b, tol=1e-8, residuals=res, **solve_kw)
         _sync(device)
         return time.perf_counter() - t0
 
     solve()
     res = []
     wall = solve(res)
-    print(f"== solve: {len(res) - 1} CG iterations, {wall:.4f} s")
+    print(f"== solve({solve_kw}): {len(res) - 1} iterations, {wall:.4f} s")
     if device.type != "cuda":
         return
     from torch.profiler import ProfilerActivity

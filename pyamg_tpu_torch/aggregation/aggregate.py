@@ -1,11 +1,12 @@
 """Aggregation: block aggregation on structured grids, and the greedy
 standard and naive aggregations over a strength graph.
 
-Port of ``grid_aggregation``, ``fit_aggop``, ``standard_aggregation`` and
-``naive_aggregation`` from ``pyamg_tpu/aggregation/aggregate.py``.  The
-greedy passes are the JAX package's pure-Python ones (equal to its native
-``amg_core`` kernels), run over Python lists rather than numpy scalars.
-The Lloyd, pairwise and parallel aggregations are not ported yet.
+Port of ``grid_aggregation``, ``fit_aggop``, ``standard_aggregation``,
+``naive_aggregation`` and ``parallel_aggregation`` from
+``pyamg_tpu/aggregation/aggregate.py``.  The greedy passes are the JAX
+package's pure-Python ones (equal to its native ``amg_core`` kernels), run
+over Python lists rather than numpy scalars.  The Lloyd and pairwise
+aggregations are not ported yet.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import scipy.sparse as sp
 from ..util.utils import to_csr
 
 __all__ = ["grid_aggregation", "fit_aggop", "standard_aggregation",
-           "naive_aggregation"]
+           "naive_aggregation", "parallel_aggregation"]
 
 
 def grid_aggregation(grid, block=None):
@@ -137,3 +138,74 @@ def naive_aggregation(C):
                 labels[j] = agg
     return (fit_aggop(np.array(labels, dtype=np.int64), len(roots)),
             np.array(roots, dtype=np.int64))
+
+
+def parallel_aggregation(C, seed=0):
+    """Round-based aggregation in whole-graph vectorized passes: distance-2
+    independent roots by weighted Luby rounds (weights from ``seed``), two
+    sweeps that attach nodes to the neighbouring aggregate of largest
+    weight, then the leftovers as aggregates of their own.
+
+    The aggregates have the shape of :func:`standard_aggregation`'s (roots
+    mutually non-adjacent, every node within distance 2 of its root) but
+    not its order.  Returns ``(AggOp, roots)``."""
+    C = to_csr(C)
+    n = C.shape[0]
+    G = C.copy()
+    G.data = np.ones_like(G.data, dtype=np.float64)
+    G.setdiag(0)
+    G.eliminate_zeros()
+    rows = np.repeat(np.arange(n), np.diff(G.indptr))
+    cols = G.indices
+    iso = np.diff(G.indptr) == 0
+
+    weight = np.random.default_rng(seed).random(n)
+    tie = weight + np.arange(n) * 1e-12
+    state = np.zeros(n, dtype=np.int8)      # 0 undecided, 1 root, -1 covered
+    state[iso] = -1
+    labels = np.full(n, -1, dtype=np.int64)
+
+    while (state == 0).any():
+        active = state == 0
+        w = np.where(active, tie, -np.inf)
+        # a winner is the strict maximum of its neighbourhood and the weak
+        # maximum of every neighbour's: with distinct weights, a distance-2
+        # independent set
+        nbr1 = np.full(n, -np.inf)
+        m = active[rows] & active[cols]
+        np.maximum.at(nbr1, rows[m], w[cols[m]])
+        nbr2 = np.full(n, -np.inf)
+        np.maximum.at(nbr2, rows[m], nbr1[cols[m]])
+        winners = active & (w > nbr1) & (w >= nbr2)
+        if not winners.any():
+            winners = np.zeros(n, dtype=bool)
+            winners[int(np.argmax(w))] = True
+        state[winners] = 1
+        cov1 = np.zeros(n, dtype=bool)
+        cov1[cols[winners[rows]]] = True
+        cov2 = np.zeros(n, dtype=bool)
+        cov2[cols[cov1[rows]]] = True
+        state[(cov1 | cov2) & (state == 0)] = -1
+
+    roots = np.flatnonzero(state == 1)
+    labels[roots] = np.arange(roots.size)
+
+    for _ in range(2):
+        unass = labels < 0
+        m = unass[cols] & (labels[rows] >= 0)
+        if not m.any():
+            break
+        er, ec = rows[m], cols[m]
+        best_w = np.full(n, -np.inf)
+        np.maximum.at(best_w, ec, tie[er])
+        win = tie[er] == best_w[ec]
+        pick = np.full(n, -1, dtype=np.int64)
+        pick[ec[win]] = labels[er[win]]
+        newly = unass & (pick >= 0)
+        labels[newly] = pick[newly]
+
+    left = np.flatnonzero((labels < 0) & ~iso)
+    if left.size:
+        labels[left] = np.arange(left.size) + roots.size
+        roots = np.concatenate([roots, left])
+    return fit_aggop(labels, roots.size), roots

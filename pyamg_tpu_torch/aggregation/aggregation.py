@@ -1,15 +1,23 @@
-"""Smoothed aggregation (SA) solver constructor, structured-grid path.
+"""Smoothed aggregation (SA) solver constructor.
 
-Port of ``pyamg_tpu/aggregation/aggregation.py`` for 2-D grids (a matrix
-carrying ``A.grid``, as the gallery builds it): grid-block aggregation ->
-single-candidate tentative prolongator -> Jacobi prolongation smoothing
-``P = S T`` with ``S = I - omega/rho(D^-1 A) D^-1 A`` -> ``R = P^H`` ->
-scipy Galerkin product, all on the host in numpy/scipy; then every level's
-operators move to the requested torch device: A as ``SparseDIA``, P and R
-as gather-free ``ComposedOp`` chains of a DIA smoother and a grid operator.
+Port of ``pyamg_tpu/aggregation/aggregation.py`` for scalar, hermitian or
+symmetric problems with one near-nullspace candidate.  Per level, on the
+host in numpy/scipy: relax the candidate (``improve_candidates``), then
 
-Setups that would leave this path raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+* on a 2-D grid (a matrix carrying ``A.grid``, as the gallery builds it):
+  grid-block aggregation -> tentative prolongator -> ``P = S T`` with ``S =
+  I - omega/rho(D^-1 A) D^-1 A`` -> ``R = P^H`` -> Galerkin product; the
+  device operators are A as ``SparseDIA`` and P, R as gather-free
+  ``ComposedOp`` chains of a DIA smoother and a grid operator;
+* otherwise: strength of connection -> (diagonal-dominance filter) ->
+  aggregation -> tentative prolongator -> prolongation smoothing -> R by
+  symmetry -> Galerkin product (-> coarse filter); the device operators
+  are whatever ``device_operator`` chooses for A (DIA, dense or padded
+  ELL) and, for P and R, the aggregate-root embedding as DIA where its
+  pattern is banded, else ``device_operator``'s form.
+
+Setups outside the port raise ``NotImplementedError`` naming the ROADMAP
+item that ports them.
 """
 
 from __future__ import annotations
@@ -21,16 +29,81 @@ import torch
 from ..multilevel import Level, MultilevelSolver
 from ..relaxation.smoothing import change_smoothers, rho_D_inv_A
 from ..sparse import (ComposedOp, GridPoolOp, GridRepeatOp, SparseDIA,
-                      device_operator)
-from ..util.utils import (get_diagonal, levelize_smooth_or_improve_candidates,
+                      device_operator, root_embedded_transfers)
+from ..strength import (classical_strength_of_connection,
+                        symmetric_strength_of_connection)
+from ..util.linalg import approximate_spectral_radius
+from ..util.utils import (eliminate_diag_dom_nodes, filter_matrix_rows,
+                          get_diagonal,
+                          levelize_smooth_or_improve_candidates,
                           levelize_strength_or_aggregation, not_ported,
-                          numpy_dtype, to_csr, torch_dtype, unpack_arg)
-from .aggregate import grid_aggregation
+                          numpy_dtype, relaxation_as_linear_operator, to_csr,
+                          torch_dtype, unpack_arg)
+from .aggregate import (grid_aggregation, naive_aggregation,
+                        parallel_aggregation, standard_aggregation)
+from .smooth import (energy_prolongation_smoother,
+                     jacobi_prolongation_smoother,
+                     richardson_prolongation_smoother)
 from .tentative import fit_candidates
 
-__all__ = ["smoothed_aggregation_solver", "structured_smoother_S"]
+__all__ = ["smoothed_aggregation_solver", "structured_smoother_S",
+           "galerkin_product"]
 
 _UNSTRUCTURED = "the unstructured SA chain"
+
+
+def _strength(A, B, flag):
+    fn, kwargs = unpack_arg(flag)
+    if fn == "symmetric":
+        return symmetric_strength_of_connection(A, **kwargs)
+    if fn == "classical":
+        return classical_strength_of_connection(A, **kwargs)
+    if fn == "predefined":
+        return to_csr(kwargs["C"])
+    if fn is None:
+        C = to_csr(A).copy()
+        C.data = np.ones_like(C.data)
+        return C
+    if fn in ("distance", "ode", "evolution", "energy_based",
+              "algebraic_distance", "affinity"):
+        raise not_ported(f"strength of connection {fn!r}", _UNSTRUCTURED)
+    raise ValueError(f"unrecognized strength of connection method {fn!r}")
+
+
+def _aggregate(C, A, B, flag):
+    fn, kwargs = unpack_arg(flag)
+    if fn == "standard":
+        # the sequential three-pass greedy at every size, as the JAX
+        # package runs it where its native library is present; a caller's
+        # ``sequential_limit`` hands larger graphs to the round-based form
+        lim = kwargs.pop("sequential_limit", None)
+        if lim is not None and C.shape[0] > lim:
+            return parallel_aggregation(C, **kwargs)
+        return standard_aggregation(C, **kwargs)
+    if fn in ("parallel", "mis"):
+        return parallel_aggregation(C, **kwargs)
+    if fn == "naive":
+        return naive_aggregation(C, **kwargs)
+    if fn == "predefined":
+        return to_csr(kwargs["AggOp"]), None
+    if fn in ("lloyd", "pairwise"):
+        raise not_ported(f"aggregation {fn!r}", _UNSTRUCTURED)
+    raise ValueError(f"unrecognized aggregation method {fn!r}")
+
+
+def _smooth_P(T, A, C, B, flag, sym_hint=None):
+    fn, kwargs = unpack_arg(flag)
+    if fn == "jacobi":
+        return jacobi_prolongation_smoother(A, T, C, B, sym_hint=sym_hint,
+                                            **kwargs)
+    if fn == "richardson":
+        return richardson_prolongation_smoother(A, T, sym_hint=sym_hint,
+                                                **kwargs)
+    if fn == "energy":
+        return energy_prolongation_smoother(A, T, C, B, **kwargs)
+    if fn is None:
+        return to_csr(T)
+    raise ValueError(f"unrecognized prolongation smoother {fn!r}")
 
 
 def smoothed_aggregation_solver(A, B=None, BH=None, symmetry="hermitian",
@@ -60,12 +133,22 @@ def smoothed_aggregation_solver(A, B=None, BH=None, symmetry="hermitian",
     and there is no fallback to the CPU.  With ``finalize_device=False`` the
     levels hold only the host matrices.
 
-    Only the structured path is ported: a 2-D grid matrix (``A.grid``),
-    hermitian or symmetric, one near-nullspace candidate, no
-    ``improve_candidates``, Jacobi (or no) prolongation smoothing; other
-    setups raise ``NotImplementedError``.  The smoothers of this slice are
-    jacobi, chebyshev and polynomial, so the default block Gauss-Seidel
-    smoothers raise too.
+    Ported: scalar hermitian or symmetric problems with one near-nullspace
+    candidate, on a 2-D grid (``A.grid``) or without grid metadata; other
+    setups (nonsymmetric, BSR input, several candidates, 3-D grid metadata)
+    raise ``NotImplementedError``.
+
+    Examples
+    --------
+    >>> import numpy as np
+    >>> from pyamg_tpu_torch.gallery import poisson
+    >>> A = poisson((32, 32), format='csr')
+    >>> ml = smoothed_aggregation_solver(A, max_coarse=50, device="cpu")
+    >>> b = np.ones(A.shape[0])
+    >>> res = []
+    >>> x = ml.solve(b, tol=1e-8, residuals=res)
+    >>> res[-1] < 1e-8 * res[0]
+    True
     """
     if symmetry not in ("hermitian", "symmetric", "nonsymmetric"):
         raise ValueError("expected 'symmetric', 'nonsymmetric' or "
@@ -89,6 +172,8 @@ def smoothed_aggregation_solver(A, B=None, BH=None, symmetry="hermitian",
         if B.shape[1] > 1:
             raise not_ported("multi-candidate SA", "bdia/bell")
 
+    max_levels, max_coarse, strength = levelize_strength_or_aggregation(
+        strength, max_levels, max_coarse)
     max_levels, max_coarse, aggregate = levelize_strength_or_aggregation(
         aggregate, max_levels, max_coarse)
     improve_candidates = levelize_smooth_or_improve_candidates(
@@ -114,8 +199,9 @@ def smoothed_aggregation_solver(A, B=None, BH=None, symmetry="hermitian",
     while (len(levels) < max_levels
            and levels[-1].A_csr.shape[0] > max_coarse):
         n_prev = levels[-1].A_csr.shape[0]
-        _extend_sa_hierarchy(levels, aggregate, smooth, improve_candidates,
-                             keep, symmetry)
+        _extend_sa_hierarchy(levels, strength, aggregate, smooth,
+                             improve_candidates, diagonal_dominance, keep,
+                             symmetry, coarse_filter)
         if levels[-1].A_csr.shape[0] == n_prev:
             break
 
@@ -130,17 +216,26 @@ def smoothed_aggregation_solver(A, B=None, BH=None, symmetry="hermitian",
 
 
 def _finalize_device_operators(levels, op_dtype=None, device="cuda"):
-    """Build the device form of every level: A as ``SparseDIA`` (or dense
-    when small), P = ``ComposedOp(S, GridRepeatOp)`` and R =
-    ``ComposedOp(GridPoolOp, S^H)`` with S and S^H as ``SparseDIA``.  Every
-    array is cast to ``op_dtype`` on the host and moved to ``device``
-    once."""
+    """Build the device form of every level.  A: ``device_operator``'s
+    choice.  Transfers of a structured level: P = ``ComposedOp(S,
+    GridRepeatOp)`` and R = ``ComposedOp(GridPoolOp, S^H)`` with S and S^H
+    as ``SparseDIA``; of any other level: the aggregate-root embedding
+    where it is banded, else ``device_operator``'s choice.  Every array is
+    cast to ``op_dtype`` on the host and moved to ``device`` once."""
     npdt = numpy_dtype(op_dtype)
     for lvl in levels:
         lvl.A = device_operator(lvl.A_csr, dtype=npdt, device=device)
         if not hasattr(lvl, "P_csr"):
             continue
-        meta = lvl.struct_meta
+        meta = getattr(lvl, "struct_meta", None)
+        if meta is None:
+            emb = root_embedded_transfers(lvl, dtype=npdt, device=device)
+            if emb is not None:
+                lvl.P, lvl.R = emb
+            else:
+                lvl.P = device_operator(lvl.P_csr, dtype=npdt, device=device)
+                lvl.R = device_operator(lvl.R_csr, dtype=npdt, device=device)
+            continue
         n_f, n_c = lvl.P_csr.shape
         wmap = meta["wmap"]
         if npdt is not None:
@@ -185,15 +280,21 @@ def _add_identity_inplace(S_data, A, n):
 
 def structured_smoother_S(A, sfn, skw, symmetry):
     """Prolongation-smoother matrix of the structured path, ``P = S^degree
-    @ T``.  Returns ``(S_csr_or_None, degree)``; the Jacobi branch only."""
+    @ T``, for Jacobi and Richardson smoothing.  Returns
+    ``(S_csr_or_None, degree)``."""
     degree = int(skw.get("degree", 1)) if sfn else 0
     if degree == 0 or sfn is None:
         return None, degree
-    if sfn != "jacobi":
-        raise not_ported(f"prolongation smoother {sfn!r}", _UNSTRUCTURED)
     sym_hint = (symmetry in ("hermitian", "symmetric")
                 and not np.iscomplexobj(A.data))
     omega = float(skw.get("omega", 4.0 / 3.0))
+    if sfn == "richardson":
+        c = omega / approximate_spectral_radius(A, symmetric=sym_hint or None)
+        return _add_identity_inplace((-c) * A.data.copy(), A,
+                                     A.shape[0]), degree
+    if sfn != "jacobi":
+        # jacobi_weak: the semicoarsening branch of line smoothers
+        raise not_ported(f"prolongation smoother {sfn!r}", _UNSTRUCTURED)
     c = omega / rho_D_inv_A(A, symmetric=sym_hint)
     Dinv = get_diagonal(A, inv=True)
     # S = I - c D^{-1} A in place on A's sparsity: ((-c) * Dinv_i) * A_ij
@@ -262,24 +363,86 @@ def _extend_structured(levels, lvl, A, B, grid, sfn, skw, akw, keep,
     levels.append(new)
 
 
-def _extend_sa_hierarchy(levels, aggregate, smooth, improve_candidates,
-                         keep, symmetry):
-    """One SA coarsening step; only the structured-grid path is ported."""
+def galerkin_product(lvl, A):
+    """The coarse operator ``R A P`` of the level's transfers, stored
+    zeros dropped."""
+    A_coarse = (lvl.R_csr @ A @ lvl.P_csr).tocsr()
+    A_coarse.eliminate_zeros()
+    return A_coarse
+
+
+def _extend_sa_hierarchy(levels, strength, aggregate, smooth,
+                         improve_candidates, diagonal_dominance, keep,
+                         symmetry, coarse_filter=None):
+    """One SA coarsening step."""
     lvl = levels[-1]
     A = lvl.A_csr
+    B = lvl.B
     i = len(levels) - 1
-    if improve_candidates[i] is not None:
-        raise not_ported("improve_candidates", _UNSTRUCTURED)
+
+    # improve the candidate by relaxing on A B = 0
+    ic = improve_candidates[i]
+    if ic is not None:
+        b0 = np.zeros((A.shape[0], 1), dtype=A.dtype)
+        op = relaxation_as_linear_operator(ic, A, b0)
+        B = np.column_stack([op @ B[:, k] for k in range(B.shape[1])])
+        lvl.B = B
+
     grid = getattr(lvl, "grid", None)
     sfn, skw = unpack_arg(smooth[i]) if smooth[i] is not None else (None, {})
     afn, akw = unpack_arg(aggregate[i])
+    if grid is not None and len(grid) > 2:
+        raise not_ported(f"SA on a matrix with {len(grid)}-D grid metadata",
+                         _UNSTRUCTURED)
+    # structured-grid path: grid-block aggregation keeps every level a
+    # stencil matrix, so the device operators are DIA and grid transfers
     if (grid is not None
             and (afn == "grid" or (afn == "standard" and len(grid) == 2))
             and sfn in (None, "jacobi", "richardson")
             and np.prod(grid) == A.shape[0]):
-        _extend_structured(levels, lvl, A, lvl.B, grid, sfn, skw, akw, keep,
+        _extend_structured(levels, lvl, A, B, grid, sfn, skw, akw, keep,
                            symmetry)
         return
-    raise not_ported("SA setup off the 2-D structured-grid path "
-                      f"(grid={grid}, aggregate={afn!r}, smooth={sfn!r})",
-                      _UNSTRUCTURED)
+
+    C = _strength(A, B, strength[i])
+    if diagonal_dominance:
+        kwargs = diagonal_dominance[1] \
+            if isinstance(diagonal_dominance, tuple) else {}
+        C = eliminate_diag_dom_nodes(A, C, **(kwargs if isinstance(
+            kwargs, dict) else {}))
+
+    AggOp, Cpts = _aggregate(C, A, B, aggregate[i])
+    if AggOp.shape[1] == 0:
+        return
+
+    T, B_coarse = fit_candidates(AggOp, B)
+    P = _smooth_P(T, A, C, B_coarse, smooth[i], sym_hint=True)
+    R = P.conjugate().T.tocsr() if symmetry == "hermitian" else P.T.tocsr()
+
+    lvl.C = C if keep else None
+    if keep:
+        lvl.AggOp = AggOp
+        lvl.T = T
+    lvl.P_csr = to_csr(P)
+    lvl.R_csr = to_csr(R)
+
+    # the fine position of every coarse dof, for the gather-free DIA form
+    # of the transfers (sparse/embed.py): aggregate a embeds at its root
+    if Cpts is not None:
+        roots = np.asarray(Cpts, dtype=np.int64)
+        if roots.size and roots.size == AggOp.shape[1] == lvl.P_csr.shape[1]:
+            lvl.root_dofs = roots
+
+    A_coarse = galerkin_product(lvl, A)
+    if coarse_filter:
+        # drop weak Galerkin fill-in, lumped onto the diagonal (row sums
+        # kept): bounds the densification of coarse operators
+        theta = coarse_filter if isinstance(coarse_filter, float) else 1e-2
+        A_coarse = filter_matrix_rows(A_coarse, theta, lump=True)
+
+    new = Level()
+    new.A_csr = A_coarse
+    new.B = B_coarse
+    new.blocksize = 1
+    new.symmetry = symmetry
+    levels.append(new)

@@ -1,21 +1,22 @@
-"""Multigrid hierarchy runtime: levels, the V-cycle, the coarse solve and the
-solve entry points.
+"""Multigrid hierarchy runtime: levels, the cycles, the coarse solvers and
+the solve entry points.
 
-Port of ``pyamg_tpu/multilevel.py`` for the structured SA main path and
-the padded-ELL hierarchies of the general device setup.  The JAX package
-compiles each solve into one XLA program; here the cycle is plain eager
-PyTorch on the hierarchy's device, every DIA matvec a launch of the
-hand-written kernel, and the Krylov loop reads one scalar per iteration for
-its stopping test.  The cycle only needs each level's operators to have a
-``matvec``: DIA and grid operators, or padded-ELL operators with a coarse
+Port of ``pyamg_tpu/multilevel.py``.  The JAX package compiles each solve
+into one XLA program; here the cycle is plain eager PyTorch on the
+hierarchy's device, every DIA matvec a launch of the hand-written kernel,
+and the Krylov loop reads one scalar per iteration for its stopping test.
+The cycle only needs each level's operators to have a ``matvec``: DIA,
+dense, grid and embedded operators, or padded-ELL operators with a coarse
 pseudoinverse padded to the coarsest level's padded size
-(``parallel.sharding.ShardedSolver``).  Only the V-cycle, the ``pinv``
-coarse solver and CG acceleration are ported; other choices raise
-``NotImplementedError``.
+(``parallel.sharding.ShardedSolver``).  V, W, F and AMLI cycles; dense
+(pinv, lu, cholesky, splu), host-iterative and callable coarse solvers;
+stand-alone cycling and CG acceleration.  The other Krylov methods and
+``MultilevelSolverSet`` raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import inspect
 from typing import List
 
 import numpy as np
@@ -26,9 +27,13 @@ from .krylov._common import finalize, norm
 from .relaxation.device import apply_smoother
 from .util.utils import not_ported, numpy_dtype, unpack_arg
 
-__all__ = ["Level", "MultilevelSolver"]
+__all__ = ["Level", "MultilevelSolver", "coarse_grid_solver"]
 
 _CYCLES_KRYLOV = "the rest of the cycles and Krylov methods"
+_DENSE_COARSE_NAMES = ("pinv", "pinv2", "cholesky", "lu", "splu")
+_RELAX_COARSE_NAMES = ("jacobi", "gauss_seidel", "block_jacobi")
+_KRYLOV_COARSE_NAMES = ("cg", "gmres", "bicgstab")
+_CYCLES = ("V", "W", "F", "AMLI")
 
 
 class Level:
@@ -56,6 +61,159 @@ class Level:
         return self.A_csr
 
 
+def _build_coarse_state(A_csr, name, kwargs=None, dtype=None, *, device):
+    """Factorize the coarsest operator once on the host; returns ``(kind,
+    state)``, ``state`` a tuple of small tensors on ``device`` that
+    :func:`_apply_coarse` consumes inside the cycle.
+
+    ``pinv``/``pinv2`` are dense pseudoinverses, ``lu`` a dense LU
+    factorization, ``cholesky`` a dense Cholesky factorization (raises on a
+    coarse operator that is not positive definite), and ``splu`` removes
+    exactly-zero columns and rows and solves through the triangular
+    factors of the sparse LU."""
+    import scipy.linalg as sla
+    import scipy.sparse.linalg as spla
+
+    kwargs = kwargs or {}
+    npdt = numpy_dtype(dtype)
+
+    def dev(a):
+        a = np.asarray(a)
+        if npdt is not None and np.issubdtype(a.dtype, np.inexact):
+            a = a.astype(npdt)
+        return torch.as_tensor(a, device=device)
+
+    if name in ("pinv", "pinv2"):
+        return "dense", (dev(np.linalg.pinv(A_csr.toarray())),)
+    if name == "lu":
+        lu, piv = sla.lu_factor(A_csr.toarray(), **kwargs)
+        # LAPACK's pivots, as torch takes them: int32, counted from 1
+        return "lu", (dev(lu), dev(piv.astype(np.int32) + 1))
+    if name == "cholesky":
+        c, _low = sla.cho_factor(A_csr.toarray(), lower=True, **kwargs)
+        return "chol", (dev(np.tril(c)),)
+    if name == "splu":
+        Acsc = A_csr.tocsc().copy()
+        Acsc.eliminate_zeros()
+        keep = np.flatnonzero(np.diff(Acsc.indptr))   # columns with entries
+        if keep.size < Acsc.shape[0]:
+            Acsc = Acsc[keep][:, keep].tocsc()
+        f = spla.splu(Acsc, **kwargs)
+        return "splu", (dev(f.L.toarray()), dev(f.U.toarray()),
+                        dev(np.argsort(f.perm_r).astype(np.int64)),
+                        dev(f.perm_c.astype(np.int64)),
+                        dev(keep.astype(np.int64)))
+    raise ValueError(f"not a dense/factorized coarse solver: {name!r}")
+
+
+def _apply_coarse(kind, state, b):
+    """The coarse solve from a factorization state, on the state's
+    device, in the state's dtype; returns b's dtype."""
+    if kind == "dense":
+        return (state[0] @ b.to(state[0].dtype)).to(b.dtype)
+    rhs = b.to(state[0].dtype)[:, None]
+    if kind == "lu":
+        return torch.linalg.lu_solve(state[0], state[1], rhs)[:, 0].to(b.dtype)
+    if kind == "chol":
+        return torch.cholesky_solve(rhs, state[0], upper=False)[:, 0] \
+            .to(b.dtype)
+    if kind == "splu":
+        L, U, pr_inv, pc, keep = state
+        y = torch.linalg.solve_triangular(L, rhs[keep][pr_inv], upper=False,
+                                          unitriangular=True)
+        w = torch.linalg.solve_triangular(U, y, upper=True)[:, 0]
+        out = torch.zeros_like(b)
+        out[keep] = w[pc].to(b.dtype)
+        return out
+    raise ValueError(f"unknown coarse state kind {kind!r}")
+
+
+def _scipy_krylov(fn, A, b, tol, maxiter):
+    """One scipy Krylov solve; the tolerance's keyword is ``rtol`` in
+    current scipy and ``tol`` in older ones."""
+    key = "rtol" if "rtol" in inspect.signature(fn).parameters else "tol"
+    x, _info = fn(A, b, maxiter=maxiter, **{key: tol})
+    return x
+
+
+class _CoarseSolver:
+    """A coarse-grid solver by name or callable; see
+    :func:`coarse_grid_solver`."""
+
+    def __init__(self, solver):
+        self.solver, self.kwargs = unpack_arg(solver)
+        self.name = "callable" if callable(self.solver) else self.solver
+        if self.name not in ("callable",) + _DENSE_COARSE_NAMES \
+                + _RELAX_COARSE_NAMES + _KRYLOV_COARSE_NAMES:
+            raise ValueError(f"unknown coarse solver {self.name!r}")
+
+    def prepare(self, A_csr, dtype=None, *, device, dense=None):
+        """``f(b) -> x`` solving ``A x = b`` for tensors on ``device``.
+        The dense solvers factorize once here, on the host, and hold their
+        factors on ``device`` in ``dtype``; the iterative and callable ones
+        take b to the host at every call.  ``dense``: an inverse of A built
+        already (a tensor on ``device``), applied in place of any of them."""
+        kwargs = self.kwargs
+        if dense is not None:
+            return lambda b: _apply_coarse("dense", (dense,), b)
+        if self.name in _DENSE_COARSE_NAMES:
+            kind, state = _build_coarse_state(A_csr, self.name, kwargs,
+                                              dtype, device=device)
+            return lambda b: _apply_coarse(kind, state, b)
+
+        if self.name == "callable":
+            def host(b):
+                return self.solver(A_csr, b, **kwargs)
+        elif self.name in _RELAX_COARSE_NAMES:
+            from .relaxation import relaxation as rel
+
+            def host(b):
+                x = np.zeros_like(b)
+                getattr(rel, self.name)(
+                    A_csr, x, b, iterations=kwargs.get("iterations", 10))
+                return x
+        else:
+            import scipy.sparse.linalg as spla
+
+            def host(b):
+                return _scipy_krylov(getattr(spla, self.name), A_csr, b,
+                                     kwargs.get("tol", 1e-12),
+                                     kwargs.get("maxiter", None))
+
+        def fn(b):
+            x = host(b.cpu().numpy())
+            return torch.as_tensor(np.asarray(x), device=b.device) \
+                .to(b.dtype)
+        return fn
+
+    def __call__(self, A_csr, b):
+        """Solve ``A x = b`` for a tensor b, on b's device."""
+        return self.prepare(A_csr, device=b.device)(b)
+
+
+def coarse_grid_solver(solver):
+    """A coarse-grid solver: ``solver(A_csr, b)`` solves for a tensor b, and
+    ``solver.prepare(A_csr, dtype, device=...)`` returns the ``f(b)`` that
+    the cycle calls.
+
+    ``solver``: ``pinv``/``pinv2``, ``lu``, ``cholesky``, ``splu`` (dense
+    factors held on the device), ``jacobi``, ``gauss_seidel``,
+    ``block_jacobi``, ``cg``, ``gmres``, ``bicgstab`` (run on the host), a
+    ``(name, kwargs)`` pair, or a callable ``f(A_csr, b_numpy, **kwargs)``.
+
+    Examples
+    --------
+    >>> import torch
+    >>> from pyamg_tpu_torch.gallery import poisson
+    >>> A = poisson((5, 5), format='csr')
+    >>> b = torch.ones(25, dtype=torch.float64)
+    >>> x = coarse_grid_solver("lu")(A, b)
+    >>> bool(abs(A @ x.numpy() - 1).max() < 1e-12)
+    True
+    """
+    return _CoarseSolver(solver)
+
+
 class MultilevelSolver:
     """Multigrid hierarchy and its cycle, on one torch device.
 
@@ -65,9 +223,7 @@ class MultilevelSolver:
     >>> from pyamg_tpu_torch.gallery import poisson
     >>> from pyamg_tpu_torch import smoothed_aggregation_solver
     >>> A = poisson((32, 32), format='csr')
-    >>> ml = smoothed_aggregation_solver(A, max_coarse=50, device="cpu",
-    ...     presmoother="chebyshev", postsmoother="chebyshev",
-    ...     improve_candidates=None)
+    >>> ml = smoothed_aggregation_solver(A, max_coarse=50, device="cpu")
     >>> b = np.ones(A.shape[0])
     >>> res = []
     >>> x = ml.solve(b, tol=1e-8, residuals=res)
@@ -77,13 +233,12 @@ class MultilevelSolver:
 
     def __init__(self, levels: List[Level], coarse_solver="pinv",
                  device="cuda"):
-        name = unpack_arg(coarse_solver)[0]
-        if name not in ("pinv", "pinv2"):
-            raise not_ported(f"coarse solver {name!r}", _CYCLES_KRYLOV)
         self.levels = levels
         self.coarse_solver_spec = coarse_solver
+        self._coarse_solver = coarse_grid_solver(coarse_solver)
         self.device = torch.device(device)
-        self._coarse_mat = None
+        self._coarse_mat = None     # a dense coarse inverse, set or built
+        self._coarse_fn = None
         self._A64 = None
         self.symmetry = getattr(levels[0], "symmetry", "hermitian") \
             if levels else "hermitian"
@@ -110,43 +265,132 @@ class MultilevelSolver:
         return (sum(lvl.A.shape[0] for lvl in self.levels)
                 / self.levels[0].A.shape[0])
 
+    def cycle_complexity(self, cycle="V"):
+        """Approximate work of one cycle in units of the fine level's
+        nnz."""
+        cycle = str(cycle).upper()
+        nnz = [lvl.nnz for lvl in self.levels]
+        last = len(self.levels) - 2
+
+        def work(level, kind):
+            if len(self.levels) == 1:
+                return nnz[0]
+            if level == last:
+                return 2 * nnz[level] + nnz[level + 1]
+            if kind == "V":
+                below = work(level + 1, "V")
+            elif kind == "W":
+                below = 2 * work(level + 1, "W")
+            else:
+                below = work(level + 1, "F") + work(level + 1, "V")
+            return 2 * nnz[level] + below
+
+        if cycle not in _CYCLES:
+            raise TypeError(f"unrecognized cycle type {cycle!r}")
+        return float(work(0, "W" if cycle == "AMLI" else cycle)) \
+            / float(nnz[0])
+
     # -- cycle ------------------------------------------------------------
     def _coarse(self):
-        """Dense pseudoinverse of the coarsest A, computed once on the host
-        (numpy) and held on the device in the operators' dtype."""
+        """The dense inverse of the coarsest A that the ``pinv`` solver
+        applies (or the one a loader set), on the device in the operators'
+        dtype."""
         if self._coarse_mat is None:
-            pinv = np.linalg.pinv(self.levels[-1].host_A().toarray())
-            dt = getattr(self, "_op_dtype", None)
-            if dt is not None:
-                pinv = pinv.astype(numpy_dtype(dt))
-            self._coarse_mat = torch.as_tensor(pinv, device=self.device)
+            _kind, state = _build_coarse_state(
+                self.levels[-1].host_A(), "pinv",
+                dtype=getattr(self, "_op_dtype", None), device=self.device)
+            self._coarse_mat = state[0]
         return self._coarse_mat
 
     def _solve_coarse(self, b):
-        M = self._coarse()
-        return (M @ b.to(M.dtype)).to(b.dtype)
+        if self._coarse_fn is None:
+            pinv = self._coarse_solver.name in ("pinv", "pinv2")
+            self._coarse_fn = self._coarse_solver.prepare(
+                self.levels[-1].host_A(), getattr(self, "_op_dtype", None),
+                device=self.device,
+                dense=self._coarse() if pinv else self._coarse_mat)
+        return self._coarse_fn(b)
 
-    def _vcycle(self, lvl, x, b):
+    def _cycle(self, lvl, x, b, kind):
+        """One cycle of ``kind`` from level ``lvl`` down, from ``x``."""
         levels = self.levels
         if lvl == len(levels) - 1:
             return self._solve_coarse(b)
         level = levels[lvl]
         A = level.A
         x = apply_smoother(level.presmoother, A, x, b)
-        r = b - A.matvec(x)
-        bc = level.R.matvec(r)
-        if lvl + 1 == len(levels) - 1:
+        bc = level.R.matvec(b - A.matvec(x))
+        below = lvl + 1
+
+        def descend(xc, rhs, kind):
+            return self._cycle(below, xc, rhs, kind)
+
+        if below == len(levels) - 1:
             xc = self._solve_coarse(bc)
+        elif kind == "V":
+            xc = descend(torch.zeros_like(bc), bc, "V")
+        elif kind == "W":
+            xc = descend(descend(torch.zeros_like(bc), bc, "W"), bc, "W")
+        elif kind == "F":
+            xc = descend(descend(torch.zeros_like(bc), bc, "F"), bc, "V")
         else:
-            xc = self._vcycle(lvl + 1, torch.zeros_like(bc), bc)
+            # AMLI: two coarse iterations along A-conjugate directions
+            Ac = levels[below].A
+
+            def guard(d):
+                return torch.where(d == 0, 1, d)
+
+            p0 = descend(torch.zeros_like(bc), bc, "AMLI")
+            Ap0 = Ac.matvec(p0)
+            p0Ap0 = guard(torch.vdot(p0, Ap0))
+            alpha0 = torch.vdot(p0, bc) / p0Ap0
+            xc = alpha0 * p0
+            rc = bc - alpha0 * Ap0
+            p1 = descend(torch.zeros_like(bc), rc, "AMLI")
+            beta = torch.vdot(p0, Ac.matvec(p1)) / p0Ap0
+            p1 = p1 - beta * p0
+            Ap1 = Ac.matvec(p1)
+            alpha1 = torch.vdot(p1, rc) / guard(torch.vdot(p1, Ap1))
+            xc = xc + alpha1 * p1
         x = x + level.P.matvec(xc)
         return apply_smoother(level.postsmoother, A, x, b)
 
     def cycle_fn(self, cycle="V"):
-        """``f(x, b)``: one cycle from ``x`` for right-hand side ``b``."""
-        if str(cycle).upper() != "V":
-            raise not_ported(f"cycle {cycle!r}", _CYCLES_KRYLOV)
-        return lambda x, b: self._vcycle(0, x, b)
+        """``f(x, b)``: one V, W, F or AMLI cycle from ``x`` for right-hand
+        side ``b``."""
+        kind = str(cycle).upper()
+        if kind not in _CYCLES:
+            raise TypeError(f"unrecognized cycle type {cycle!r}")
+        return lambda x, b: self._cycle(0, x, b, kind)
+
+    def aspreconditioner(self, cycle="V"):
+        """One cycle from x = 0 as a scipy ``LinearOperator``: a numpy
+        vector in gives a numpy vector out (each call copies it to the
+        hierarchy's device and back), so scipy's solvers can take it as
+        ``M``; a tensor in is a plain call that returns a tensor."""
+        from scipy.sparse.linalg import LinearOperator
+
+        fn = self.cycle_fn(cycle)
+        op_dtype = self.levels[0].A.dtype
+        as_tensor = self._as_tensor
+
+        class _CyclePreconditioner(LinearOperator):
+            def _matvec(self, b):
+                b_d = as_tensor(b, op_dtype)
+                return fn(torch.zeros_like(b_d), b_d).cpu().numpy()
+
+            def matvec(self, b):
+                if isinstance(b, torch.Tensor):
+                    b_d = as_tensor(b, op_dtype)
+                    return fn(torch.zeros_like(b_d), b_d)
+                return super().matvec(b)
+
+        return _CyclePreconditioner(dtype=numpy_dtype(op_dtype),
+                                    shape=self.levels[0].A.shape)
+
+    def psolve(self, b):
+        """One V-cycle from x = 0 on ``b``."""
+        return self.aspreconditioner().matvec(b)
 
     # -- solves -----------------------------------------------------------
     def _as_tensor(self, v, dtype):
@@ -162,18 +406,26 @@ class MultilevelSolver:
                        x, b, tol_t, maxiter)
 
     def solve(self, b, x0=None, tol=1e-5, maxiter=100, cycle="V",
-              accel=None, residuals=None, return_info=False):
+              accel=None, callback=None, residuals=None,
+              return_residuals=False, return_info=False):
         """Solve A x = b to relative residual ``tol`` in the hierarchy's
         dtype, on its device.
 
         ``accel``: None for stand-alone cycling, or ``"cg"`` for CG
-        preconditioned by one cycle per iteration.  Returns ``x`` as a
-        tensor on the hierarchy's device."""
+        preconditioned by one cycle per iteration.  ``callback(x)`` is
+        called with the iterate (a tensor on the device) after every cycle
+        of a stand-alone solve, and once with the result of an accelerated
+        one (as ``pyamg_tpu``'s CG, whose loop is fused, calls it).  Returns ``x`` as a tensor on the hierarchy's device, with the
+        residual history (a numpy array) when ``return_residuals``, else
+        with ``info`` when ``return_info``."""
         dtype = self.levels[0].A.dtype
         b_d = self._as_tensor(b, dtype)
         x = torch.zeros_like(b_d) if x0 is None \
             else self._as_tensor(x0, dtype)
         maxiter = 100 if maxiter is None else int(maxiter)
+        if return_residuals and residuals is None:
+            residuals = []
+        first = 0 if residuals is None else len(residuals)
 
         if accel is not None:
             if accel != "cg":
@@ -182,6 +434,8 @@ class MultilevelSolver:
             tol_t = float(tol * torch.where(normb == 0, 1, normb))
             xk, it, res_buf = self._run_cg(b_d, x, tol_t, maxiter, cycle)
             xk, info = finalize(xk, res_buf, it + 1, tol_t, residuals)
+            if callback is not None:
+                callback(xk)
         else:
             A = self.levels[0].A
             cyc = self.cycle_fn(cycle)
@@ -194,7 +448,11 @@ class MultilevelSolver:
                 x = cyc(x, b_d)
                 res.append(float(norm(b_d - A.matvec(x))))
                 it += 1
+                if callback is not None:
+                    callback(x)
             xk, info = finalize(x, res, it + 1, tol_t, residuals)
+        if return_residuals:
+            return xk, np.asarray(residuals[first:])
         if return_info:
             return xk, info
         return xk

@@ -1,13 +1,17 @@
 """Sparse operators: DIA storage on the hand-written SpMV kernel
 (``dia_kernel``; ``dia_variants`` holds two more DIA SpMV kernels in other
 layouts, which the DIA benchmark runs), padded ELL with the masked-SpGEMM
-kernels of the device setup, gather-free grid transfers, and the
-device-format chooser."""
+kernels of the device setup, gather-free grid transfers, the fine-embedded
+DIA transfers of unstructured levels (``embed``), and the device-format
+chooser."""
 
 from .dia import SparseDIA
 from .ell import SparseELL
-from .linop import ComposedOp, GridRepeatOp, GridPoolOp, DenseOp
+from .linop import (ComposedOp, CptProlongOp, CptRestrictOp, DenseOp,
+                    GridPoolOp, GridRepeatOp)
 from .device_op import device_operator
+from .embed import embedded_dia_transfers, root_embedded_transfers
 
 __all__ = ["SparseDIA", "SparseELL", "ComposedOp", "GridRepeatOp", "GridPoolOp",
-           "DenseOp", "device_operator"]
+           "DenseOp", "CptProlongOp", "CptRestrictOp", "device_operator",
+           "embedded_dia_transfers", "root_embedded_transfers"]

@@ -10,9 +10,13 @@ operators need no gathers:
 * smoothed P = S T with S = I - omega D^{-1} A -> ``ComposedOp`` of a
   :class:`SparseDIA` with the grid operator.
 
+A transfer pair whose coarse dofs each sit at a distinct fine dof (an
+aggregate's root, a C-point) has a fine-embedded form: ``CptProlongOp``
+scatters the coarse vector to those positions and applies an (n x n) DIA
+operator, ``CptRestrictOp`` applies one and gathers them.
+
 Each operator exposes ``matvec``, ``shape``, ``dtype`` and ``astype``.
-Port of ``pyamg_tpu/sparse/linop.py`` (the classical-AMG ``CptProlongOp`` and
-``CptRestrictOp`` are not ported yet).
+Port of ``pyamg_tpu/sparse/linop.py``.
 """
 
 from __future__ import annotations
@@ -26,7 +30,8 @@ import torch.nn.functional as F
 
 from ..util.utils import torch_dtype
 
-__all__ = ["ComposedOp", "GridRepeatOp", "GridPoolOp", "DenseOp"]
+__all__ = ["ComposedOp", "GridRepeatOp", "GridPoolOp", "DenseOp",
+           "CptProlongOp", "CptRestrictOp"]
 
 
 class ComposedOp:
@@ -220,3 +225,59 @@ class DenseOp:
         import scipy.sparse as sp
 
         return sp.csr_matrix(self.mat.cpu().numpy())
+
+
+class CptProlongOp:
+    """Prolongation as a fine-embedded DIA operator.
+
+    P (n_fine x n_coarse) has irregular coarse column ids, but coarse dof j
+    sits at the fine dof ``cpts[j]``: with P's columns re-indexed to those
+    positions it is an (n x n) operator whose offsets are the fine-grid
+    distances to nearby roots, banded where the level itself is.  Applying
+    P scatters the coarse vector onto the positions and runs one DIA
+    matvec."""
+
+    def __init__(self, dia, cpts, shape):
+        self.dia = dia                      # SparseDIA (n_fine, n_fine)
+        self.cpts = cpts                    # (n_coarse,) int64 positions
+        self.shape: Tuple[int, int] = tuple(shape)
+
+    @property
+    def dtype(self):
+        return self.dia.dtype
+
+    def astype(self, dtype):
+        return CptProlongOp(self.dia.astype(dtype), self.cpts, self.shape)
+
+    def matvec(self, xc):
+        xf = torch.zeros(self.shape[0], dtype=xc.dtype, device=xc.device)
+        xf[self.cpts] = xc
+        return self.dia.matvec(xf)
+
+    def to_scipy(self):
+        Pf = self.dia.to_scipy().tocsc()
+        return Pf[:, self.cpts.cpu().numpy()].tocsr()
+
+
+class CptRestrictOp:
+    """The restriction of a :class:`CptProlongOp` pair: one DIA matvec,
+    then a gather of the coarse dofs' positions."""
+
+    def __init__(self, dia, cpts, shape):
+        self.dia = dia                      # SparseDIA (n_fine, n_fine)
+        self.cpts = cpts                    # (n_coarse,) int64 positions
+        self.shape: Tuple[int, int] = tuple(shape)
+
+    @property
+    def dtype(self):
+        return self.dia.dtype
+
+    def astype(self, dtype):
+        return CptRestrictOp(self.dia.astype(dtype), self.cpts, self.shape)
+
+    def matvec(self, r):
+        return self.dia.matvec(r)[self.cpts]
+
+    def to_scipy(self):
+        RfT = self.dia.to_scipy().tocsr()
+        return RfT[self.cpts.cpu().numpy(), :].tocsr()

@@ -1,8 +1,9 @@
 """Strength of connection (host, numpy/scipy).
 
-Port of ``symmetric_strength_of_connection`` from ``pyamg_tpu/strength.py``
-for scalar (CSR) operators.  The block (BSR) form and the classical,
-evolution, energy, distance and algebraic measures are not ported yet.
+Port of ``symmetric_strength_of_connection`` and
+``classical_strength_of_connection`` from ``pyamg_tpu/strength.py`` for
+scalar (CSR) operators.  The block (BSR) forms and the evolution, energy,
+distance and algebraic measures are not ported yet.
 """
 
 from __future__ import annotations
@@ -10,9 +11,45 @@ from __future__ import annotations
 import numpy as np
 import scipy.sparse as sp
 
-from .util.utils import not_ported, scale_rows_by_largest_entry, to_csr
+from .util.utils import (not_ported, row_reduce,
+                         scale_rows_by_largest_entry, to_csr)
 
-__all__ = ["symmetric_strength_of_connection"]
+__all__ = ["symmetric_strength_of_connection",
+           "classical_strength_of_connection"]
+
+
+def _scalar_csr(A, what):
+    if sp.issparse(A) and A.format == "bsr" and A.blocksize[0] > 1:
+        raise not_ported(f"{what} strength of a block (BSR) operator",
+                         "the unstructured SA chain")
+    return to_csr(A)
+
+
+def classical_strength_of_connection(A, theta=0.0):
+    """Keep ``|A_ij| >= theta * max_{k != i} |A_ik|`` and the diagonal;
+    returns ``|A|`` on that pattern with each row scaled so that its
+    largest entry is 1.
+
+    Examples
+    --------
+    >>> from pyamg_tpu_torch.gallery import poisson
+    >>> A = poisson((4, 4), format='csr')
+    >>> classical_strength_of_connection(A, theta=0.25).nnz == A.nnz
+    True
+    """
+    if theta < 0 or theta > 1:
+        raise ValueError("expected theta in [0,1]")
+    A = _scalar_csr(A, "classical")
+    n = A.shape[0]
+    rows = np.repeat(np.arange(n), np.diff(A.indptr))
+    offdiag = rows != A.indices
+    rowmax = row_reduce(np.abs(A.data) * offdiag, A.indptr, np.maximum, 0.0)
+    keep = (~offdiag) | (np.abs(A.data) >= theta * rowmax[rows])
+    S = A.copy()
+    S.data = np.where(keep, A.data, 0)
+    S.eliminate_zeros()
+    S.data = np.abs(S.data)
+    return scale_rows_by_largest_entry(S)
 
 
 def symmetric_strength_of_connection(A, theta=0):
@@ -29,10 +66,7 @@ def symmetric_strength_of_connection(A, theta=0):
     """
     if theta < 0:
         raise ValueError("expected a positive theta")
-    if sp.issparse(A) and A.format == "bsr" and A.blocksize[0] > 1:
-        raise not_ported("symmetric strength of a block (BSR) operator",
-                         "the unstructured SA chain")
-    A = to_csr(A)
+    A = _scalar_csr(A, "symmetric")
     n = A.shape[0]
     d = np.abs(A.diagonal())
     rows = np.repeat(np.arange(n), np.diff(A.indptr))

@@ -5,25 +5,31 @@ A hierarchy built elsewhere (for instance by the JAX package, exported with
 ``np.asarray``) comes in as one dict per level, so that its cycle and solve
 can run, and be compared, with the setup factored out:
 
-``{"A": {"diags": (k, n) array, "offsets": ints, "shape": (n, m)},``
+``{"A": operator dict,``
 `` "transfer": {"wmap": (n_fine,) array, "fine_grid": ints, "block": ints,``
 ``              "S": DIA dict or None, "SH": DIA dict or None,``
-``              "degree": int},                 # every level but the last``
+``              "degree": int},            # a structured level's P and R, or``
+`` "P": operator dict, "R": operator dict, # any other level's``
 `` "presmoother": smoother dict, "postsmoother": smoother dict}``
 
-where a smoother dict holds ``kind`` ("none", "jacobi", "polynomial" or
-"chebyshev"), ``iterations``, ``omega``, ``dinv`` (array or None) and
-``coefficients``.  ``coarse`` is the coarsest level's dense pseudoinverse.
+(the last level has A alone).  An operator dict is told by its keys:
+
+* DIA: ``diags`` (k, n), ``offsets``, ``shape``;
+* padded ELL: ``data``, ``cols``, ``row_nnz``, ``shape``;
+* dense: ``mat``, ``shape``;
+* fine-embedded DIA transfer: ``dia`` (a DIA dict), ``cpts`` (the fine
+  position of each coarse dof), ``shape``, and ``restrict`` true for the
+  restriction.
+
+A smoother dict holds ``kind`` and whichever of ``iterations``, ``sweep``,
+``omega``, ``coefficients``, ``blocksize`` and the arrays ``dinv``,
+``color_masks``, ``block_dinv``, ``color_rows``, ``color_cols``,
+``color_data`` that kind uses.  ``coarse`` is the coarsest level's dense
+pseudoinverse.
 
 :func:`ell_hierarchy_from_numpy` does the same for the padded-ELL
-hierarchies of the general device setup (``parallel.setup``):
-
-``{"A": ELL dict, "P": ELL dict, "R": ELL dict,   # P, R: all but the last``
-`` "presmoother": smoother dict, "postsmoother": smoother dict}``
-
-where an ELL dict holds ``data``, ``cols``, ``row_nnz`` and ``shape``, and a
-smoother dict may also hold ``sweep`` and ``color_masks`` (the multicolor
-Gauss-Seidel smoother); with the padded ``sizes``, the unpadded size
+hierarchies of the general device setup (``parallel.setup``): every
+operator an ELL dict, with the padded ``sizes``, the unpadded size
 ``n_orig`` of level 0 and the padded ``coarse`` pseudoinverse.
 """
 
@@ -35,25 +41,61 @@ import torch
 from ..multilevel import Level, MultilevelSolver
 from ..parallel.sharding import ShardedSolver
 from ..relaxation.device import SmootherData
-from ..sparse import (ComposedOp, GridPoolOp, GridRepeatOp, SparseDIA,
-                      SparseELL)
+from ..sparse import (ComposedOp, CptProlongOp, CptRestrictOp, DenseOp,
+                      GridPoolOp, GridRepeatOp, SparseDIA, SparseELL)
 from .utils import numpy_dtype, torch_dtype
 
 __all__ = ["hierarchy_from_numpy", "ell_hierarchy_from_numpy"]
 
 
-def _smoother(s, tensor):
+def _loaders(device, dtype):
+    """``(tensor, index)``: numpy array to a ``dtype`` tensor, and to an
+    int64 index tensor, on ``device``."""
+    npdt = numpy_dtype(dtype)
+
+    def tensor(a):
+        return torch.as_tensor(np.array(a, dtype=npdt), device=device)
+
+    def index(a, dt=np.int64):
+        return torch.as_tensor(np.array(a, dtype=dt), device=device)
+
+    return tensor, index
+
+
+def _smoother(s, tensor, index):
     """SmootherData from a smoother dict (layout in the module
     docstring)."""
-    def opt(key):
-        return None if s.get(key) is None else tensor(s[key])
+    def opt(key, load=tensor):
+        return None if s.get(key) is None else load(s[key])
 
     return SmootherData(kind=s["kind"], iterations=int(s.get("iterations", 1)),
                         sweep=s.get("sweep", "forward"),
                         omega=float(s.get("omega", 1.0)), dinv=opt("dinv"),
                         color_masks=opt("color_masks"),
                         coefficients=tuple(
-                            float(c) for c in s.get("coefficients", ())))
+                            float(c) for c in s.get("coefficients", ())),
+                        block_dinv=opt("block_dinv"),
+                        blocksize=int(s.get("blocksize", 1)),
+                        color_rows=opt("color_rows", index),
+                        color_cols=opt("color_cols", index),
+                        color_data=opt("color_data"))
+
+
+def _operator(d, tensor, index):
+    """The operator of an operator dict (layout in the module
+    docstring)."""
+    if "diags" in d:
+        return SparseDIA(tensor(d["diags"]), d["offsets"], d["shape"])
+    if "row_nnz" in d:
+        return SparseELL(tensor(d["data"]), index(d["cols"], np.int32),
+                         index(d["row_nnz"], np.int32), d["shape"])
+    if "mat" in d:
+        return DenseOp(tensor(d["mat"]), d["shape"])
+    if "cpts" in d:
+        cls = CptRestrictOp if d.get("restrict") else CptProlongOp
+        return cls(_operator(d["dia"], tensor, index), index(d["cpts"]),
+                   d["shape"])
+    raise ValueError(f"not an operator dict: keys {sorted(d)}")
 
 
 def hierarchy_from_numpy(levels, coarse, device, dtype):
@@ -61,17 +103,11 @@ def hierarchy_from_numpy(levels, coarse, device, dtype):
     state and coarse pseudoinverse are ``dtype`` tensors made from the
     numpy arrays in ``levels`` and ``coarse`` (layout in the module
     docstring)."""
-    npdt = numpy_dtype(dtype)
-
-    def tensor(a):
-        return torch.as_tensor(np.array(a, dtype=npdt), device=device)
-
-    def dia(d):
-        return SparseDIA(tensor(d["diags"]), d["offsets"], d["shape"])
+    tensor, index = _loaders(device, dtype)
 
     out = []
     for spec in levels:
-        lvl = Level(A=dia(spec["A"]))
+        lvl = Level(A=_operator(spec["A"], tensor, index))
         if "transfer" in spec:
             t = spec["transfer"]
             n_f, n_c = spec["A"]["shape"][0], int(np.prod(
@@ -84,11 +120,16 @@ def hierarchy_from_numpy(levels, coarse, device, dtype):
             if degree == 0 or t.get("S") is None:
                 lvl.P, lvl.R = T, Tt
             else:
-                S, SH = dia(t["S"]), dia(t["SH"])
+                S = _operator(t["S"], tensor, index)
+                SH = _operator(t["SH"], tensor, index)
                 lvl.P = ComposedOp([S] * degree + [T], (n_f, n_c))
                 lvl.R = ComposedOp([Tt] + [SH] * degree, (n_c, n_f))
-            lvl.presmoother = _smoother(spec["presmoother"], tensor)
-            lvl.postsmoother = _smoother(spec["postsmoother"], tensor)
+        elif "P" in spec:
+            lvl.P = _operator(spec["P"], tensor, index)
+            lvl.R = _operator(spec["R"], tensor, index)
+        if "presmoother" in spec:
+            lvl.presmoother = _smoother(spec["presmoother"], tensor, index)
+            lvl.postsmoother = _smoother(spec["postsmoother"], tensor, index)
         out.append(lvl)
     ml = MultilevelSolver(out, device=device)
     ml._op_dtype = torch_dtype(dtype)
@@ -101,26 +142,16 @@ def ell_hierarchy_from_numpy(levels, sizes, n_orig, coarse, device, dtype):
     whose padded-ELL operators, smoother state and padded coarse
     pseudoinverse are ``dtype`` tensors made from numpy arrays (layout in
     the module docstring)."""
-    npdt = numpy_dtype(dtype)
-
-    def tensor(a):
-        return torch.as_tensor(np.array(a, dtype=npdt), device=device)
-
-    def ell(d):
-        return SparseELL(
-            tensor(d["data"]),
-            torch.as_tensor(np.array(d["cols"], dtype=np.int32),
-                            device=device),
-            torch.as_tensor(np.array(d["row_nnz"], dtype=np.int32),
-                            device=device), d["shape"])
+    tensor, index = _loaders(device, dtype)
 
     out = []
     for spec in levels:
-        lvl = Level(A=ell(spec["A"]))
+        lvl = Level(A=_operator(spec["A"], tensor, index))
         if "P" in spec:
-            lvl.P, lvl.R = ell(spec["P"]), ell(spec["R"])
-        lvl.presmoother = _smoother(spec["presmoother"], tensor)
-        lvl.postsmoother = _smoother(spec["postsmoother"], tensor)
+            lvl.P = _operator(spec["P"], tensor, index)
+            lvl.R = _operator(spec["R"], tensor, index)
+        lvl.presmoother = _smoother(spec["presmoother"], tensor, index)
+        lvl.postsmoother = _smoother(spec["postsmoother"], tensor, index)
         out.append(lvl)
     return ShardedSolver.from_sharded_levels(out, sizes, n_orig, device,
                                              coarse=tensor(coarse))

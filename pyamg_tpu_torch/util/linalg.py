@@ -1,7 +1,9 @@
-"""Host linear algebra for setup: vector norm and spectral-radius estimates.
+"""Host linear algebra for setup: vector norm, spectral-radius estimates and
+the batched pseudo-inverse of small blocks.
 
 Port of ``pyamg_tpu/util/linalg.py`` (``norm``,
-``approximate_spectral_radius``, ``_rho_lanczos``), unchanged numpy: the same
+``approximate_spectral_radius``, ``_rho_lanczos``, ``pinv_array``),
+unchanged numpy: the same
 ``default_rng(seed)`` start vectors give the same estimates, hence the same
 smoother coefficients and prolongation damping.
 """
@@ -10,7 +12,7 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["norm", "approximate_spectral_radius"]
+__all__ = ["norm", "approximate_spectral_radius", "pinv_array"]
 
 
 def norm(x):
@@ -133,3 +135,64 @@ def _rho_lanczos(A, maxiter=15, seed=0):
         T = T + np.diag(off, 1) + np.diag(off, -1)
     evals = np.linalg.eigvalsh(T)
     return float(np.abs(evals).max())
+
+
+def _pinv_svd(a, rcond):
+    """Stacked-SVD pseudo-inverse, block by block if LAPACK fails on the
+    stack."""
+    try:
+        return np.linalg.pinv(a, rcond=rcond)
+    except np.linalg.LinAlgError:
+        out = np.empty_like(a)
+        for i in range(a.shape[0]):
+            out[i] = np.linalg.pinv(a[i], rcond=rcond)
+        return out
+
+
+def pinv_array(a, tol=None):
+    """Batched pseudo-inverse of n (m, m) blocks.
+
+    m = 1 is a guarded reciprocal and m in {2, 3} the closed-form adjugate
+    inverse; a block whose ``|det|`` cannot certify every singular value
+    above the cutoff (``|det| > rc * ||A||_F^m``) goes to the stacked SVD,
+    so rank-deficient blocks keep pseudo-inverse semantics."""
+    a = np.asarray(a)
+    if a.shape[0] == 0:
+        return np.empty_like(a)
+    m = a.shape[-1]
+    rc = tol if tol is not None else 1e-13
+    if m == 1:
+        nz = a != 0
+        return np.where(nz, 1.0 / np.where(nz, a, 1.0), 0.0)
+    if m not in (2, 3):
+        return _pinv_svd(a, rc)
+    normF = np.sqrt((np.abs(a) ** 2).sum(axis=(-2, -1)))
+    adj = np.empty_like(a)
+    if m == 2:
+        det = a[:, 0, 0] * a[:, 1, 1] - a[:, 0, 1] * a[:, 1, 0]
+        adj[:, 0, 0] = a[:, 1, 1]
+        adj[:, 1, 1] = a[:, 0, 0]
+        adj[:, 0, 1] = -a[:, 0, 1]
+        adj[:, 1, 0] = -a[:, 1, 0]
+    else:
+        def cof(i1, i2, j1, j2):
+            return a[:, i1, j1] * a[:, i2, j2] - a[:, i1, j2] * a[:, i2, j1]
+
+        adj[:, 0, 0] = cof(1, 2, 1, 2)
+        adj[:, 1, 0] = -cof(1, 2, 0, 2)
+        adj[:, 2, 0] = cof(1, 2, 0, 1)
+        adj[:, 0, 1] = -cof(0, 2, 1, 2)
+        adj[:, 1, 1] = cof(0, 2, 0, 2)
+        adj[:, 2, 1] = -cof(0, 2, 0, 1)
+        adj[:, 0, 2] = cof(0, 1, 1, 2)
+        adj[:, 1, 2] = -cof(0, 1, 0, 2)
+        adj[:, 2, 2] = cof(0, 1, 0, 1)
+        det = (a[:, 0, 0] * adj[:, 0, 0] + a[:, 0, 1] * adj[:, 1, 0]
+               + a[:, 0, 2] * adj[:, 2, 0])
+    ok = np.abs(det) > rc * normF ** m
+    if not ok.any():
+        return _pinv_svd(a, rc)
+    out = adj * (1.0 / np.where(ok, det, 1.0))[:, None, None]
+    if not ok.all():
+        out[~ok] = _pinv_svd(a[~ok], rc)
+    return out

@@ -1,7 +1,9 @@
-"""Setup utilities (host side): option decoding and diagonal extraction.
+"""Setup utilities (host side): option decoding, diagonal and block-diagonal
+extraction, row filters and the relaxation-as-operator wrapper.
 
-Port of the parts of ``pyamg_tpu/util/utils.py`` that the structured SA
-path uses, plus the numpy/torch dtype conversions the port needs.
+Port of the parts of ``pyamg_tpu/util/utils.py`` that the smoothed
+aggregation setups use, plus the numpy/torch dtype conversions the port
+needs.
 """
 
 from __future__ import annotations
@@ -10,8 +12,10 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-__all__ = ["unpack_arg", "to_csr", "get_diagonal", "row_reduce",
-           "scale_rows_by_largest_entry",
+__all__ = ["unpack_arg", "to_csr", "get_diagonal", "get_block_diag",
+           "amalgamate", "scale_rows", "row_reduce",
+           "scale_rows_by_largest_entry", "filter_matrix_rows",
+           "eliminate_diag_dom_nodes", "relaxation_as_linear_operator",
            "levelize_strength_or_aggregation",
            "levelize_smooth_or_improve_candidates", "numpy_dtype",
            "torch_dtype", "not_ported"]
@@ -67,6 +71,52 @@ def get_diagonal(A, inv=False):
     return d
 
 
+def get_block_diag(A, blocksize, inv_flag=True):
+    """(n/bs, bs, bs) array of the diagonal blocks of A, pseudo-inverted
+    block by block when ``inv_flag``.  A BSR input of that blocksize is
+    used as it is."""
+    n = A.shape[0]
+    bs = int(blocksize)
+    if n % bs:
+        raise ValueError("matrix dimension must be divisible by blocksize")
+    nb = n // bs
+    if sp.issparse(A) and A.format == "bsr" and A.blocksize == (bs, bs):
+        B = A
+    else:
+        B = sp.bsr_matrix(to_csr(A), blocksize=(bs, bs))
+    blocks = np.zeros((nb, bs, bs), dtype=A.dtype)
+    brows = np.repeat(np.arange(nb), np.diff(B.indptr))
+    isdiag = B.indices == brows
+    # add.at: a non-canonical BSR may store the same block twice
+    np.add.at(blocks, brows[isdiag], B.data[isdiag])
+    if inv_flag:
+        from .linalg import pinv_array
+
+        return pinv_array(blocks)
+    return blocks
+
+
+def amalgamate(A, blocksize):
+    """The block-connectivity graph of a blocked matrix: one unit entry per
+    nonzero block."""
+    if blocksize == 1:
+        return to_csr(A)
+    B = sp.bsr_matrix(to_csr(A), blocksize=(blocksize, blocksize))
+    nb = B.shape[0] // blocksize
+    data = np.ones(B.indices.shape[0], dtype=A.dtype)
+    return sp.csr_matrix((data, B.indices.copy(), B.indptr.copy()),
+                         shape=(nb, nb))
+
+
+def scale_rows(A, v, copy=True):
+    """diag(v) A as CSR."""
+    A = A.tocsr() if sp.issparse(A) else sp.csr_matrix(A)
+    if copy:
+        A = A.copy()
+    A.data *= np.repeat(np.asarray(v).ravel(), np.diff(A.indptr))
+    return A
+
+
 def row_reduce(vals, indptr, ufunc, empty=0.0):
     """Per-CSR-row reduction of ``vals`` (length nnz) with ``ufunc``
     (e.g. ``np.maximum``); rows with no entries get ``empty``."""
@@ -120,3 +170,69 @@ def levelize_smooth_or_improve_candidates(to_levelize, max_levels):
                 [to_levelize[-1]] * (max_levels - len(to_levelize))
         return to_levelize
     raise ValueError(f"invalid option {to_levelize!r}")
+
+
+def filter_matrix_rows(A, theta, diagonal=False, lump=False):
+    """Drop entries with ``|A_ij| < theta * max_k |A_ik|`` (the maximum over
+    off-diagonal entries); with ``lump`` the dropped mass goes onto the
+    diagonal, so that row sums stay."""
+    A = to_csr(A).copy()
+    n = A.shape[0]
+    rows = np.repeat(np.arange(n), np.diff(A.indptr))
+    offdiag = rows != A.indices
+    rowmax = row_reduce(np.abs(A.data) * offdiag, A.indptr, np.maximum, 0.0)
+    keep = (np.abs(A.data) >= theta * rowmax[rows]) | (rows == A.indices)
+    if not diagonal:
+        keep |= ~offdiag
+    dropped = A.data * (~keep)
+    A.data = np.where(keep, A.data, 0)
+    if lump:
+        lumped = row_reduce(dropped, A.indptr, np.add, 0.0)
+        A = (A + sp.dia_matrix((lumped[None, :], [0]),
+                               shape=A.shape)).tocsr()
+    A.eliminate_zeros()
+    return A
+
+
+def eliminate_diag_dom_nodes(A, C, theta=1.02):
+    """Isolate strongly diagonally dominant rows in the strength graph C
+    (they need no coarse representation): their rows and columns are
+    zeroed, their diagonal kept."""
+    A = to_csr(A)
+    C = to_csr(C).copy()
+    n = A.shape[0]
+    rows = np.repeat(np.arange(n), np.diff(A.indptr))
+    offdiag_sum = row_reduce(np.abs(A.data) * (rows != A.indices),
+                             A.indptr, np.add, 0.0)
+    dom = np.abs(A.diagonal()) > theta * offdiag_sum
+    if not dom.any():
+        return C
+    crows = np.repeat(np.arange(n), np.diff(C.indptr))
+    keep = ~(dom[crows] | dom[C.indices]) | (crows == C.indices)
+    C.data = np.where(keep, C.data, 0)
+    C.eliminate_zeros()
+    return C
+
+
+def relaxation_as_linear_operator(method, A, b):
+    """A scipy ``LinearOperator`` that applies one pass of a host
+    relaxation method (``relaxation.relaxation``) on ``A x = b`` from the
+    given x.  ``improve_candidates`` applies it to B, which relaxes each
+    candidate against ``A x = 0``.  A name the host module does not have
+    (a device-only smoother) means symmetric Gauss-Seidel."""
+    from scipy.sparse.linalg import LinearOperator
+
+    from ..relaxation import relaxation as rel
+
+    fn_name, kwargs = unpack_arg(method)
+    if not hasattr(rel, fn_name):
+        fn_name, kwargs = "gauss_seidel", {"sweep": "symmetric"}
+    fn = getattr(rel, fn_name)
+    b = np.asarray(b)
+
+    def matvec(x):
+        x = np.array(x, dtype=A.dtype, copy=True)
+        fn(A, x, b, **kwargs)
+        return x
+
+    return LinearOperator(A.shape, matvec, dtype=A.dtype)

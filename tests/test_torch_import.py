@@ -40,13 +40,33 @@ def test_public_surface():
 
     assert sorted(pyamg_tpu_torch.__all__) == sorted(
         ["gallery", "parallel", "smoothed_aggregation_solver",
-         "MultilevelSolver", "SparseDIA", "SparseELL", "__version__"])
+         "MultilevelSolver", "coarse_grid_solver", "SparseDIA", "SparseELL",
+         "__version__"])
+    from pyamg_tpu_torch import aggregation, relaxation, sparse, strength
+
+    for module, names in (
+            (aggregation, ["parallel_aggregation", "standard_aggregation",
+                           "jacobi_prolongation_smoother",
+                           "richardson_prolongation_smoother"]),
+            (relaxation, ["relaxation", "rho_block_D_inv_A",
+                          "change_smoothers"]),
+            (relaxation.relaxation, ["gauss_seidel", "sor", "jacobi",
+                                     "polynomial", "block_jacobi",
+                                     "block_gauss_seidel",
+                                     "gauss_seidel_indexed", "make_system"]),
+            (sparse, ["CptProlongOp", "CptRestrictOp",
+                      "embedded_dia_transfers", "root_embedded_transfers"]),
+            (strength, ["classical_strength_of_connection",
+                        "symmetric_strength_of_connection"])):
+        assert set(names) <= set(module.__all__), module.__name__
 
 
 def _entry_points():
     import pyamg_tpu_torch
     from pyamg_tpu_torch.parallel import general_sa_setup_sharded
-    from pyamg_tpu_torch.sparse import device_operator
+    from pyamg_tpu_torch.sparse import (device_operator,
+                                        embedded_dia_transfers,
+                                        root_embedded_transfers)
     from pyamg_tpu_torch.sparse.spgemm_device import pattern_spgemm
 
     return {"MultilevelSolver": pyamg_tpu_torch.MultilevelSolver,
@@ -54,6 +74,8 @@ def _entry_points():
             "SparseELL.from_scipy": pyamg_tpu_torch.SparseELL.from_scipy,
             "device_operator": device_operator,
             "pattern_spgemm": pattern_spgemm,
+            "embedded_dia_transfers": embedded_dia_transfers,
+            "root_embedded_transfers": root_embedded_transfers,
             "smoothed_aggregation_solver":
                 pyamg_tpu_torch.smoothed_aggregation_solver,
             "general_sa_setup_sharded": general_sa_setup_sharded}
@@ -62,6 +84,8 @@ def _entry_points():
 @pytest.mark.parametrize("name", ["MultilevelSolver", "SparseDIA.from_scipy",
                                   "SparseELL.from_scipy", "device_operator",
                                   "pattern_spgemm",
+                                  "embedded_dia_transfers",
+                                  "root_embedded_transfers",
                                   "smoothed_aggregation_solver",
                                   "general_sa_setup_sharded"])
 def test_entry_points_default_to_the_card(name):

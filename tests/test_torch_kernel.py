@@ -183,6 +183,46 @@ def test_cuda_solve_runs_through_the_kernel(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ["grid", "plain", "unstructured"])
+@pytest.mark.parametrize("cycle", ["V", "AMLI"])
+def test_cuda_default_call_cycles_like_the_cpu(cuda_device, case, cycle):
+    """The default-argument hierarchy on the card (DIA levels and embedded
+    transfers on the kernel, gather-form Gauss-Seidel, the coarse solve)
+    against the same hierarchy on the CPU, one cycle in float64."""
+    import scipy.sparse as sp
+
+    import pyamg_tpu_torch
+    import sa_cases
+
+    def matrix():             # a fresh one each time: a copy loses A.grid
+        if case == "unstructured":
+            return sa_cases.unstructured(5000, seed=7, radius=0.03)
+        A = poisson((128, 128), format="csr")
+        return sp.csr_matrix(A.tocoo()) if case == "plain" else A
+
+    kw = dict(max_coarse=100, coarse_solver="splu")
+    A = matrix()
+    on_card = pyamg_tpu_torch.smoothed_aggregation_solver(
+        A, device=cuda_device, **kw)
+    on_cpu = pyamg_tpu_torch.smoothed_aggregation_solver(
+        matrix(), device="cpu", **kw)
+    assert hasattr(on_cpu.levels[0], "struct_meta") == (case == "grid")
+    rng = np.random.default_rng(0)
+    x0, b = rng.standard_normal(A.shape[0]), rng.standard_normal(A.shape[0])
+    before = dia_kernel.launches
+    y = on_card.cycle_fn(cycle)(torch.as_tensor(x0, device=cuda_device),
+                                torch.as_tensor(b, device=cuda_device))
+    y_ref = on_cpu.cycle_fn(cycle)(torch.from_numpy(x0), torch.from_numpy(b))
+    assert y.device.type == "cuda"
+    if case != "unstructured":
+        assert dia_kernel.launches > before
+    else:
+        assert on_card.levels[0].presmoother.color_rows.is_cuda
+    assert float((y.cpu() - y_ref).abs().max()) <= \
+        1e-10 * float(y_ref.abs().max())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_cuda_spgemm_kernels_match_plain_version(cuda_device, dtype):
     tol = 1e-5 if dtype == torch.float32 else 1e-12

@@ -26,7 +26,18 @@ computes the same function:
   without it: CG to 1e-8, stand-alone V-cycles and, on the first
   hierarchy, one W, F and AMLI cycle and every dense coarse solver; then
   ``aspreconditioner`` inside scipy's CG at 256^2 (kernel: dia_matvec on
-  every DIA level and DIA transfer).
+  every DIA level and DIA transfer);
+* the compiled host library (``pyamg_tpu_torch.amg_core``), built with the
+  kernels and held against its Python forms at 1024^2; the run fails if it
+  did not load, so every setup above ran the compiled route;
+* the Krylov suite: every ``accel`` of ``solve`` and a callable on the
+  default 1024^2 hierarchy, ``solve_mp`` with BiCGStab and GMRES,
+  stand-alone GMRES and BiCGStab in float64 on the 64^2 Poisson problem and
+  on the generated nonsymmetric ``recirc_flow`` example, and a
+  ``MultilevelSolverSet`` of the two default hierarchies;
+* a complex Hermitian operator, ``gauge_laplacian(1024)``, through the
+  default call in complex64 (kernel: dia_matvec's complex64 and complex128
+  entries, timed at 2048^2).
 
     python3 chip_smoke.py          # from the repository root, one GPU
 
@@ -51,9 +62,11 @@ import numpy as np
 GRID = (1024, 1024)
 TOL = 1e-10
 REL_TOL = {"float32": 1e-5, "float64": 1e-12,   # kernel vs plain, max rel
+           "complex64": 1e-5, "complex128": 1e-12,
            "bfloat16": 1e-6}    # bf16 diagonals: the twin's float32 sums
 BENCH_GRIDS = (2048, 1024)
 F32_FLOP_PER_S = 67e12          # H100 SXM float32 outside the tensor cores
+F64_FLOP_PER_S = 34e12          # ... and float64 (NVIDIA's data sheet)
 KERNELS = {
     "dia_matvec": {"route": "cuda",
                    "source": "pyamg_tpu_torch/csrc/dia_matvec.cu",
@@ -70,6 +83,14 @@ KERNELS = {
     "dia_matvec_v1": {"route": "cuda",
                       "source": "pyamg_tpu_torch/csrc/dia_matvec_v1.cu",
                       "replaces": "pyamg_tpu/sparse/pallas_kernels.py:246"},
+    # the complex entries of dia_matvec.cu: the JAX package sends a complex
+    # DIA operator through the kernel's plain form (matvec_xla)
+    "dia_matvec_c64": {"route": "cuda",
+                       "source": "pyamg_tpu_torch/csrc/dia_matvec.cu",
+                       "replaces": "pyamg_tpu/sparse/pallas_kernels.py:182"},
+    "dia_matvec_c128": {"route": "cuda",
+                        "source": "pyamg_tpu_torch/csrc/dia_matvec.cu",
+                        "replaces": "pyamg_tpu/sparse/pallas_kernels.py:182"},
 }
 SETUP_KW = dict(max_coarse=500, presmoother="chebyshev",
                 postsmoother="chebyshev", improve_candidates=None)
@@ -84,6 +105,17 @@ GENERAL_LEVELS = [(1048576, 5238784), (175104, 1572176), (19537, 175673),
 # rows per level, operator complexity to 3 places, CG iterations to 1e-8
 # and stand-alone V-cycles to a tracked relative residual of 1e-6, which
 # float32 cycling reaches (both +-1)
+GAUGE = dict(npts=1024, beta=0.1, seed=0)     # the complex Hermitian problem
+# stand-alone float64 Krylov on the 64^2 Poisson problem to 1e-10: the JAX
+# package's recorded counts (benchmarks/results/round4_v5e1.json:173-199).
+# GMRES without restart is reproducible; BiCGStab's count moves with
+# round-off (153 there, 154 and 151 on two CPU references)
+KRYLOV_64 = dict(gmres=(204, 2), bicgstab=(153, 12))
+ACCELS = ("cg", "bicgstab", "gmres", "fgmres", "cr", "steepest_descent",
+          "minimal_residual", "cgnr", "cgne")
+# the normal-equation methods square the condition number and the cycle
+# does not precondition the normal system: they stall
+ACCELS_STALL = ("cgnr", "cgne")
 DEFAULT_SA = {
     "structured": dict(rows=[1048576, 116964, 12996, 1444, 169], opc=1.225,
                        cg=9, cycles=10),
@@ -117,14 +149,21 @@ def find_card(torch):
 def build_kernels():
     """One nvcc per source, all started together, then load each."""
     phase("2. build")
-    from pyamg_tpu_torch import _build
+    from pyamg_tpu_torch import _build, amg_core
     from pyamg_tpu_torch.sparse import dia_kernel, dia_variants, spgemm_kernel
 
     t0 = time.perf_counter()
     sources = ("dia_matvec", "masked_spgemm", "dia_matvec_v2",
                "dia_matvec_v1")
-    with ThreadPoolExecutor(len(sources)) as pool:
+    with ThreadPoolExecutor(len(sources) + 1) as pool:
+        host = pool.submit(_build.build_host, "amg_core")
         libs = list(pool.map(_build.build, sources))
+        host_lib = host.result()
+    if not amg_core.have_native():
+        raise AssertionError("the host library amg_core did not load: the "
+                             "setups would run their Python forms")
+    print(f"host library {host_lib.name} built with "
+          f"{_build.host_compilers()[0][0]} and loaded")
     dia_kernel.load()
     spgemm_kernel.load()
     dia_variants.load("dia_matvec_v2")
@@ -172,21 +211,24 @@ def check_kernel(torch, rng):
     return hold_dia_cases(torch, rng, cases)
 
 
-def hold_dia_cases(torch, rng, cases):
+def hold_dia_cases(torch, rng, cases, dtypes=None):
     """``op.matvec`` (the kernel) against ``op.matvec_plain`` on the card
-    for every ``(label, SparseDIA)`` of ``cases``, in float32 and float64 on
-    a random x; raises beyond REL_TOL, returns the largest absolute
-    difference.  The kernel launches made here are taken off the count."""
+    for every ``(label, SparseDIA)`` of ``cases``, in each of ``dtypes``
+    (float32 and float64 by default) on a random x; raises beyond REL_TOL,
+    returns the largest absolute difference.  The kernel launches made here
+    are taken off the counts."""
     from pyamg_tpu_torch.sparse import SparseDIA, dia_kernel
 
-    before = dia_kernel.launches
+    before = dia_kernel.launches, dict(dia_kernel.entry_launches)
     worst = 0.0
-    for dtype in (torch.float32, torch.float64):
+    for dtype in dtypes or (torch.float32, torch.float64):
         name = str(dtype).split(".")[-1]
         for label, op in cases:
             op = SparseDIA(op.diags.to("cuda", dtype), op.offsets, op.shape)
-            x = torch.as_tensor(rng.standard_normal(op.shape[1]),
-                                device="cuda", dtype=dtype)
+            x = rng.standard_normal(op.shape[1])
+            if dtype.is_complex:
+                x = x + 1j * rng.standard_normal(op.shape[1])
+            x = torch.as_tensor(x, device="cuda", dtype=dtype)
             y = op.matvec(x)
             y_ref = op.matvec_plain(x)
             torch.cuda.synchronize()
@@ -196,8 +238,9 @@ def hold_dia_cases(torch, rng, cases):
                 raise AssertionError(f"dia_matvec {name} {label}: max rel "
                                      f"error {rel:.3e} > {REL_TOL[name]}")
             worst = max(worst, err)
-            print(f"{name:8s} {label:42s} max abs {err:.3e} rel {rel:.3e}")
-    dia_kernel.launches = before
+            print(f"{name:10s} {label:42s} max abs {err:.3e} rel {rel:.3e}")
+    dia_kernel.launches = before[0]
+    dia_kernel.entry_launches.update(before[1])
     return worst
 
 
@@ -364,7 +407,8 @@ def general_path(torch):
     plain_calls = spgemm_kernel.plain_cuda_calls
     opc = sol.inner.operator_complexity()
     print(sol)
-    print(f"setup_s {setup_s:.3f}  levels {len(sol.levels)}  "
+    print(f"setup_s {setup_s:.3f} (host stages on the compiled amg_core "
+          f"library)  levels {len(sol.levels)}  "
           f"operator_complexity {opc:.6f}  launches {launches}  plain twin "
           f"calls on CUDA {plain_calls}")
 
@@ -527,14 +571,14 @@ def _medians(torch, *fns, samples=20):
     return [statistics.median(t) for t in times]
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, flop_per_s=F32_FLOP_PER_S):
     """``(ms, "bytes" or "operations")``: the least time the card could
     take to move ``nbytes`` (each input read once, each output written
-    once) and do ``flops`` float32 operations, and which of the two sets
-    it."""
+    once) and do ``flops`` operations at ``flop_per_s`` (float32 by
+    default), and which of the two sets it."""
     from pyamg_tpu_torch.benchmarks.dia_spmv_bench import HBM_BYTES_PER_S
 
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / flop_per_s
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -542,13 +586,13 @@ def bound(nbytes, flops):
 def dia_work(op, x):
     """Bytes and flops of one DIA matvec of ``op`` with ``x``: the
     diagonals, offsets and x read once, y written once; a multiply and an
-    add per in-range entry."""
+    add per in-range entry (four multiplies and four adds when complex)."""
     n, m = op.shape
     entries = sum(max(0, min(n, m - o) - max(0, -o)) for o in op.offsets)
     nbytes = (op.diags.numel() * op.diags.element_size()
               + op.offsets_dev.numel() * 4
               + x.numel() * x.element_size() + n * x.element_size())
-    return nbytes, 2 * entries
+    return nbytes, (8 if x.dtype.is_complex else 2) * entries
 
 
 def spgemm_library(torch, A, B, pattern, out):
@@ -980,7 +1024,7 @@ def default_sa(torch, which):
     rows = [lvl.A.shape[0] for lvl in ml.levels]
     print(ml)
     print(f"setup_s {setup_s:.3f} of which improve_candidates (4 symmetric "
-          f"host Gauss-Seidel sweeps = 8 sparse triangular solves) "
+          f"host Gauss-Seidel sweeps, compiled) "
           f"{relax_s['relax']:.3f} = "
           f"{100 * relax_s['relax'] / setup_s:.1f}%  levels "
           f"{len(ml.levels)}  rows {rows}  operator_complexity {opc:.6f}  "
@@ -1114,6 +1158,361 @@ def preconditioner_in_scipy(torch):
                              f"port's CG {len(res) - 1}")
 
 
+@contextlib.contextmanager
+def python_forms():
+    """Run the host stages in their Python forms (the compiled library set
+    aside) inside the block."""
+    from pyamg_tpu_torch import amg_core
+
+    lib, amg_core._lib = amg_core._lib, False
+    try:
+        yield
+    finally:
+        amg_core._lib = lib
+
+
+def native_library():
+    """Each binding of the compiled host library against its Python form
+    on the 1024^2 Poisson problem and its strength graph: aggregates,
+    colors, S and the DIA arrays exactly, the Gauss-Seidel sweeps and
+    classical strength to 1e-12 relative; both times per function."""
+    phase("14. native host library vs its Python forms")
+    import pyamg_tpu_torch.relaxation.relaxation as rel
+    from pyamg_tpu_torch import amg_core, graph, strength
+    from pyamg_tpu_torch.aggregation import aggregate, aggregation
+    from pyamg_tpu_torch.gallery import poisson
+    from pyamg_tpu_torch.sparse import SparseDIA
+
+    if not amg_core.have_native():
+        raise AssertionError("the host library did not load")
+    A = poisson(GRID, format="csr")
+    n = A.shape[0]
+    C = strength.symmetric_strength_of_connection(A)
+    rng = np.random.default_rng(14)
+    x0, b = rng.standard_normal(n), rng.standard_normal(n)
+    order = rng.permutation(n)[:20000]
+    # A caches its spectral radius estimate: take it before S is timed
+    aggregation.structured_smoother_S(A, "jacobi", {"omega": 4.0 / 3.0},
+                                      "hermitian")
+
+    def same_csr(X, Y):
+        return (np.array_equal(X.indptr, Y.indptr)
+                and np.array_equal(X.indices, Y.indices)
+                and np.array_equal(X.data, Y.data))
+
+    def exact_agg(got, ref):
+        return same_csr(got[0], ref[0]) and np.array_equal(got[1], ref[1])
+
+    def close(got, ref):
+        return np.abs(got - ref).max() <= 1e-12 * np.abs(ref).max()
+
+    def relaxed(fn, **kw):
+        x = x0.copy()
+        fn(A, x, b, **kw)
+        return x
+
+    def close_strength(got, ref):
+        return (np.array_equal(got.indptr, ref.indptr)
+                and np.array_equal(got.indices, ref.indices)
+                and close(got.data, ref.data))
+
+    checks = [
+        ("standard_aggregation", lambda: aggregate.standard_aggregation(C),
+         exact_agg),
+        ("naive_aggregation", lambda: aggregate.naive_aggregation(C),
+         exact_agg),
+        ("first_fit_coloring", lambda: graph.vertex_coloring(C, "FF"),
+         np.array_equal),
+        ("identity_minus_rowscaled",
+         lambda: aggregation.structured_smoother_S(
+             A, "jacobi", {"omega": 4.0 / 3.0}, "hermitian")[0], same_csr),
+        ("gauss_seidel_sweeps (4 symmetric)",
+         lambda: relaxed(rel.gauss_seidel, iterations=4, sweep="symmetric"),
+         close),
+        ("gauss_seidel_indexed (20,000 rows)",
+         lambda: relaxed(rel.gauss_seidel_indexed, indices=order,
+                         sweep="symmetric"), close),
+        ("classical_strength (theta 0.25)",
+         lambda: strength.classical_strength_of_connection(A, theta=0.25),
+         close_strength),
+        ("csr_to_dia (float32)",
+         lambda: SparseDIA.host_diags(A, dtype=np.float32),
+         lambda got, ref: got[1] == ref[1] and np.array_equal(got[0],
+                                                              ref[0])),
+    ]
+    for name, fn, agree in checks:
+        t0 = time.perf_counter()
+        got = fn()
+        native_s = time.perf_counter() - t0
+        with python_forms():
+            t0 = time.perf_counter()
+            ref = fn()
+            python_s = time.perf_counter() - t0
+        print(f"{name:36s} compiled {native_s:8.4f} s   Python form "
+              f"{python_s:8.4f} s   ratio {python_s / native_s:7.1f}")
+        if not agree(got, ref):
+            raise AssertionError(f"{name}: the compiled route and the Python "
+                                 f"form disagree")
+
+
+def _true_relres(A, b, x):
+    x = x.cpu().numpy()
+    x = x.astype(np.complex128 if np.iscomplexobj(x) else np.float64)
+    return float(np.linalg.norm(b - A @ x) / np.linalg.norm(b))
+
+
+def krylov_accels(torch, ml):
+    """Every ``accel`` of ``solve`` (and a callable) on the default
+    structured 1024^2 hierarchy in float32 to 1e-6, and ``solve_mp`` with
+    BiCGStab and GMRES to a float64 1e-10."""
+    phase("15. every accel of solve on the default hierarchy")
+    from pyamg_tpu_torch import krylov
+    from pyamg_tpu_torch.gallery import poisson
+
+    A = poisson(GRID, format="csr")
+    b = A @ np.random.default_rng(0).random(A.shape[0])
+
+    def my_fgmres(A, b, **kw):
+        return krylov.fgmres(A, b, restrt=10, **kw)
+
+    for accel in ACCELS + (my_fgmres,):
+        name = accel if isinstance(accel, str) else "callable (fgmres(10))"
+        res = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, info = ml.solve(b, tol=1e-6, accel=accel, residuals=res,
+                           return_info=True)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        relres = _true_relres(A, b, x)
+        stalls = accel in ACCELS_STALL
+        print(f"accel={name:22s} iterations {len(res) - 1:3d}  info {info:3d}"
+              f"  tracked relres {res[-1] / res[0]:.3e}  true f64 relres "
+              f"{relres:.3e}  {seconds:.4f} s"
+              + ("  (stalls, as predicted: recorded, not held to 5e-6)"
+                 if stalls else ""))
+        if not np.isfinite(relres):
+            raise AssertionError(f"accel={name}: non-finite solution")
+        if not stalls and not relres <= 5e-6:
+            raise AssertionError(f"accel={name}: relres {relres} > 5e-6")
+    for accel in ("bicgstab", "gmres"):
+        for method in ("pcg", "defect"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x, info = ml.solve_mp(b, tol=TOL, accel=accel, method=method,
+                                  return_info=True)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            relres = _true_relres(A, b, x)
+            print(f"solve_mp(tol=1e-10, accel={accel!r}, method={method!r}): "
+                  f"{info}  true f64 relres {relres:.3e}  {seconds:.4f} s")
+            if not relres <= 5 * TOL:
+                raise AssertionError(f"solve_mp {accel} {method}: relres "
+                                     f"{relres} > {5 * TOL}")
+
+
+def krylov_standalone(torch):
+    """The Krylov functions alone, in float64, without a preconditioner:
+    GMRES (no restart) and BiCGStab on the 64^2 Poisson problem to 1e-10
+    against the JAX package's recorded counts, and GMRES(30), FGMRES(30)
+    and BiCGStab on the generated nonsymmetric ``recirc_flow`` example."""
+    phase("16. stand-alone Krylov, float64")
+    from pyamg_tpu_torch import krylov
+    from pyamg_tpu_torch.gallery import load_example, poisson
+
+    def run(fn, A, b, **kw):
+        res = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, info = fn(A, b, residuals=res, device="cuda", **kw)
+        torch.cuda.synchronize()
+        if x.device.type != "cuda" or x.dtype != torch.float64:
+            raise AssertionError(f"{fn.__name__}: x is {x.dtype} on "
+                                 f"{x.device}")
+        return (len(res) - 1, info, _true_relres(A, b, x),
+                time.perf_counter() - t0)
+
+    A = poisson((64, 64), format="csr")
+    b = A @ np.random.default_rng(0).random(A.shape[0])
+    for name, kw in (("gmres", dict(restrt=None, maxiter=800)),
+                     ("bicgstab", dict(maxiter=20000))):
+        its, info, relres, seconds = run(getattr(krylov, name), A, b,
+                                         tol=TOL, **kw)
+        want, slack = KRYLOV_64[name]
+        print(f"poisson 64^2 {name:9s} iterations {its} (recorded {want} "
+              f"+-{slack})  info {info}  true relres {relres:.3e}  "
+              f"{seconds:.4f} s")
+        if info != 0 or not relres <= 2 * TOL or abs(its - want) > slack:
+            raise AssertionError(f"{name} on poisson 64^2: {its} iterations, "
+                                 f"info {info}, relres {relres}")
+
+    ex = load_example("recirc_flow")
+    A = ex["A"].tocsr()
+    b = np.random.default_rng(0).standard_normal(A.shape[0])
+    asym = abs(A - A.T).max() / abs(A).max()
+    print(f"recirc_flow (generated): {A.shape[0]} rows, nnz {A.nnz}, "
+          f"|A - A^T|/|A| {asym:.2f}")
+    out = {}
+    for name, kw in (("gmres", dict(restrt=30)), ("fgmres", dict(restrt=30)),
+                     ("bicgstab", {})):
+        out[name] = run(getattr(krylov, name), A, b, tol=1e-8, maxiter=600,
+                        **kw)
+        its, info, relres, seconds = out[name]
+        print(f"recirc_flow {name:9s} iterations {its}  info {info}  true "
+              f"relres {relres:.3e}  {seconds:.4f} s")
+    if asym <= 0.01:
+        raise AssertionError("recirc_flow came out symmetric")
+    if out["bicgstab"][1] != 0 or not out["bicgstab"][2] <= 1e-7:
+        raise AssertionError(f"bicgstab on recirc_flow: {out['bicgstab']}")
+    # without a preconditioner the two GMRES forms are one method; restarted
+    # every 30 they stagnate on this operator: held to a 1e4 reduction
+    for name in ("gmres", "fgmres"):
+        if not out[name][2] <= 1e-4:
+            raise AssertionError(f"{name}(30) on recirc_flow: {out[name]}")
+    if out["gmres"][0] != out["fgmres"][0]:
+        raise AssertionError("gmres and fgmres differ without a "
+                             "preconditioner")
+
+
+def solver_set(torch, ml_a, ml_b):
+    """``MultilevelSolverSet`` of the two default hierarchies of the
+    1024^2 problem, additive and multiplicative, CG to 1e-8."""
+    phase("17. MultilevelSolverSet of the two default hierarchies")
+    from pyamg_tpu_torch import MultilevelSolverSet
+    from pyamg_tpu_torch.gallery import poisson
+
+    A = poisson(GRID, format="csr")
+    b = A @ np.random.default_rng(0).random(A.shape[0])
+    for mode in ("additive", "multiplicative"):
+        S = MultilevelSolverSet([ml_a, ml_b], mode=mode)
+        res = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x = S.solve(b, tol=1e-8, accel="cg", residuals=res)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        relres = _true_relres(A, b, x)
+        print(f"{mode:14s} CG iterations {len(res) - 1}  true f64 relres "
+              f"{relres:.3e}  {seconds:.4f} s")
+        if not (relres <= 5e-7 and len(res) - 1 <= DEFAULT_SA["structured"]
+                ["cg"] + 1):
+            raise AssertionError(f"solver set {mode}: {len(res) - 1} "
+                                 f"iterations, relres {relres}")
+        z = S.aspreconditioner().matvec(b.astype(np.float32))
+        if not (isinstance(z, np.ndarray) and np.isfinite(z).all()):
+            raise AssertionError(f"solver set {mode}: aspreconditioner")
+
+
+def complex_path(torch):
+    """A complex Hermitian operator through the default call: the 1024^2
+    gauge Laplacian in complex64, CG to 1e-8 and ``solve_mp`` to a
+    complex128 1e-10; then the complex kernel entries against the plain
+    twin on every DIA operator of that hierarchy.  Returns the two entries'
+    launches over the path and the largest kernel-vs-plain difference of
+    each."""
+    phase("18. complex Hermitian: gauge_laplacian through the default call")
+    import pyamg_tpu_torch
+    import pyamg_tpu_torch.relaxation.relaxation as rel
+    from pyamg_tpu_torch.gallery import gauge_laplacian
+    from pyamg_tpu_torch.sparse import dia_kernel
+    from profile_general import stage_timer
+
+    A = gauge_laplacian(**GAUGE)
+    n = A.shape[0]
+    rng = np.random.default_rng(18)
+    b = rng.standard_normal(n) + 1j * rng.standard_normal(n)
+    herm = abs(A - A.conj().T).max()
+    for entry in dia_kernel.entry_launches:
+        dia_kernel.entry_launches[entry] = 0
+    twin, relax_s, relax_calls = [0], {"relax": 0.0}, {"relax": 0}
+    with counting_twin_calls(torch, twin):
+        t0 = time.perf_counter()
+        with stage_timer(torch.device("cuda"), relax_s, relax_calls,
+                         [("relax", rel, "gauss_seidel")]):
+            ml = pyamg_tpu_torch.smoothed_aggregation_solver(
+                A, op_dtype=torch.complex64, device="cuda")
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        res = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x = ml.solve(b, tol=1e-8, accel="cg", residuals=res)
+        torch.cuda.synchronize()
+        solve_s = time.perf_counter() - t0
+        x64, info = ml.solve_mp(b, tol=TOL, return_info=True)
+        torch.cuda.synchronize()
+    launches = dict(dia_kernel.entry_launches)
+    print(ml)
+    print(f"gauge_laplacian({GAUGE}): {n} rows, nnz {A.nnz}, |A - A^H| "
+          f"{herm:.1e};  setup_s {setup_s:.3f} of which improve_candidates "
+          f"(complex: scipy triangular solves, as in the reference) "
+          f"{relax_s['relax']:.3f} = "
+          f"{100 * relax_s['relax'] / setup_s:.1f}%  A per level "
+          f"{[type(lvl.A).__name__ for lvl in ml.levels]}")
+    relres, relres64 = _true_relres(A, b, x), _true_relres(A, b, x64)
+    print(f"solve(tol=1e-8, accel='cg') complex64: iterations {len(res) - 1}"
+          f"  true complex128 relres {relres:.3e}  {solve_s:.4f} s;  "
+          f"solve_mp(tol=1e-10): {info}  relres {relres64:.3e};  launches "
+          f"{launches};  plain twin calls on CUDA {twin[0]}")
+    if x.dtype != torch.complex64 or x64.dtype != torch.complex128:
+        raise AssertionError(f"dtypes {x.dtype}, {x64.dtype}")
+    if not (relres <= 5e-7 and relres64 <= 5 * TOL):
+        raise AssertionError(f"complex relres {relres}, solve_mp {relres64}")
+    if min(launches["dia_matvec_c64"], launches["dia_matvec_c128"]) <= 0:
+        raise AssertionError(f"a complex entry never launched: {launches}")
+    if twin[0]:
+        raise AssertionError(f"the plain twin ran on CUDA {twin[0]} times")
+    print("complex dia_matvec vs plain on this hierarchy's DIA operators:")
+    cases = dia_operators(ml)
+    worst = {f"dia_matvec_c{bits}": hold_dia_cases(
+        torch, np.random.default_rng(5), cases, (dtype,))
+        for bits, dtype in ((64, torch.complex64), (128, torch.complex128))}
+    return launches, worst
+
+
+def time_complex_kernel(torch):
+    """The complex entries at 2048^2 (a gauge Laplacian's five diagonals,
+    streaming from HBM) beside the plain twin, the bound and, where the
+    library takes complex CSR, cuSPARSE's SpMV; their records for the
+    kernels line."""
+    from pyamg_tpu_torch.benchmarks.dia_spmv_bench import csr_tensor
+    from pyamg_tpu_torch.gallery import gauge_laplacian
+    from pyamg_tpu_torch.sparse import SparseDIA
+
+    G = BENCH_GRIDS[0]
+    A = gauge_laplacian(G, beta=GAUGE["beta"], seed=GAUGE["seed"])
+    out = {}
+    for bits, dtype, rate in ((64, torch.complex64, F32_FLOP_PER_S),
+                              (128, torch.complex128, F64_FLOP_PER_S)):
+        op = SparseDIA.from_scipy(A, dtype=dtype, device="cuda")
+        x = torch.randn(op.shape[1], device="cuda", dtype=dtype)
+        fns = [lambda: op.matvec(x), lambda: op.matvec_plain(x)]
+        try:
+            csr = csr_tensor(A, "cuda", dtype)
+            y_lib = torch.mv(csr, x)
+            torch.cuda.synchronize()
+            fns.append(lambda: torch.mv(csr, x))
+            lib_err = float((y_lib - op.matvec_plain(x)).abs().max())
+        except RuntimeError as e:
+            print(f"torch.mv on a complex{bits} CSR tensor: {e}")
+            lib_err = None
+        times = _medians(torch, *fns)
+        b_ms, b_by = bound(*dia_work(op, x), rate)
+        rec = dict(ms=times[0], plain_ms=times[1], bound_ms=b_ms,
+                   bound_by=b_by,
+                   library_ms=times[2] if len(times) == 3 else None)
+        out[f"dia_matvec_c{bits}"] = rec
+        print(f"dia_matvec complex{bits} {G}^2, {op.n_offsets} offsets "
+              f"({dia_work(op, x)[0] / 1e6:.1f} MB): kernel "
+              f"{rec['ms'] * 1e3:.2f} us, bound {b_ms * 1e3:.2f} us "
+              f"({b_by}), kernel/bound {rec['ms'] / b_ms:.2f};  plain "
+              f"{rec['plain_ms'] * 1e3:.2f} us, plain/kernel "
+              f"{rec['plain_ms'] / rec['ms']:.2f};  cuSPARSE SpMV "
+              + (f"{rec['library_ms'] * 1e3:.2f} us (max abs difference "
+                 f"{lib_err:.1e})" if rec["library_ms"] else "not available"))
+    return out
+
+
 def main():
     import torch
 
@@ -1137,7 +1536,7 @@ def main():
     launches.update(bench_launches)
     times.update(bench_times)
     ml_default, n_structured, err_a = default_sa(torch, "structured")
-    _, n_unstructured, err_b = default_sa(torch, "unstructured")
+    ml_plain, n_unstructured, err_b = default_sa(torch, "unstructured")
     worst["dia_matvec"] = max(worst["dia_matvec"], err_a, err_b)
     print(f"dia_matvec launches by path: structured Chebyshev path "
           f"{dia_launches}, default structured {n_structured}, default "
@@ -1145,6 +1544,23 @@ def main():
     launches["dia_matvec"] += n_structured + n_unstructured
     cycles_and_coarse_solvers(torch, ml_default)
     preconditioner_in_scipy(torch)
+    native_library()
+    from pyamg_tpu_torch.sparse import dia_kernel
+
+    dia_kernel.launches = 0
+    krylov_accels(torch, ml_default)
+    krylov_standalone(torch)
+    solver_set(torch, ml_default, ml_plain)
+    print(f"dia_matvec launches over the Krylov phases 15-17: "
+          f"{dia_kernel.launches}")
+    if dia_kernel.launches <= 0:
+        raise AssertionError("the Krylov phases launched no dia_matvec")
+    launches["dia_matvec"] += dia_kernel.launches
+    complex_launches, complex_worst = complex_path(torch)
+    launches.update({name: complex_launches[name]
+                     for name in ("dia_matvec_c64", "dia_matvec_c128")})
+    worst.update(complex_worst)
+    times.update(time_complex_kernel(torch))
     print(json.dumps({"kernels": [dict(
         name=name, **KERNELS[name], launches=launches[name],
         max_abs_err=worst[name], **times[name]) for name in KERNELS]}))

@@ -13,7 +13,8 @@ For each run it prints the seconds of every stage below and the rest
 (timed as in ``profile_general.py``: host clock, device synchronized on
 both sides, nested stages counted in the outer one).  Then it times one
 warm ``solve(b, tol=1e-8, accel="cg")`` and, on a GPU, runs one more under
-``torch.profiler`` and prints the device kernels' time and launches.
+``torch.profiler`` and prints the device kernels' time and launches.  The
+first line says whether the compiled host library (``amg_core``) loaded.
 
     python3 profile_default.py                 # 1024^2 on the GPU
     python3 profile_default.py --grid 64 --device cpu
@@ -28,16 +29,17 @@ import torch
 import pyamg_tpu_torch.aggregation.aggregation as sa
 import pyamg_tpu_torch.relaxation.relaxation as rel
 import pyamg_tpu_torch.relaxation.smoothing as smoothing
-from profile_general import _sync, profile_solve, stage_timer
+from profile_general import (_sync, profile_solve, report_native,
+                             stage_timer)
 from pyamg_tpu_torch.gallery import poisson
 
 # (label, owner, attribute): each a callable the setup reaches through
 # ``owner.attribute`` at call time
 STAGES = [
-    ("improve_candidates: host Gauss-Seidel (triangular solves)", rel,
+    ("improve_candidates: host Gauss-Seidel sweeps", rel,
      "gauss_seidel"),
     ("symmetric strength (host)", sa, "symmetric_strength_of_connection"),
-    ("standard aggregation (host, Python passes)", sa,
+    ("standard aggregation (host)", sa,
      "standard_aggregation"),
     ("grid aggregation (host)", sa, "grid_aggregation"),
     ("fit_candidates (host)", sa, "fit_candidates"),
@@ -48,7 +50,7 @@ STAGES = [
     ("Galerkin product R A P (host, scipy)", sa, "galerkin_product"),
     ("device operators: DIA/ELL/embedded arrays, copies", sa,
      "_finalize_device_operators"),
-    ("coloring (host; first-fit is a Python loop)", smoothing, "_coloring"),
+    ("coloring (host)", smoothing, "_coloring"),
     ("color masks (host)", smoothing, "_color_masks"),
     ("gather arrays (host)", smoothing, "_color_gather_arrays"),
     ("rho(D^-1 A) outside the smoothers above (host)", smoothing,
@@ -81,6 +83,7 @@ def main():
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("profile_default: no CUDA device")
+    report_native()
     for which in ("structured", "unstructured"):
         for run in ("first", "second"):
             # a fresh matrix each run: a used one carries its cached rho

@@ -9,7 +9,10 @@ rest.  Each stage is timed on the host clock around its calls, with the
 device synchronized on both sides, so a stage's device work counts in that
 stage; nested stages count only in the outer one.  Then it times one warm
 ``solve(b, tol=1e-8, accel="cg")`` and, on a GPU, runs one more under
-``torch.profiler`` and prints the device kernels' time and launches.
+``torch.profiler`` and prints the device kernels' time and launches.  The
+first line says whether the compiled host library (``amg_core``) loaded:
+with it the aggregation and coloring stages run compiled, without it their
+Python forms.
 
     python3 profile_general.py                 # 1024^2 on the GPU
     python3 profile_general.py --grid 64 --device cpu
@@ -28,6 +31,7 @@ import pyamg_tpu_torch.aggregation.tentative as tentative
 import pyamg_tpu_torch.parallel.setup as setup
 import pyamg_tpu_torch.relaxation.smoothing as smoothing
 import pyamg_tpu_torch.strength as strength
+from pyamg_tpu_torch import amg_core
 from pyamg_tpu_torch.gallery import poisson
 from pyamg_tpu_torch.sparse.ell import SparseELL
 
@@ -36,10 +40,10 @@ from pyamg_tpu_torch.sparse.ell import SparseELL
 STAGES = [
     ("symmetric strength (host)", strength,
      "symmetric_strength_of_connection"),
-    ("standard aggregation (host, Python passes)", aggregate,
+    ("standard aggregation (host)", aggregate,
      "standard_aggregation"),
     ("fit_candidates (host)", tentative, "fit_candidates"),
-    ("FF coloring and color masks (host, Python loop)", smoothing,
+    ("coloring and color masks (host)", smoothing,
      "_color_masks"),
     ("symbolic Galerkin patterns (host, scipy products)", setup,
      "_galerkin_patterns"),
@@ -53,6 +57,12 @@ STAGES = [
     ("coarse values back to the host", SparseELL, "to_scipy"),
     ("stored diagonals (host)", setup, "_ensure_stored_diagonal"),
 ]
+
+
+def report_native():
+    """Say which route the host stages take."""
+    print(f"native host library (amg_core) loaded: "
+          f"{amg_core.have_native()}")
 
 
 def _sync(device):
@@ -160,6 +170,7 @@ def main():
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("profile_general: no CUDA device")
+    report_native()
     A = poisson((args.grid, args.grid), format="csr")
     for run in ("first", "second"):
         sol, total, seconds, calls = profile(A, device)

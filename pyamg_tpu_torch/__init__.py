@@ -14,7 +14,16 @@ What is ported:
   hand-written CUDA kernel (``csrc/dia_matvec.cu``); multicolor
   Gauss-Seidel, SOR, Jacobi, block, Chebyshev smoothers; V, W, F and AMLI
   cycles; dense and host-iterative coarse solvers; stand-alone cycling,
-  CG, the mixed-precision ``solve_mp`` and ``aspreconditioner``;
+  every Krylov method of ``krylov`` as accelerator, the mixed-precision
+  ``solve_mp``, ``aspreconditioner`` and ``MultilevelSolverSet``; real and
+  complex Hermitian operators;
+* the setup's sequential host stages (aggregation, first-fit coloring,
+  Gauss-Seidel sweeps, classical strength, CSR to DIA) in a compiled
+  library (``amg_core``, built from ``csrc/amg_core.cpp`` with g++ at first
+  use), with Python forms that serve where no compiler is found;
+* the Krylov suite (``krylov``: CG, CR, CGNE, CGNR, BiCGStab, steepest
+  descent, minimal residual, GMRES with modified Gram-Schmidt or Householder
+  orthogonalization, flexible GMRES) and the problem gallery;
 * the general smoothed-aggregation setup with its numeric phase on the
   device (``parallel.general_sa_setup_sharded``): the host builds the
   aggregates, colorings and product patterns, and the Galerkin products
@@ -25,13 +34,16 @@ What is ported:
   (``benchmarks.dia_spmv_bench``).
 """
 
-from . import gallery, parallel
+from . import gallery, krylov, parallel
 from .aggregation import smoothed_aggregation_solver
-from .multilevel import MultilevelSolver, coarse_grid_solver
+from .multilevel import (MultilevelSolver, MultilevelSolverSet,
+                         coarse_grid_solver, multilevel_solver,
+                         multilevel_solver_set)
 from .sparse import SparseDIA, SparseELL
 
 __version__ = "0.1.0"
 
-__all__ = ["gallery", "parallel", "smoothed_aggregation_solver",
-           "MultilevelSolver", "coarse_grid_solver", "SparseDIA",
+__all__ = ["gallery", "krylov", "parallel", "smoothed_aggregation_solver",
+           "MultilevelSolver", "MultilevelSolverSet", "multilevel_solver",
+           "multilevel_solver_set", "coarse_grid_solver", "SparseDIA",
            "SparseELL", "__version__"]

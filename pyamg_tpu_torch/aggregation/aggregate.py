@@ -3,10 +3,10 @@ standard and naive aggregations over a strength graph.
 
 Port of ``grid_aggregation``, ``fit_aggop``, ``standard_aggregation``,
 ``naive_aggregation`` and ``parallel_aggregation`` from
-``pyamg_tpu/aggregation/aggregate.py``.  The greedy passes are the JAX
-package's pure-Python ones (equal to its native ``amg_core`` kernels), run
-over Python lists rather than numpy scalars.  The Lloyd and pairwise
-aggregations are not ported yet.
+``pyamg_tpu/aggregation/aggregate.py``.  The greedy passes run in the
+compiled ``amg_core`` library where it loaded; their Python forms (over
+Python lists rather than numpy scalars) give the same aggregates without
+it.  The Lloyd and pairwise aggregations are not ported yet.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import scipy.sparse as sp
 
+from ..amg_core import naive_aggregation_native, standard_aggregation_native
 from ..util.utils import to_csr
 
 __all__ = ["grid_aggregation", "fit_aggop", "standard_aggregation",
@@ -70,6 +71,11 @@ def standard_aggregation(C):
 
     Returns ``(AggOp, roots)``."""
     C = to_csr(C)
+    native = standard_aggregation_native(C)
+    if native is not None:
+        labels, roots = native
+        n_agg = int(labels.max()) + 1 if (labels >= 0).any() else 0
+        return fit_aggop(labels, n_agg), roots
     n = C.shape[0]
     indptr, indices = C.indptr.tolist(), C.indices.tolist()
     isolated = -2
@@ -123,6 +129,10 @@ def naive_aggregation(C):
 
     Returns ``(AggOp, roots)``."""
     C = to_csr(C)
+    native = naive_aggregation_native(C)
+    if native is not None:
+        labels, roots = native
+        return fit_aggop(labels, len(roots)), roots
     n = C.shape[0]
     indptr, indices = C.indptr.tolist(), C.indices.tolist()
     labels = [-1] * n

@@ -26,6 +26,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from ..amg_core import have_native, identity_minus_rowscaled_native
 from ..multilevel import Level, MultilevelSolver
 from ..relaxation.smoothing import change_smoothers, rho_D_inv_A
 from ..sparse import (ComposedOp, GridPoolOp, GridRepeatOp, SparseDIA,
@@ -73,11 +74,13 @@ def _strength(A, B, flag):
 def _aggregate(C, A, B, flag):
     fn, kwargs = unpack_arg(flag)
     if fn == "standard":
-        # the sequential three-pass greedy at every size, as the JAX
-        # package runs it where its native library is present; a caller's
-        # ``sequential_limit`` hands larger graphs to the round-based form
+        # the sequential three-pass greedy is O(nnz) at any size in the
+        # compiled library; without it the round-based form takes over for
+        # large graphs (a caller's ``sequential_limit`` moves the line)
         lim = kwargs.pop("sequential_limit", None)
-        if lim is not None and C.shape[0] > lim:
+        if lim is None:
+            lim = 50_000_000 if have_native() else 50_000
+        if C.shape[0] > lim:
             return parallel_aggregation(C, **kwargs)
         return standard_aggregation(C, **kwargs)
     if fn in ("parallel", "mis"):
@@ -297,7 +300,12 @@ def structured_smoother_S(A, sfn, skw, symmetry):
         raise not_ported(f"prolongation smoother {sfn!r}", _UNSTRUCTURED)
     c = omega / rho_D_inv_A(A, symmetric=sym_hint)
     Dinv = get_diagonal(A, inv=True)
-    # S = I - c D^{-1} A in place on A's sparsity: ((-c) * Dinv_i) * A_ij
+    # S = I - c D^{-1} A in place on A's sparsity: ((-c) * Dinv_i) * A_ij;
+    # the compiled one-pass form equals the numpy expression bit for bit
+    Sx = identity_minus_rowscaled_native(A, Dinv, c)
+    if Sx is not None:
+        return sp.csr_matrix((Sx, A.indices, A.indptr),
+                             shape=A.shape), degree
     S_data = (-c) * np.repeat(Dinv, np.diff(A.indptr)) * A.data
     return _add_identity_inplace(S_data, A, A.shape[0]), degree
 

@@ -1,7 +1,7 @@
 """Poisson-problem discretizations on regular grids.
 
-Port of ``poisson`` from ``pyamg_tpu/gallery/laplacian.py`` (numpy,
-unchanged).
+Port of ``poisson`` and ``gauge_laplacian`` from
+``pyamg_tpu/gallery/laplacian.py`` (numpy, unchanged).
 """
 
 from __future__ import annotations
@@ -10,7 +10,7 @@ import numpy as np
 
 from .stencil import stencil_grid
 
-__all__ = ["poisson"]
+__all__ = ["poisson", "gauge_laplacian"]
 
 
 def poisson(grid, spacing=None, dtype=float, format=None, type="FD"):
@@ -48,3 +48,46 @@ def poisson(grid, spacing=None, dtype=float, format=None, type="FD"):
         raise ValueError(f"unknown discretization type {type!r}")
 
     return stencil_grid(stencil, grid, format=format)
+
+
+def gauge_laplacian(npts, spacing=1.0, beta=0.1, seed=None):
+    """Gauge Laplacian from quantum chromodynamics on a 2D periodic grid.
+
+    Hermitian positive definite for beta > 0; the 5-point Laplacian structure
+    with random U(1) phases on the links, drawn from ``seed``.
+    """
+    import scipy.sparse as sp
+
+    N = int(npts)
+    rng = np.random.default_rng(seed)
+
+    # random link phases as a function of 1-D position
+    alpha_x = 1.0j * 2.0 * np.pi * beta * rng.standard_normal(N * N)
+    alpha_y = 1.0j * 2.0 * np.pi * beta * rng.standard_normal(N * N)
+
+    idx = np.arange(N * N)
+    ix, iy = idx // N, idx % N
+
+    rows, cols, vals = [idx], [idx], [np.full(N * N, 4.0 + 0j)]
+
+    # x-direction links (non-periodic truncation like the Dirichlet Poisson)
+    has_xp = ix + 1 < N
+    r = idx[has_xp]
+    rows += [r, r + N]
+    cols += [r + N, r]
+    phase = np.exp(alpha_x[r])
+    vals += [-phase, -np.conj(phase)]
+
+    has_yp = iy + 1 < N
+    r = idx[has_yp]
+    rows += [r, r + 1]
+    cols += [r + 1, r]
+    phase = np.exp(alpha_y[r])
+    vals += [-phase, -np.conj(phase)]
+
+    A = sp.coo_matrix(
+        (np.concatenate(vals), (np.concatenate(rows), np.concatenate(cols))),
+        shape=(N * N, N * N),
+    ).tocsr()
+    A = A * (1.0 / spacing**2)
+    return A

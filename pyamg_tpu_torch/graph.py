@@ -1,8 +1,8 @@
 """Graph colorings for the multicolor smoothers (host, numpy).
 
 Port of ``vertex_coloring`` from ``pyamg_tpu/graph.py``: greedy first-fit
-(the JAX package's pure-Python loop, equal to its native ``amg_core``
-kernel, here over Python lists) and Jones-Plassmann rounds.  The other
+(the compiled ``amg_core`` pass where the library loaded, else the same
+loop over Python lists) and Jones-Plassmann rounds.  The other
 graph algorithms are not ported yet.
 """
 
@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from .amg_core import first_fit_coloring_native
 from .util.utils import not_ported, row_reduce, to_csr
 
 __all__ = ["vertex_coloring"]
@@ -41,6 +42,9 @@ def vertex_coloring(G, method="JP", seed=0):
     G1.eliminate_zeros()
 
     if method in ("FF", "first-fit"):
+        native = first_fit_coloring_native(G1)
+        if native is not None:
+            return native
         indptr, indices = G1.indptr.tolist(), G1.indices.tolist()
         colors = [-1] * n
         for i in range(n):

@@ -10,12 +10,14 @@ dense, grid and embedded operators, or padded-ELL operators with a coarse
 pseudoinverse padded to the coarsest level's padded size
 (``parallel.sharding.ShardedSolver``).  V, W, F and AMLI cycles; dense
 (pinv, lu, cholesky, splu), host-iterative and callable coarse solvers;
-stand-alone cycling and CG acceleration.  The other Krylov methods and
-``MultilevelSolverSet`` raise ``NotImplementedError``.
+stand-alone cycling, every Krylov method of ``krylov`` as accelerator, the
+mixed-precision ``solve_mp``, and ``MultilevelSolverSet`` (several
+hierarchies combined into one preconditioner).
 """
 
 from __future__ import annotations
 
+import functools
 import inspect
 from typing import List
 
@@ -23,13 +25,18 @@ import numpy as np
 import torch
 
 from .krylov._cg import cg_core
-from .krylov._common import finalize, norm
+from .krylov._cgs_family import (bicgstab_core, cr_core,
+                                 minimal_residual_core,
+                                 steepest_descent_core)
+from .krylov._common import finalize, norm, real_dtype
+from .krylov._gmres import gmres_core, restart_loop, restart_start
 from .relaxation.device import apply_smoother
-from .util.utils import not_ported, numpy_dtype, unpack_arg
+from .util.utils import numpy_dtype, torch_dtype, unpack_arg
 
-__all__ = ["Level", "MultilevelSolver", "coarse_grid_solver"]
+__all__ = ["Level", "MultilevelSolver", "MultilevelSolverSet",
+           "coarse_grid_solver", "multilevel_solver",
+           "multilevel_solver_set"]
 
-_CYCLES_KRYLOV = "the rest of the cycles and Krylov methods"
 _DENSE_COARSE_NAMES = ("pinv", "pinv2", "cholesky", "lu", "splu")
 _RELAX_COARSE_NAMES = ("jacobi", "gauss_seidel", "block_jacobi")
 _KRYLOV_COARSE_NAMES = ("cg", "gmres", "bicgstab")
@@ -399,11 +406,73 @@ class MultilevelSolver:
         return torch.as_tensor(np.ravel(np.asarray(v)), dtype=dtype,
                                device=self.device)
 
-    def _run_cg(self, b, x, tol_t, maxiter, cycle="V"):
+    def astype(self, dtype):
+        """Cast every device operator and smoother to ``dtype`` in place
+        (a float32 preconditioner from a float64 setup, say).  The host
+        CSR matrices keep their dtype; the coarse solver is rebuilt from
+        them in ``dtype`` at the next cycle."""
+        dtype = torch_dtype(dtype)
+        for lvl in self.levels:
+            lvl.A = lvl.A.astype(dtype)
+            if getattr(lvl, "P", None) is not None:
+                lvl.P = lvl.P.astype(dtype)
+                lvl.R = lvl.R.astype(dtype)
+            if lvl.presmoother is not None:
+                lvl.presmoother = lvl.presmoother.astype(dtype)
+            if lvl.postsmoother is not None:
+                lvl.postsmoother = lvl.postsmoother.astype(dtype)
+        if self._coarse_mat is not None:
+            # an inverse padded past the host matrix came from outside and
+            # cannot be rebuilt here: cast it; else rebuild from the host
+            n_host = self.levels[-1].host_A().shape[0]
+            self._coarse_mat = self._coarse_mat.to(dtype) \
+                if self._coarse_mat.shape[0] != n_host else None
+        self._coarse_fn = None
+        self._A64 = None
+        self._op_dtype = dtype
+        return self
+
+    def _accel_core(self, accel, maxiter):
+        """The Krylov core ``f(mv, pre, x, b, tol_t, maxiter)`` of a
+        built-in accelerator name; GMRES restarts every 30 iterations."""
+        cores = {
+            "cg": cg_core,
+            "bicgstab": bicgstab_core,
+            "cr": cr_core,
+            "steepest_descent": steepest_descent_core,
+            "minimal_residual": minimal_residual_core,
+            "gmres": functools.partial(gmres_core,
+                                       restrt=min(30, maxiter)),
+            "fgmres": functools.partial(gmres_core, restrt=min(30, maxiter),
+                                        flexible=True),
+        }
+        return cores[accel]
+
+    def _run_accel(self, accel, b, x, tol_t, maxiter, cycle="V"):
+        """One accelerated solve on the hierarchy's operator with one
+        cycle per preconditioner application: ``(x, n_iters, res_buf)``."""
         A = self.levels[0].A
         cyc = self.cycle_fn(cycle)
-        return cg_core(A.matvec, lambda r: cyc(torch.zeros_like(r), r),
-                       x, b, tol_t, maxiter)
+        return self._accel_core(accel, maxiter)(
+            A.matvec, lambda r: cyc(torch.zeros_like(r), r), x, b, tol_t,
+            maxiter)
+
+    def _with_rmatvec(self, A):
+        """A with ``rmatvec`` for the normal-equation methods: the
+        hierarchy's own matvec when it is Hermitian (or real symmetric),
+        else a device operator of A^H built from the host CSR matrix."""
+        if hasattr(A, "rmatvec"):
+            return A
+        if self.symmetry == "hermitian" or (self.symmetry == "symmetric"
+                                            and not A.dtype.is_complex):
+            rmv = A.matvec
+        else:
+            from .sparse.device_op import device_operator
+
+            AH = self.levels[0].host_A().conjugate().T.tocsr()
+            rmv = device_operator(AH, dtype=A.dtype,
+                                  device=self.device).matvec
+        return _WithRmatvec(A, rmv)
 
     def solve(self, b, x0=None, tol=1e-5, maxiter=100, cycle="V",
               accel=None, callback=None, residuals=None,
@@ -411,14 +480,18 @@ class MultilevelSolver:
         """Solve A x = b to relative residual ``tol`` in the hierarchy's
         dtype, on its device.
 
-        ``accel``: None for stand-alone cycling, or ``"cg"`` for CG
-        preconditioned by one cycle per iteration.  ``callback(x)`` is
-        called with the iterate (a tensor on the device) after every cycle
-        of a stand-alone solve, and once with the result of an accelerated
-        one (as ``pyamg_tpu``'s CG, whose loop is fused, calls it).  Returns ``x`` as a tensor on the hierarchy's device, with the
-        residual history (a numpy array) when ``return_residuals``, else
-        with ``info`` when ``return_info``."""
-        dtype = self.levels[0].A.dtype
+        ``accel``: None for stand-alone cycling, the name of a method of
+        :mod:`pyamg_tpu_torch.krylov` (``"cg"``, ``"gmres"``,
+        ``"bicgstab"``, ``"fgmres"``, ``"cr"``, ``"cgnr"``, ...) or a
+        callable with their signature, preconditioned by one cycle per
+        iteration.  ``callback(x)`` is called with the iterate (a tensor on
+        the device) after every cycle of a stand-alone solve, and as the
+        Krylov function calls it in an accelerated one (once, with the
+        result).  Returns ``x`` as a tensor on the hierarchy's device, with
+        the residual history (a numpy array) when ``return_residuals``,
+        else with ``info`` when ``return_info``."""
+        A = self.levels[0].A
+        dtype = A.dtype
         b_d = self._as_tensor(b, dtype)
         x = torch.zeros_like(b_d) if x0 is None \
             else self._as_tensor(x0, dtype)
@@ -427,20 +500,32 @@ class MultilevelSolver:
             residuals = []
         first = 0 if residuals is None else len(residuals)
 
-        if accel is not None:
-            if accel != "cg":
-                raise not_ported(f"accel={accel!r}", _CYCLES_KRYLOV)
+        if isinstance(accel, str) and accel in _CORE_ACCELS \
+                and callback is None:
             normb = norm(b_d)
             tol_t = float(tol * torch.where(normb == 0, 1, normb))
-            xk, it, res_buf = self._run_cg(b_d, x, tol_t, maxiter, cycle)
-            xk, info = finalize(xk, res_buf, it + 1, tol_t, residuals)
-            if callback is not None:
-                callback(xk)
+            xk, it, res_buf = self._run_accel(accel, b_d, x, tol_t, maxiter,
+                                              cycle)
+            xk, info = finalize(xk, res_buf, it + 1, tol_t, None, residuals)
+        elif accel is not None:
+            from . import krylov
+
+            kfn = accel if callable(accel) else getattr(krylov, accel)
+            if accel in ("cgnr", "cgne"):
+                A = self._with_rmatvec(A)
+            cyc = self.cycle_fn(cycle)
+            res_list = []
+            xk, info = kfn(A, b_d, x0=x, tol=tol, maxiter=maxiter,
+                           M=lambda r: cyc(torch.zeros_like(r), r),
+                           callback=callback, residuals=res_list)
+            if residuals is not None:
+                residuals.extend(res_list)
+            if not isinstance(xk, torch.Tensor):
+                xk = self._as_tensor(xk, dtype)
         else:
-            A = self.levels[0].A
             cyc = self.cycle_fn(cycle)
             normb = float(norm(b_d))
-            tol_t = numpy_dtype(dtype).type(
+            tol_t = real_dtype(dtype).type(
                 tol * (normb if normb != 0.0 else 1.0))
             res = [float(norm(b_d - A.matvec(x)))]
             it = 0
@@ -450,7 +535,7 @@ class MultilevelSolver:
                 it += 1
                 if callback is not None:
                     callback(x)
-            xk, info = finalize(x, res, it + 1, tol_t, residuals)
+            xk, info = finalize(x, res, it + 1, tol_t, None, residuals)
         if return_residuals:
             return xk, np.asarray(residuals[first:])
         if return_info:
@@ -463,29 +548,48 @@ class MultilevelSolver:
         """Solve A x = b to a float64 relative residual ``tol`` with the
         (float32) hierarchy as preconditioner.
 
-        ``method="pcg"``: float64 CG in which each preconditioner
-        application is one float32 cycle (r scaled to unit norm and cast
-        down, the correction cast up and scaled back).
-        ``method="defect"``: iterative refinement -- per round, one float64
-        fine-grid residual and a float32 PCG solve of the correction to
-        ``inner_tol_factor`` times that residual.
+        ``method="pcg"``: a float64 Krylov method -- ``accel`` one of
+        ``"cg"``, ``"bicgstab"``, ``"gmres"``, ``"fgmres"`` -- in which
+        each preconditioner application is one float32 cycle (r scaled to
+        unit norm and cast down, the correction cast up and scaled back).
+        Left-preconditioned GMRES tracks ``||M r||``: its true residual is
+        checked at the end and the tracked tolerance tightened until it
+        holds.  ``method="defect"``: iterative refinement -- per round, one
+        float64 fine-grid residual and a float32 accelerated solve of the
+        correction to ``inner_tol_factor`` times that residual (``accel``
+        also ``"cr"``, ``"steepest_descent"`` or ``"minimal_residual"``).  A float64
+        (or complex128) hierarchy forwards to :meth:`solve`.
 
-        Returns ``x`` (float64 tensor), or ``(x, info)`` with ``info =
-        {"rounds", "inner_iterations"}`` when ``return_info`` is set;
-        ``inner_iterations`` counts one more per round than the CG
-        iterations (the round's starting residual), as the JAX package
-        does."""
-        if accel != "cg":
-            raise not_ported(f"accel={accel!r}", _CYCLES_KRYLOV)
+        Returns ``x`` (float64 tensor; complex128 for a complex
+        hierarchy), or ``(x, info)`` with ``info = {"rounds",
+        "inner_iterations"}`` when ``return_info`` is set; in the defect
+        method ``inner_iterations`` counts one more per round than the
+        Krylov iterations (the round's starting residual), as the JAX
+        package does."""
         op_dt = self.levels[0].A.dtype
+        if op_dt in (torch.float64, torch.complex128):
+            res = []
+            x = self.solve(b, tol=tol, accel=accel, cycle=cycle,
+                           maxiter=inner_maxiter * max_rounds, residuals=res)
+            if return_info:
+                return x, {"rounds": 1,
+                           "inner_iterations": max(len(res) - 1, 0)}
+            return x
+        # the defect method runs any accelerator whose core takes the
+        # hierarchy directly; the float64 Krylov loop has these four
+        known = _CORE_ACCELS if method == "defect" else _MP_ACCELS
+        if accel not in known:
+            raise ValueError(f"solve_mp(method={method!r}) takes accel in "
+                             f"{known}; got {accel!r}")
+        dt64 = torch.complex128 if op_dt.is_complex else torch.float64
 
         if self._A64 is None:
             from .sparse.device_op import device_operator
 
-            self._A64 = device_operator(self.levels[0].host_A(),
-                                        dtype=np.float64, device=self.device)
+            self._A64 = device_operator(self.levels[0].host_A(), dtype=dt64,
+                                        device=self.device)
         A64 = self._A64
-        b64 = self._as_tensor(b, torch.float64)
+        b64 = self._as_tensor(b, dt64)
         normb = float(norm(b64))
         tol_abs = tol * (normb if normb != 0 else 1.0)
         cyc = self.cycle_fn(cycle)
@@ -497,26 +601,48 @@ class MultilevelSolver:
                 s = norm(r64)
                 s = torch.where(s == 0, 1, s)
                 r32 = (r64 / s).to(op_dt)
-                return cyc(torch.zeros_like(r32), r32).to(torch.float64) * s
+                return cyc(torch.zeros_like(r32), r32).to(dt64) * s
 
-            x64, it, _ = cg_core(A64.matvec, pre, torch.zeros_like(b64), b64,
-                                 tol_abs, int(inner_maxiter) * int(max_rounds))
-            info = {"rounds": 1, "inner_iterations": it}
+            maxiter = int(inner_maxiter) * int(max_rounds)
+            x0 = torch.zeros_like(b64)
+            rounds = 1
+            if accel in ("gmres", "fgmres"):
+                restrt = min(30, maxiter, b64.shape[0])
+                loop = functools.partial(
+                    restart_loop, A64.matvec, pre, b64, maxiter=maxiter,
+                    restrt=restrt, max_outer=max(1, -(-maxiter // restrt)),
+                    flexible=accel == "fgmres")
+                carry = loop(restart_start(A64.matvec, x0, b64, maxiter),
+                             tol_abs)
+                for _ in range(4 if accel == "gmres" else 0):
+                    if carry[1] >= maxiter:
+                        break
+                    r_true = float(norm(b64 - A64.matvec(carry[0])))
+                    if r_true <= tol_abs or r_true == 0:
+                        break
+                    ratio = max(carry[-1] / r_true, 1e-12)
+                    carry = loop(carry, tol_abs * ratio * 0.3)
+                    rounds += 1
+                x64, it = carry[0], carry[1]
+            else:
+                core = cg_core if accel == "cg" else bicgstab_core
+                x64, it, _ = core(A64.matvec, pre, x0, b64, tol_abs, maxiter)
+            info = {"rounds": rounds, "inner_iterations": it}
         elif method == "defect":
             x64 = torch.zeros_like(b64)
             rounds, iters = 0, 0
             while rounds < int(max_rounds):
                 r64 = b64 - A64.matvec(x64)
                 r32 = r64.to(op_dt)
-                tol_t = numpy_dtype(op_dt).type(
-                    float(inner_tol_factor) * float(norm(r64)))
-                dx32, it, res_buf = self._run_cg(
-                    r32, torch.zeros_like(r32), tol_t, int(inner_maxiter),
-                    cycle)
-                x64 = x64 + dx32.to(torch.float64)
+                tol_t = float(inner_tol_factor) * float(norm(r64))
+                dx32, it, res_buf = self._run_accel(
+                    accel, r32, torch.zeros_like(r32), tol_t,
+                    int(inner_maxiter), cycle)
+                x64 = x64 + dx32.to(dt64)
                 rounds += 1
                 iters += it + 1
-                if float(abs(res_buf[it])) <= 0.5 * tol_abs:
+                if float(abs(res_buf[min(it, len(res_buf) - 1)])) \
+                        <= 0.5 * tol_abs:
                     break
             info = {"rounds": rounds, "inner_iterations": iters}
         else:
@@ -524,3 +650,101 @@ class MultilevelSolver:
         if return_info:
             return x64, info
         return x64
+
+
+# accelerators that run their core on the hierarchy directly; the others go
+# through the public Krylov function
+_CORE_ACCELS = ("cg", "bicgstab", "gmres", "fgmres", "cr",
+                "steepest_descent", "minimal_residual")
+_MP_ACCELS = ("cg", "bicgstab", "gmres", "fgmres")
+
+
+class _WithRmatvec:
+    """An operator with ``rmatvec`` (v -> A^H v) beside its ``matvec``."""
+
+    def __init__(self, op, rmatvec):
+        self.matvec = op.matvec
+        self.rmatvec = rmatvec
+        self.shape = op.shape
+        self.dtype = op.dtype
+
+
+# reference-compatible lowercase alias
+multilevel_solver = MultilevelSolver
+
+
+class MultilevelSolverSet:
+    """Several hierarchies of one operator combined into one
+    preconditioner: ``mode="additive"`` sums their cycles,
+    ``"multiplicative"`` applies them one after another on the running
+    residual."""
+
+    def __init__(self, solvers: List[MultilevelSolver],
+                 mode="multiplicative"):
+        if not solvers:
+            raise ValueError("need at least one solver")
+        self.solvers = list(solvers)
+        self.mode = mode
+
+    def add_hierarchy(self, solver):
+        self.solvers.append(solver)
+
+    def remove_hierarchy(self, index):
+        del self.solvers[index]
+
+    def replace_hierarchy(self, solver, index):
+        self.solvers[index] = solver
+
+    def _combined(self, cycle):
+        """``r -> M r`` on tensors: the solvers' cycles from x = 0, combined
+        by ``self.mode``."""
+        fns = [s.cycle_fn(cycle) for s in self.solvers]
+        A = self.solvers[0].levels[0].A
+
+        def M(r):
+            if self.mode == "additive":
+                return sum(fn(torch.zeros_like(r), r) for fn in fns)
+            y = torch.zeros_like(r)
+            for fn in fns:
+                rr = r - A.matvec(y)
+                y = y + fn(torch.zeros_like(rr), rr)
+            return y
+        return M
+
+    def aspreconditioner(self, cycle="V"):
+        """The combined cycle as a scipy ``LinearOperator`` (numpy in,
+        numpy out)."""
+        from scipy.sparse.linalg import LinearOperator
+
+        first = self.solvers[0]
+        A = first.levels[0].A
+        M = self._combined(cycle)
+
+        def matvec(b):
+            return M(first._as_tensor(b, A.dtype)).cpu().numpy()
+
+        return LinearOperator(A.shape, matvec, dtype=numpy_dtype(A.dtype))
+
+    def solve(self, b, x0=None, tol=1e-5, maxiter=100, cycle="V",
+              accel="cg", residuals=None):
+        """Solve A x = b with the Krylov method ``accel`` (a name of
+        :mod:`pyamg_tpu_torch.krylov` or a callable) preconditioned by the
+        combined cycle; returns x as a tensor on the first solver's
+        device."""
+        from . import krylov
+
+        first = self.solvers[0]
+        A = first.levels[0].A
+        b_d = first._as_tensor(b, A.dtype)
+        x = torch.zeros_like(b_d) if x0 is None \
+            else first._as_tensor(x0, A.dtype)
+        kfn = getattr(krylov, accel) if isinstance(accel, str) else accel
+        res_list = []
+        xk, _info = kfn(A, b_d, x0=x, tol=tol, maxiter=maxiter,
+                        M=self._combined(cycle), residuals=res_list)
+        if residuals is not None:
+            residuals.extend(res_list)
+        return xk
+
+
+multilevel_solver_set = MultilevelSolverSet

@@ -144,7 +144,8 @@ def general_sa_setup_sharded(A, B=None, mesh=None, n_devices=None,
     from ..aggregation.aggregate import naive_aggregation, \
         standard_aggregation
     from ..aggregation.tentative import fit_candidates
-    from ..strength import symmetric_strength_of_connection
+    from ..strength import (classical_strength_of_connection,
+                            symmetric_strength_of_connection)
 
     if mesh is not None or n_devices not in (None, 1):
         raise not_ported("a setup over a mesh of several devices",
@@ -167,11 +168,11 @@ def general_sa_setup_sharded(A, B=None, mesh=None, n_devices=None,
     if agg_name not in ("standard", "naive"):
         raise ValueError("the device setup supports aggregate in "
                          f"('standard', 'naive'); got {agg_name!r}")
-    if s_name == "classical":
-        raise not_ported("classical strength of connection", "classical")
-    if s_name not in ("symmetric", None):
+    if s_name not in ("symmetric", "classical", None):
         raise ValueError(f"unsupported strength {s_name!r} for the device "
                          "setup")
+    strength_fn = classical_strength_of_connection \
+        if s_name == "classical" else symmetric_strength_of_connection
     agg_fn = standard_aggregation if agg_name == "standard" \
         else naive_aggregation
 
@@ -191,8 +192,7 @@ def general_sa_setup_sharded(A, B=None, mesh=None, n_devices=None,
         n_pad = pad_to(n, nd)
 
         # ---- host: integer graph stage ---------------------------------
-        C = symmetric_strength_of_connection(A_host, **s_kw) if s_name \
-            else A_host
+        C = strength_fn(A_host, **s_kw) if s_name else A_host
         AggOp, _roots = agg_fn(C, **agg_kw)
         if AggOp.shape[1] == 0:
             break

@@ -12,12 +12,12 @@ line and Krylov smoothers are not ported yet and raise.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Optional, Tuple
 
 import torch
 
-from ..util.utils import not_ported
+from ..util.utils import not_ported, torch_dtype
 
 __all__ = ["SmootherData", "jacobi_step", "richardson_step",
            "polynomial_step", "multicolor_gs_step",
@@ -42,6 +42,18 @@ class SmootherData:
     color_rows: Optional[torch.Tensor] = None    # (C, R), -1 padded
     color_cols: Optional[torch.Tensor] = None    # (C, R, W)
     color_data: Optional[torch.Tensor] = None    # (C, R, W)
+
+    def astype(self, dtype):
+        """This state with every floating-point array cast to ``dtype``
+        (the index arrays of the gather form stay integer)."""
+        dtype = torch_dtype(dtype)
+
+        def cast(a):
+            return None if a is None else a.to(dtype)
+        return replace(self, dinv=cast(self.dinv),
+                       color_masks=cast(self.color_masks),
+                       block_dinv=cast(self.block_dinv),
+                       color_data=cast(self.color_data))
 
 
 def jacobi_step(A, dinv, x, b, omega=1.0):

@@ -5,8 +5,10 @@ Port of ``make_system``, ``gauss_seidel``, ``jacobi``, ``sor``,
 ``gauss_seidel_indexed`` from ``pyamg_tpu/relaxation/relaxation.py``.  They
 serve the setup phase (``improve_candidates``), the iterative coarse
 solvers and, in the tests, the lexicographic oracle of the device
-smoothers.  Sequential sweeps are sparse triangular solves in delta form;
-the JAX package's native in-place sweeps equal them to round-off.
+smoothers.  Real float64 Gauss-Seidel runs the compiled in-place sweeps of
+``amg_core`` where the library loaded; every other dtype, and every dtype
+without it, takes sparse triangular solves in delta form, equal to the
+sweeps to round-off.
 """
 
 from __future__ import annotations
@@ -15,6 +17,8 @@ import numpy as np
 import scipy.sparse as sp
 from scipy.sparse.linalg import spsolve_triangular
 
+from ..amg_core import (gauss_seidel_indexed_native,
+                        gauss_seidel_sweeps_native)
 from ..util.utils import get_block_diag, to_csr
 
 __all__ = ["make_system", "sor", "gauss_seidel", "jacobi", "polynomial",
@@ -95,6 +99,9 @@ def gauss_seidel(A, x, b, iterations=1, sweep="forward"):
     A, x_v, b_v = make_system(A, x, b)
     A = A.tocsr()
     _check_sweep(sweep)
+    if A.dtype == np.float64 and x_v.dtype == np.float64 \
+            and gauss_seidel_sweeps_native(A, x_v, b_v, iterations, sweep):
+        return _store(x, x_v)
     for _ in range(iterations):
         if sweep in ("forward", "symmetric"):
             x_v += _tri_solve(A, b_v - A @ x_v, lower=True)
@@ -200,6 +207,16 @@ def gauss_seidel_indexed(A, x, b, indices, iterations=1, sweep="forward"):
     A = A.tocsr()
     _check_sweep(sweep)
     indices = np.asarray(indices, dtype=np.int64)
+    if A.dtype == np.float64 and x_v.dtype == np.float64:
+        done = True
+        for _ in range(iterations):
+            if sweep in ("forward", "symmetric"):
+                done &= gauss_seidel_indexed_native(A, x_v, b_v, indices)
+            if sweep in ("backward", "symmetric"):
+                done &= gauss_seidel_indexed_native(A, x_v, b_v,
+                                                    indices[::-1])
+        if done:
+            return _store(x, x_v)
     indptr, cols, data = A.indptr, A.indices, A.data
 
     def one_pass(order):

@@ -19,6 +19,7 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from ..amg_core import have_native
 from ..util.linalg import approximate_spectral_radius
 from ..util.utils import (amalgamate, get_block_diag,
                           levelize_smooth_or_improve_candidates, not_ported,
@@ -106,8 +107,8 @@ def _grid_coloring(grid, offsets):
 def _coloring(A_csr, blocksize=1, grid=None, offsets=None):
     """Graph coloring of A's nodes for the multicolor smoothers: geometric
     (2 or 2^d colors) where ``grid`` describes A and every offset is a move
-    within the 3^d neighbourhood, else greedy first-fit -- the JAX
-    package's choice where its native library is present.
+    within the 3^d neighbourhood, else greedy first-fit where the compiled
+    ``amg_core`` library loaded and Jones-Plassmann rounds where not.
 
     ``offsets``: the distinct diagonal offsets, where known (the level's
     DIA operator has them), which saves finding them again."""
@@ -127,7 +128,10 @@ def _coloring(A_csr, blocksize=1, grid=None, offsets=None):
                                                  repeat=len(grid))}
         if set(offs) <= moves:
             return np.asarray(_grid_coloring(grid, offs))
-    return np.asarray(vertex_coloring(G, method="FF"))
+    # compiled greedy first-fit: one O(nnz) pass and fewer colors than
+    # Jones-Plassmann rounds; JP is the numpy form without the library
+    return np.asarray(vertex_coloring(
+        G, method="FF" if have_native() else "JP"))
 
 
 def _color_masks(A_csr, blocksize=1, dtype=None, grid=None, offsets=None,

@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..amg_core import csr_to_dia_fill_native, dia_offsets_native
 from ..util.utils import numpy_dtype
 from .dia import SparseDIA
 from .ell import SparseELL
@@ -41,14 +42,22 @@ def device_operator(A_csr, dia_max_offsets: int = DIA_MAX_OFFSETS,
     A_csr = sp.csr_matrix(A_csr)
     npdt = numpy_dtype(dtype)
     n, m = A_csr.shape
-    entry_rows, entry_offs = _entry_rows_offsets(A_csr)
-    offs = np.unique(entry_offs)
+    # the compiled passes find the offsets and fill the diagonals in one
+    # stream each; numpy discovery without them (or above the limit)
+    offs = dia_offsets_native(A_csr, max_offsets=dia_max_offsets)
+    entry_rows = entry_offs = None
+    if offs is None:
+        entry_rows, entry_offs = _entry_rows_offsets(A_csr)
+        offs = np.unique(entry_offs)
     k = int(offs.size)
     mem_ok = k * n <= max(DIA_MEM_BUDGET * max(A_csr.nnz, 1), DIA_MEM_FLOOR)
     if k <= dia_max_offsets and mem_ok:
-        diags, uniq = SparseDIA.host_diags(
-            A_csr, max_offsets=dia_max_offsets, dtype=npdt, offsets=offs,
-            entry_offsets=entry_offs, entry_rows=entry_rows)
+        diags = csr_to_dia_fill_native(A_csr, offs, dtype=npdt)
+        uniq = tuple(int(o) for o in offs)
+        if diags is None:
+            diags, uniq = SparseDIA.host_diags(
+                A_csr, max_offsets=dia_max_offsets, dtype=npdt, offsets=offs,
+                entry_offsets=entry_offs, entry_rows=entry_rows)
         return SparseDIA(torch.as_tensor(diags, device=device), uniq,
                          A_csr.shape)
     if n <= dense_max and m <= dense_max:

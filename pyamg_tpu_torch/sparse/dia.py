@@ -15,6 +15,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..amg_core import csr_to_dia_native
 from ..util.utils import numpy_dtype, torch_dtype
 from . import dia_kernel
 
@@ -70,6 +71,12 @@ class SparseDIA:
 
         A = sp.csr_matrix(A)
         n, m = A.shape
+        if offsets is None and entry_offsets is None and entry_rows is None:
+            out = csr_to_dia_native(A, dtype=dtype, max_offsets=max_offsets)
+            if out is not None:
+                return out
+            # else the numpy staging below (which also raises above the
+            # limit, as the compiled pass refuses)
         if entry_rows is None:
             rows = np.repeat(np.arange(n, dtype=np.int32),
                              np.diff(A.indptr))

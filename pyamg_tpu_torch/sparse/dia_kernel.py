@@ -2,8 +2,8 @@
 
 ``y[i] = sum_k diags[k, i] * x[i + offsets[k]]`` with zero wherever
 ``i + offsets[k]`` falls outside ``[0, m)``.  The diagonals and x are both
-float32 or both float64, or the diagonals are bfloat16 and x float32 (then
-y is float32, the products taken in float32).
+float32, float64, complex64 or complex128, or the diagonals are bfloat16 and
+x float32 (then y is float32, the products taken in float32).
 
 :func:`dia_matvec` launches the hand-written CUDA kernel
 (``csrc/dia_matvec.cu``) on a CUDA tensor and raises if it cannot; on a CPU
@@ -19,7 +19,8 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-__all__ = ["dia_matvec", "dia_matvec_plain", "launches", "load"]
+__all__ = ["dia_matvec", "dia_matvec_plain", "launches", "entry_launches",
+           "load"]
 
 launches = 0          # kernel launches since import (or the last reset)
 
@@ -36,8 +37,8 @@ def load() -> ctypes.CDLL:
         args = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                 ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p,
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
-        for fn in (lib.dia_matvec_f32, lib.dia_matvec_f64,
-                   lib.dia_matvec_bf16_f32):
+        for name in _ENTRY.values():
+            fn = getattr(lib, name)
             fn.argtypes = args
             fn.restype = ctypes.c_int
         _lib = lib
@@ -62,14 +63,19 @@ def dia_matvec_plain(diags: torch.Tensor, offsets, x: torch.Tensor,
 # (diags dtype, x dtype) -> the library's entry point
 _ENTRY = {(torch.float32, torch.float32): "dia_matvec_f32",
           (torch.float64, torch.float64): "dia_matvec_f64",
-          (torch.bfloat16, torch.float32): "dia_matvec_bf16_f32"}
+          (torch.bfloat16, torch.float32): "dia_matvec_bf16_f32",
+          (torch.complex64, torch.complex64): "dia_matvec_c64",
+          (torch.complex128, torch.complex128): "dia_matvec_c128"}
+# the same launches, counted by the library's entry point
+entry_launches = dict.fromkeys(_ENTRY.values(), 0)
 
 
 def _check(diags, offsets, x, m):
     if (diags.dtype, x.dtype) not in _ENTRY:
-        raise TypeError(f"dia_matvec takes float32 or float64 diags and x of "
-                        f"one dtype, or bfloat16 diags with a float32 x; not "
-                        f"{diags.dtype} diags with a {x.dtype} x")
+        raise TypeError(f"dia_matvec takes float32, float64, complex64 or "
+                        f"complex128 diags and x of one dtype, or bfloat16 "
+                        f"diags with a float32 x; not {diags.dtype} diags "
+                        f"with a {x.dtype} x")
     if offsets.dtype != torch.int32:
         raise TypeError("dia_matvec: offsets must be int32")
     if not (diags.device == x.device == offsets.device):
@@ -105,7 +111,8 @@ def dia_matvec(diags: torch.Tensor, offsets: torch.Tensor, x: torch.Tensor,
     y = torch.empty(n, dtype=x.dtype, device=x.device)
     if n == 0:
         return y
-    fn = getattr(load(), _ENTRY[diags.dtype, x.dtype])
+    entry = _ENTRY[diags.dtype, x.dtype]
+    fn = getattr(load(), entry)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = fn(diags.data_ptr(), offsets.data_ptr(), diags.shape[0], n, m,
              x.data_ptr(), y.data_ptr(), stream, x.device.index)
@@ -113,4 +120,5 @@ def dia_matvec(diags: torch.Tensor, offsets: torch.Tensor, x: torch.Tensor,
         raise RuntimeError(f"dia_matvec kernel launch failed: CUDA error "
                            f"{err}")
     launches += 1
+    entry_launches[entry] += 1
     return y

@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import scipy.sparse as sp
 
+from .amg_core import classical_strength_native
 from .util.utils import (not_ported, row_reduce,
                          scale_rows_by_largest_entry, to_csr)
 
@@ -40,6 +41,10 @@ def classical_strength_of_connection(A, theta=0.0):
     if theta < 0 or theta > 1:
         raise ValueError("expected theta in [0,1]")
     A = _scalar_csr(A, "classical")
+    A.sort_indices()
+    S = classical_strength_native(A, theta)
+    if S is not None:
+        return S
     n = A.shape[0]
     rows = np.repeat(np.arange(n), np.diff(A.indptr))
     offdiag = rows != A.indices

@@ -14,7 +14,7 @@ import torch
 
 __all__ = ["unpack_arg", "to_csr", "get_diagonal", "get_block_diag",
            "amalgamate", "scale_rows", "row_reduce",
-           "scale_rows_by_largest_entry", "filter_matrix_rows",
+           "scale_rows_by_largest_entry", "filter_matrix_rows", "coord2rbm",
            "eliminate_diag_dom_nodes", "relaxation_as_linear_operator",
            "levelize_strength_or_aggregation",
            "levelize_smooth_or_improve_candidates", "numpy_dtype",
@@ -135,6 +135,37 @@ def scale_rows_by_largest_entry(A):
     scale = np.where(rowmax != 0, 1.0 / np.where(rowmax != 0, rowmax, 1), 0.0)
     A.data = A.data * np.repeat(scale, np.diff(A.indptr))
     return A
+
+
+def coord2rbm(coords, numPDEs=None):
+    """Rigid body modes from node coordinates.
+
+    2D -> 3 modes (2 translations + 1 rotation), 3D -> 6 modes.
+    """
+    coords = np.asarray(coords, dtype=float)
+    n, d = coords.shape
+    if numPDEs is None:
+        numPDEs = d
+    if d == 1 or numPDEs == 1:
+        return np.ones((n * numPDEs, 1))
+    if d == 2:
+        B = np.zeros((2 * n, 3))
+        B[0::2, 0] = 1
+        B[1::2, 1] = 1
+        B[0::2, 2] = -coords[:, 1]
+        B[1::2, 2] = coords[:, 0]
+        return B
+    if d == 3:
+        B = np.zeros((3 * n, 6))
+        for k in range(3):
+            B[k::3, k] = 1
+        x, y, z = coords[:, 0], coords[:, 1], coords[:, 2]
+        # rotations about z, y, x
+        B[0::3, 3], B[1::3, 3] = -y, x
+        B[0::3, 4], B[2::3, 4] = z, -x
+        B[1::3, 5], B[2::3, 5] = -z, y
+        return B
+    raise ValueError("coords must be (n, 1|2|3)")
 
 
 def _is_single_option(v):

@@ -36,7 +36,7 @@ from pyamg_tpu.relaxation.device import SmootherData as JaxSmoother
 from pyamg_tpu.relaxation.device import apply_smoother as jax_apply
 from pyamg_tpu.sparse.ell import SparseELL as JaxELL
 from pyamg_tpu.strength import symmetric_strength_of_connection as jax_soc
-from pyamg_tpu_torch import parallel
+from pyamg_tpu_torch import amg_core, parallel
 from pyamg_tpu_torch.aggregation import fit_candidates
 from pyamg_tpu_torch.aggregation.aggregate import (naive_aggregation,
                                                    standard_aggregation)
@@ -183,8 +183,9 @@ def _jax_reference(A):
     and with Jones-Plassmann when it did not
     (pyamg_tpu/relaxation/smoothing.py:153-155), and each process builds
     that library at first use, so a worker that lost the build race would
-    color otherwise.  The port always colors first-fit, which the JAX
-    package's Python fallback computes identically."""
+    color otherwise.  The port makes the same choice on its own library,
+    which these tests leave on unless they say otherwise; the JAX package's
+    Python fallback computes the first-fit colors identically."""
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jax_core, "have_native", lambda: True)
         return jax_setup(A, mesh=make_mesh(1), dtype=np.float64)
@@ -237,6 +238,30 @@ def test_setup_matches_jax_without_its_native_library(monkeypatch):
     ours = parallel.general_sa_setup_sharded(A.copy(), dtype=np.float64,
                                              device="cpu")
     _assert_levels_match(A, ours, _jax_reference(A))
+
+
+@pytest.mark.parametrize("theta", [0.0, 0.25])
+def test_classical_strength_setup_matches_jax(theta):
+    A = _jax_matrix(48)
+    kw = dict(strength=("classical", {"theta": theta}), dtype=np.float64)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_core, "have_native", lambda: True)
+        ref = jax_setup(A, mesh=make_mesh(1), **kw)
+    ours = parallel.general_sa_setup_sharded(A.copy(), device="cpu", **kw)
+    _assert_levels_match(A, ours, ref)
+
+
+def test_setup_matches_jax_with_both_native_libraries_off(monkeypatch):
+    """Without a compiled library either package colors by Jones-Plassmann
+    rounds and aggregates with its Python passes."""
+    monkeypatch.setattr(jax_core, "_lib", False)
+    monkeypatch.setattr(amg_core, "_lib", False)
+    assert not jax_core.have_native() and not amg_core.have_native()
+    A = _jax_matrix(48)
+    ref = jax_setup(A, mesh=make_mesh(1), dtype=np.float64)
+    ours = parallel.general_sa_setup_sharded(A.copy(), dtype=np.float64,
+                                             device="cpu")
+    _assert_levels_match(A, ours, ref)
 
 
 def _export(sol):
@@ -304,13 +329,10 @@ def test_naive_jacobi_setup_matches_jax():
                                                 device="cpu"),
     lambda A: parallel.general_sa_setup_sharded(A, smooth=("energy", {}),
                                                 device="cpu"),
-    lambda A: parallel.general_sa_setup_sharded(
-        A, strength=("classical", {}), device="cpu"),
     lambda A: parallel.rootnode_setup_sharded(A),
     lambda A: parallel.adaptive_sa_setup_sharded(A),
     lambda A: parallel.classical_setup_sharded(A),
-], ids=["n_devices", "mesh", "energy", "classical_strength", "rootnode",
-        "adaptive", "classical"])
+], ids=["n_devices", "mesh", "energy", "rootnode", "adaptive", "classical"])
 def test_setups_off_the_ported_path_raise(call):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         call(poisson((10, 10), format="csr"))
@@ -331,7 +353,7 @@ def test_profile_general_times_the_stages_and_restores_them():
     assert all(owner.__dict__[attr] is raw for owner, attr, raw in originals)
     n_coarse = len(sol.levels) - 1
     assert calls["masked products: plans + kernels (device)"] == 3 * n_coarse
-    assert calls["standard aggregation (host, Python passes)"] == n_coarse
+    assert calls["standard aggregation (host)"] == n_coarse
     assert 0 < sum(seconds.values()) <= total
     ref = parallel.general_sa_setup_sharded(A, device="cpu")
     assert [lvl.A_csr.nnz for lvl in sol.levels] == \

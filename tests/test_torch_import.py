@@ -39,10 +39,12 @@ def test_public_surface():
     import pyamg_tpu_torch
 
     assert sorted(pyamg_tpu_torch.__all__) == sorted(
-        ["gallery", "parallel", "smoothed_aggregation_solver",
-         "MultilevelSolver", "coarse_grid_solver", "SparseDIA", "SparseELL",
-         "__version__"])
-    from pyamg_tpu_torch import aggregation, relaxation, sparse, strength
+        ["gallery", "krylov", "parallel", "smoothed_aggregation_solver",
+         "MultilevelSolver", "MultilevelSolverSet", "multilevel_solver",
+         "multilevel_solver_set", "coarse_grid_solver", "SparseDIA",
+         "SparseELL", "__version__"])
+    from pyamg_tpu_torch import (aggregation, amg_core, gallery, krylov,
+                                 relaxation, sparse, strength)
 
     for module, names in (
             (aggregation, ["parallel_aggregation", "standard_aggregation",
@@ -57,19 +59,41 @@ def test_public_surface():
             (sparse, ["CptProlongOp", "CptRestrictOp",
                       "embedded_dia_transfers", "root_embedded_transfers"]),
             (strength, ["classical_strength_of_connection",
-                        "symmetric_strength_of_connection"])):
+                        "symmetric_strength_of_connection"]),
+            (amg_core, ["have_native", "standard_aggregation_native",
+                        "naive_aggregation_native",
+                        "first_fit_coloring_native",
+                        "gauss_seidel_sweeps_native",
+                        "gauss_seidel_indexed_native",
+                        "identity_minus_rowscaled_native",
+                        "classical_strength_native", "csr_to_dia_native"]),
+            (krylov, KRYLOV),
+            (gallery, ["gauge_laplacian", "diffusion_stencil_2d",
+                       "linear_elasticity", "regular_triangle_mesh",
+                       "sprand", "load_example", "demo"])):
         assert set(names) <= set(module.__all__), module.__name__
+
+
+KRYLOV = ["cg", "cr", "cgne", "cgnr", "bicgstab", "steepest_descent",
+          "minimal_residual", "gmres", "gmres_mgs", "gmres_householder",
+          "fgmres"]
 
 
 def _entry_points():
     import pyamg_tpu_torch
+    from pyamg_tpu_torch import krylov
+    from pyamg_tpu_torch.krylov import _common
     from pyamg_tpu_torch.parallel import general_sa_setup_sharded
     from pyamg_tpu_torch.sparse import (device_operator,
                                         embedded_dia_transfers,
                                         root_embedded_transfers)
     from pyamg_tpu_torch.sparse.spgemm_device import pattern_spgemm
 
-    return {"MultilevelSolver": pyamg_tpu_torch.MultilevelSolver,
+    return {**{f"krylov.{name}": getattr(krylov, name) for name in KRYLOV},
+            "krylov.prepare": _common.prepare,
+            "krylov.make_matvec": _common.make_matvec,
+            "gallery.demo": pyamg_tpu_torch.gallery.demo,
+            "MultilevelSolver": pyamg_tpu_torch.MultilevelSolver,
             "SparseDIA.from_scipy": pyamg_tpu_torch.SparseDIA.from_scipy,
             "SparseELL.from_scipy": pyamg_tpu_torch.SparseELL.from_scipy,
             "device_operator": device_operator,
@@ -87,7 +111,10 @@ def _entry_points():
                                   "embedded_dia_transfers",
                                   "root_embedded_transfers",
                                   "smoothed_aggregation_solver",
-                                  "general_sa_setup_sharded"])
+                                  "general_sa_setup_sharded",
+                                  "krylov.prepare", "krylov.make_matvec",
+                                  "gallery.demo"]
+                         + [f"krylov.{name}" for name in KRYLOV])
 def test_entry_points_default_to_the_card(name):
     param = inspect.signature(_entry_points()[name]).parameters["device"]
     assert param.default == "cuda"

@@ -1,6 +1,7 @@
 """The kernels' builds, wrappers and launches: the DIA SpMV kernel (float32,
-float64 and bfloat16 diagonals), its two variants in other layouts and the
-two masked-SpGEMM kernels.
+float64, complex64, complex128 and bfloat16 diagonals), its two variants in
+other layouts and the two masked-SpGEMM kernels; and the build of the host
+library.
 
 This file imports only the port, so that it also runs on a machine with a
 card and no JAX.  There, from the repository root:
@@ -147,15 +148,26 @@ def _ops(rng):
                                  device="cpu")]
 
 
+def _as_dtype(real, dtype, rng):
+    """A real tensor in ``dtype``; for a complex dtype with a seeded
+    imaginary part of the same size."""
+    if not dtype.is_complex:
+        return real.to(dtype)
+    imag = torch.as_tensor(rng.standard_normal(tuple(real.shape)))
+    return torch.complex(real.double(), imag).to(dtype)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.complex64, torch.complex128])
 def test_cuda_kernel_matches_plain_version(cuda_device, dtype):
-    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    tol = 1e-5 if dtype in (torch.float32, torch.complex64) else 1e-12
     rng = np.random.default_rng(0)
     for op in _ops(rng):
-        op = SparseDIA(op.diags.to(cuda_device, dtype), op.offsets, op.shape)
-        x = torch.as_tensor(rng.standard_normal(op.shape[1]),
-                            device=cuda_device, dtype=dtype)
+        op = SparseDIA(_as_dtype(op.diags, dtype, rng).to(cuda_device),
+                       op.offsets, op.shape)
+        x = _as_dtype(torch.as_tensor(rng.standard_normal(op.shape[1])),
+                      dtype, rng).to(cuda_device)
         before = dia_kernel.launches
         y = op.matvec(x)
         torch.cuda.synchronize()
@@ -163,6 +175,34 @@ def test_cuda_kernel_matches_plain_version(cuda_device, dtype):
         y_ref = op.matvec_plain(x)
         assert float((y - y_ref).abs().max()) <= \
             tol * float(y_ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op_dtype", [torch.complex64, torch.complex128])
+def test_cuda_complex_default_call_solves_through_the_kernel(cuda_device,
+                                                             op_dtype):
+    """A complex Hermitian gauge Laplacian through the default call on the
+    card: every DIA matvec on the complex kernel entries, no plain twin."""
+    import pyamg_tpu_torch
+    from pyamg_tpu_torch.gallery import gauge_laplacian
+
+    A = gauge_laplacian(96, beta=0.1, seed=0)
+    rng = np.random.default_rng(0)
+    b = rng.standard_normal(A.shape[0]) + 1j * rng.standard_normal(A.shape[0])
+    ml = pyamg_tpu_torch.smoothed_aggregation_solver(
+        A, max_coarse=20, op_dtype=op_dtype, device=cuda_device)
+    cpu = pyamg_tpu_torch.smoothed_aggregation_solver(
+        A, max_coarse=20, op_dtype=op_dtype, device="cpu")
+    before = dia_kernel.launches
+    single = op_dtype == torch.complex64
+    res, res_cpu = [], []
+    x = ml.solve(b, tol=1e-5 if single else 1e-10, accel="cg", residuals=res)
+    cpu.solve(b, tol=1e-5 if single else 1e-10, accel="cg",
+              residuals=res_cpu)
+    assert dia_kernel.launches > before and x.dtype == op_dtype
+    assert abs(len(res) - len(res_cpu)) <= (1 if single else 0)
+    r = np.linalg.norm(b - A @ x.cpu().numpy().astype(np.complex128))
+    assert r <= (5e-5 if single else 1e-9) * np.linalg.norm(b)
 
 
 @pytest.mark.cuda

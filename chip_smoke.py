@@ -37,7 +37,15 @@ computes the same function:
   ``MultilevelSolverSet`` of the two default hierarchies;
 * a complex Hermitian operator, ``gauge_laplacian(1024)``, through the
   default call in complex64 (kernel: dia_matvec's complex64 and complex128
-  entries, timed at 2048^2).
+  entries, timed at 2048^2);
+* blocked smoothed aggregation on Q1 linear elasticity with its three
+  rigid-body modes: ``benchmarks/suite.py``'s ``elasticity_1m_energy_sa``
+  (724^2 nodes, 1,048,352 dofs, BSR 2x2, energy-minimization P,
+  ``solve_mp`` to 1e-10) setup stage by stage, and at its
+  ``elasticity_rbm_sa`` size (100^2) the energy call, the default call
+  (Jacobi P on the structured path, ``SparseBDIA`` smoothers) and the
+  same matrix as CSR with B (kernel: dia_matvec on level 0 flattened to
+  21 scalar diagonals and on every DIA level below).
 
     python3 chip_smoke.py          # from the repository root, one GPU
 
@@ -116,6 +124,12 @@ ACCELS = ("cg", "bicgstab", "gmres", "fgmres", "cr", "steepest_descent",
 # the normal-equation methods square the condition number and the cycle
 # does not precondition the normal system: they stall
 ACCELS_STALL = ("cgnr", "cgne")
+# the blocked elasticity cells of benchmarks/suite.py:410-445; the 1M
+# cell's reference is 16 iterations (reference_cpu.json:128-149) and the
+# JAX package's record 15 (ROUND4_NOTES.md:50-57)
+ELASTICITY_1M = dict(grid=(724, 724), iters=15, iters_tol=2, opc_max=1.4)
+ELASTICITY_RBM = (100, 100)
+ELASTICITY_KW = dict(max_coarse=100, smooth=("energy", {"maxiter": 2}))
 DEFAULT_SA = {
     "structured": dict(rows=[1048576, 116964, 12996, 1444, 169], opc=1.225,
                        cg=9, cycles=10),
@@ -1513,9 +1527,247 @@ def time_complex_kernel(torch):
     return out
 
 
+def _elasticity_stages():
+    """``stage_timer`` stages of a blocked setup: the host stages of the
+    level loop, the device arrays and the smoothers."""
+    import pyamg_tpu_torch.relaxation.relaxation as rel
+    from pyamg_tpu_torch.aggregation import aggregation as agg
+
+    return [("improve_candidates", rel, "gauss_seidel"),
+            ("strength", agg, "_strength"),
+            ("aggregation", agg, "_aggregate"),
+            ("fit_candidates", agg, "fit_candidates"),
+            ("P smoothing", agg, "_smooth_P"),
+            ("Galerkin RAP (BSR)", agg, "galerkin_product"),
+            ("BSR twin", agg, "coarse_bsr_twin"),
+            ("device arrays", agg, "_finalize_device_operators"),
+            ("smoothers", agg, "change_smoothers")]
+
+
+def _form(op):
+    """Short name of a device operator: its class, its DIA offsets or BDIA
+    block diagonals, a composed chain's parts."""
+    if op is None:
+        return "-"
+    kind = type(op).__name__.replace("Sparse", "")
+    if kind == "ComposedOp":
+        return "(" + "+".join(_form(o) for o in op.ops) + ")"
+    if hasattr(op, "n_offsets"):
+        return f"{kind}[{op.n_offsets}]"
+    return kind
+
+
+def blocked_setup(torch, A, **kw):
+    """``smoothed_aggregation_solver(A, op_dtype=float32, **kw)`` on the
+    card, stage by stage; prints the hierarchy (rows, nnz, blocksize, the
+    form of A, P and R, the smoother) and returns ``(ml, setup_s)``."""
+    import pyamg_tpu_torch
+    from profile_general import stage_timer
+
+    stages = _elasticity_stages()
+    secs = {label: 0.0 for label, _, _ in stages}
+    calls = {label: 0 for label, _, _ in stages}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with stage_timer(torch.device("cuda"), secs, calls, stages):
+        ml = pyamg_tpu_torch.smoothed_aggregation_solver(
+            A, op_dtype=torch.float32, device="cuda", **kw)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    rest = setup_s - sum(secs.values())
+    print(f"setup_s {setup_s:.3f}: " + ", ".join(
+        f"{label} {secs[label]:.3f} ({calls[label]})" for label in secs)
+        + f", rest (level loop, glue) {rest:.3f}")
+    for i, lvl in enumerate(ml.levels):
+        sm = lvl.presmoother
+        smoother = ("-" if sm is None else
+                    f"{sm.kind} bs {sm.blocksize} {sm.sweep}, "
+                    f"{sm.color_masks.shape[0]} colors"
+                    if sm.color_masks is not None else sm.kind)
+        print(f"level {i}: rows {lvl.A.shape[0]:8d} nnz {lvl.nnz:9d} "
+              f"blocksize {lvl.blocksize}  A {_form(lvl.A)}  P "
+              f"{_form(getattr(lvl, 'P', None))}  R "
+              f"{_form(getattr(lvl, 'R', None))}  {smoother}")
+    print(f"levels {len(ml.levels)}  operator_complexity "
+          f"{ml.operator_complexity():.6f}")
+    return ml, setup_s
+
+
+def elasticity_1m(torch):
+    """``benchmarks/suite.py``'s ``elasticity_1m_energy_sa`` through the
+    port's entry point: 724^2 Q1 elasticity (1,048,352 dofs, BSR 2x2) with
+    its rigid-body modes, ``max_coarse=100``, energy-minimization P with 2
+    CG iterations, float32 operators, then ``solve_mp`` to 1e-10 (80 inner
+    iterations, 8 rounds) on ``b = rng(0).standard_normal(n)``.  Holds the
+    float64 relres, the inner iterations, opc, the kernel against its twin
+    on every DIA operator of the hierarchy, and times the kernel at the
+    level-0 shape beside its twin and cuSPARSE.  Returns the path's
+    dia_matvec launches and the largest kernel-vs-plain difference."""
+    phase("19. blocked SA: elasticity_1m_energy_sa, 724^2, 1,048,352 dofs")
+    from pyamg_tpu_torch.benchmarks.dia_spmv_bench import csr_tensor
+    from pyamg_tpu_torch.gallery import linear_elasticity
+    from pyamg_tpu_torch.sparse import SparseDIA, dia_kernel, spgemm_kernel
+
+    want = ELASTICITY_1M
+    t0 = time.perf_counter()
+    A, B = linear_elasticity(want["grid"])
+    n = A.shape[0]
+    b = np.random.default_rng(0).standard_normal(n)
+    print(f"linear_elasticity({want['grid']}): {n} dofs, BSR "
+          f"{A.blocksize}, nnz {A.nnz}, B {B.shape}; built in "
+          f"{time.perf_counter() - t0:.3f} s")
+    dia_kernel.launches = 0
+    spgemm_kernel.plain_cuda_calls = 0
+    twin = [0]
+    with counting_twin_calls(torch, twin):
+        ml, setup_s = blocked_setup(torch, A, B=B, **ELASTICITY_KW)
+        launches_setup = dia_kernel.launches
+        runs = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            x, info = ml.solve_mp(b, tol=TOL, inner_maxiter=80, max_rounds=8,
+                                  return_info=True)
+            torch.cuda.synchronize()
+            runs.append(time.perf_counter() - t1)
+        launches = dia_kernel.launches
+    opc = ml.operator_complexity()
+    relres = _true_relres(A, b, x)
+    per_solve = (launches - launches_setup) // 2
+    print(f"solve_mp(tol=1e-10, inner_maxiter=80, max_rounds=8): {info}  "
+          f"true f64 relres {relres:.3e}  solve_s {runs[0]:.4f} / "
+          f"{runs[1]:.4f}  dia_matvec launches: setup {launches_setup}, "
+          f"one solve {per_solve}, path {launches};  plain twin calls on "
+          f"CUDA {twin[0]} (DIA) {spgemm_kernel.plain_cuda_calls} (SpGEMM)")
+
+    print("dia_matvec vs plain on this hierarchy's DIA operators:")
+    worst = hold_dia_cases(torch, np.random.default_rng(19),
+                           dia_operators(ml))
+    # the kernel at the level-0 shape (21 diagonals over 1,048,352 rows,
+    # float32: 96.4 MB, beyond the 50 MB L2) beside its twin and cuSPARSE
+    A0 = ml.levels[0].A
+    if not isinstance(A0, SparseDIA):
+        raise AssertionError(f"level 0 is {type(A0).__name__}, not DIA")
+    xv = torch.rand(n, device="cuda", dtype=torch.float32)
+    As = csr_tensor(ml.levels[0].A_csr, "cuda", torch.float32)
+    before = dia_kernel.launches
+    k_ms, p_ms, l_ms = _medians(torch, lambda: A0.matvec(xv),
+                                lambda: A0.matvec_plain(xv),
+                                lambda: torch.mv(As, xv))
+    dia_kernel.launches = before
+    y0 = A0.matvec(xv)
+    lib_err = float((torch.mv(As, xv) - y0).abs().max() / y0.abs().max())
+    dia_kernel.launches = before
+    nbytes, flops = dia_work(A0, xv)
+    b_ms, b_by = bound(nbytes, flops)
+    print(f"dia_matvec level 0, {A0.n_offsets} offsets, {nbytes / 1e6:.1f} "
+          f"MB: kernel {k_ms * 1e3:.2f} us, bound {b_ms * 1e3:.2f} us "
+          f"({b_by}), kernel/bound {k_ms / b_ms:.2f};  plain "
+          f"{p_ms * 1e3:.2f} us;  cuSPARSE torch.mv(csr int32) "
+          f"{l_ms * 1e3:.2f} us (max rel difference {lib_err:.1e})")
+    # level 0's transfers: K = 3 candidates on 2 dofs per node, no root
+    # embedding, so P and R are padded ELL (plain torch gathers)
+    lvl0 = ml.levels[0]
+    xc = torch.rand(lvl0.P.shape[1], device="cuda", dtype=torch.float32)
+    pr_ms = _medians(torch, lambda: lvl0.P.matvec(xc),
+                     lambda: lvl0.R.matvec(xv))
+    print(f"level 0 P {_form(lvl0.P)} {tuple(lvl0.P.shape)} matvec "
+          f"{pr_ms[0] * 1e3:.2f} us, R {_form(lvl0.R)} matvec "
+          f"{pr_ms[1] * 1e3:.2f} us (one each per V-cycle)")
+
+    if not relres <= 5 * TOL:
+        raise AssertionError(f"elasticity relres {relres} > {5 * TOL}")
+    if abs(info["inner_iterations"] - want["iters"]) > want["iters_tol"]:
+        raise AssertionError(f"inner iterations {info['inner_iterations']}, "
+                             f"expected {want['iters']} +- "
+                             f"{want['iters_tol']}")
+    if not opc <= want["opc_max"]:
+        raise AssertionError(f"operator complexity {opc} > "
+                             f"{want['opc_max']}")
+    if per_solve <= 0:
+        raise AssertionError("the elasticity solve launched no dia_matvec")
+    if twin[0] or spgemm_kernel.plain_cuda_calls:
+        raise AssertionError(f"a plain twin ran on CUDA: DIA {twin[0]}, "
+                             f"SpGEMM {spgemm_kernel.plain_cuda_calls}")
+    return launches, worst
+
+
+def elasticity_rbm(torch):
+    """The ``elasticity_rbm_sa`` size, 100^2 (20,000 dofs): the energy
+    call of the cell, the default call (Jacobi P on the structured
+    K-candidate path: ``SparseBDIA`` smoothers inside the transfers) and
+    the same matrix as plain CSR with B (the scalar chain, K = 3), each
+    with float32 operators, CG to 1e-8 and ``solve_mp`` to 1e-10; one
+    ``SparseBDIA`` matvec timed.  Returns the phase's dia_matvec launches
+    and the largest kernel-vs-plain difference."""
+    phase("20. blocked SA at the elasticity_rbm_sa size, 100^2")
+    import scipy.sparse as sp
+    from pyamg_tpu_torch.gallery import linear_elasticity
+    from pyamg_tpu_torch.sparse import SparseBDIA, dia_kernel, spgemm_kernel
+
+    A, B = linear_elasticity(ELASTICITY_RBM)
+    n = A.shape[0]
+    b = np.random.default_rng(0).standard_normal(n)
+    calls = {"energy": (A, dict(B=B, **ELASTICITY_KW)),
+             "default (Jacobi P, structured)": (A, dict(B=B)),
+             "CSR with B": (sp.csr_matrix(A.tocoo()), dict(B=B))}
+    dia_kernel.launches = 0
+    spgemm_kernel.plain_cuda_calls = 0
+    twin, worst, bdia = [0], 0.0, None
+    for name, (M, kw) in calls.items():
+        print(f"-- {name}")
+        with counting_twin_calls(torch, twin):
+            ml, _ = blocked_setup(torch, M, **kw)
+            res = []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x = ml.solve(b, tol=1e-8, accel="cg", maxiter=100, residuals=res)
+            torch.cuda.synchronize()
+            cg_s = time.perf_counter() - t0
+            x64, info = ml.solve_mp(b, tol=TOL, inner_maxiter=80,
+                                    max_rounds=8, return_info=True)
+            torch.cuda.synchronize()
+        relres, relres64 = _true_relres(A, b, x), _true_relres(A, b, x64)
+        print(f"CG to 1e-8 float32: iterations {len(res) - 1}  true f64 "
+              f"relres {relres:.3e}  {cg_s:.4f} s;  solve_mp(1e-10): {info}"
+              f"  relres {relres64:.3e}")
+        if not (relres <= 1e-5 and relres64 <= 5 * TOL
+                and len(res) - 1 <= 30):
+            raise AssertionError(f"{name}: CG {len(res) - 1} iterations, "
+                                 f"relres {relres}, solve_mp {relres64}")
+        worst = max(worst, hold_dia_cases(torch, np.random.default_rng(20),
+                                          dia_operators(ml)))
+        for lvl in ml.levels:
+            for op in getattr(getattr(lvl, "P", None), "ops", ()):
+                if isinstance(op, SparseBDIA) and bdia is None:
+                    bdia = op
+    if bdia is None:
+        raise AssertionError("the default call built no SparseBDIA smoother")
+    launches = dia_kernel.launches
+    xv = torch.rand(bdia.shape[1], device="cuda", dtype=bdia.dtype)
+    (ms,) = _medians(torch, lambda: bdia.matvec(xv))
+    nbytes = (bdia.blocks.numel() * bdia.blocks.element_size()
+              + 2 * xv.numel() * xv.element_size())
+    b_ms, b_by = bound(nbytes, 2 * bdia.blocks.numel())
+    print(f"SparseBDIA matvec (plain torch, shifted batched 2x2 block "
+          f"products) {tuple(bdia.shape)}, {bdia.n_offsets} block "
+          f"diagonals: {ms * 1e3:.2f} us, bound {b_ms * 1e3:.2f} us "
+          f"({b_by}, {nbytes / 1e6:.2f} MB)")
+    print(f"dia_matvec launches over the three calls: {launches};  plain "
+          f"twin calls on CUDA {twin[0]} (DIA) "
+          f"{spgemm_kernel.plain_cuda_calls} (SpGEMM)")
+    if launches <= 0:
+        raise AssertionError("the 100^2 elasticity calls launched no "
+                             "dia_matvec")
+    if twin[0] or spgemm_kernel.plain_cuda_calls:
+        raise AssertionError("a plain twin ran on CUDA")
+    return launches, worst
+
+
 def main():
     import torch
 
+    t_start = time.perf_counter()
     find_card(torch)
     build_kernels()
     rng = np.random.default_rng(0)
@@ -1561,6 +1813,13 @@ def main():
                      for name in ("dia_matvec_c64", "dia_matvec_c128")})
     worst.update(complex_worst)
     times.update(time_complex_kernel(torch))
+    n_1m, err_1m = elasticity_1m(torch)
+    n_rbm, err_rbm = elasticity_rbm(torch)
+    launches["dia_matvec"] += n_1m + n_rbm
+    worst["dia_matvec"] = max(worst["dia_matvec"], err_1m, err_rbm)
+    print(f"dia_matvec launches by the elasticity phases 19-20: 1M "
+          f"{n_1m}, 100^2 {n_rbm}")
+    print(f"chip_smoke seconds: {time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": [dict(
         name=name, **KERNELS[name], launches=launches[name],
         max_abs_err=worst[name], **times[name]) for name in KERNELS]}))

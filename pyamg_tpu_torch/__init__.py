@@ -5,10 +5,12 @@ nor pyamg_tpu, the JAX package it is ported from and checked against.
 What is ported:
 
 * ``smoothed_aggregation_solver(A)`` with its default arguments and most of
-  its options, for scalar symmetric problems with one near-nullspace
-  candidate: the setup runs on the host in numpy/scipy (on a 2-D grid
-  matrix the structured path of grid-block aggregates, otherwise strength,
-  aggregation, tentative and smoothed prolongators and Galerkin products),
+  its options, for symmetric problems, scalar (CSR) or blocked (BSR), with
+  any number of near-nullspace candidates: the setup runs on the host in
+  numpy/scipy (on a 2-D grid matrix the structured path of grid-block
+  aggregates, otherwise strength, aggregation, tentative and Jacobi- or
+  energy-smoothed prolongators and Galerkin products; blocked levels in
+  BSR blocks),
   and every DIA sparse matvec of the solve -- DIA levels, the DIA
   smoothers of grid transfers, root-embedded DIA transfers -- runs a
   hand-written CUDA kernel (``csrc/dia_matvec.cu``); multicolor
@@ -18,7 +20,8 @@ What is ported:
   ``solve_mp``, ``aspreconditioner`` and ``MultilevelSolverSet``; real and
   complex Hermitian operators;
 * the setup's sequential host stages (aggregation, first-fit coloring,
-  Gauss-Seidel sweeps, classical strength, CSR to DIA) in a compiled
+  Gauss-Seidel sweeps, classical strength, CSR to DIA, the energy CG's
+  masked products and projections) in a compiled
   library (``amg_core``, built from ``csrc/amg_core.cpp`` with g++ at first
   use), with Python forms that serve where no compiler is found;
 * the Krylov suite (``krylov``: CG, CR, CGNE, CGNR, BiCGStab, steepest
@@ -39,11 +42,11 @@ from .aggregation import smoothed_aggregation_solver
 from .multilevel import (MultilevelSolver, MultilevelSolverSet,
                          coarse_grid_solver, multilevel_solver,
                          multilevel_solver_set)
-from .sparse import SparseDIA, SparseELL
+from .sparse import BlockELL, SparseBDIA, SparseDIA, SparseELL
 
 __version__ = "0.1.0"
 
 __all__ = ["gallery", "krylov", "parallel", "smoothed_aggregation_solver",
            "MultilevelSolver", "MultilevelSolverSet", "multilevel_solver",
            "multilevel_solver_set", "coarse_grid_solver", "SparseDIA",
-           "SparseELL", "__version__"]
+           "SparseELL", "SparseBDIA", "BlockELL", "__version__"]

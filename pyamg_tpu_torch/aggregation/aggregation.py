@@ -1,26 +1,36 @@
 """Smoothed aggregation (SA) solver constructor.
 
-Port of ``pyamg_tpu/aggregation/aggregation.py`` for scalar, hermitian or
-symmetric problems with one near-nullspace candidate.  Per level, on the
-host in numpy/scipy: relax the candidate (``improve_candidates``), then
+Port of ``pyamg_tpu/aggregation/aggregation.py`` for hermitian or
+symmetric problems, scalar (CSR) or blocked (BSR, ``bs`` dofs per node),
+with any number K of near-nullspace candidates (default: the constant per
+dof of a node, ``kron(ones, eye(bs))``).  Per level, on the host in
+numpy/scipy: relax the candidates (``improve_candidates``), then
 
-* on a 2-D grid (a matrix carrying ``A.grid``, as the gallery builds it):
-  grid-block aggregation -> tentative prolongator -> ``P = S T`` with ``S =
-  I - omega/rho(D^-1 A) D^-1 A`` -> ``R = P^H`` -> Galerkin product; the
-  device operators are A as ``SparseDIA`` and P, R as gather-free
-  ``ComposedOp`` chains of a DIA smoother and a grid operator;
-* otherwise: strength of connection -> (diagonal-dominance filter) ->
-  aggregation -> tentative prolongator -> prolongation smoothing -> R by
-  symmetry -> Galerkin product (-> coarse filter); the device operators
-  are whatever ``device_operator`` chooses for A (DIA, dense or padded
-  ELL) and, for P and R, the aggregate-root embedding as DIA where its
-  pattern is banded, else ``device_operator``'s form.
+* on a 2-D grid (a matrix carrying ``A.grid``, as the gallery builds it)
+  with Jacobi, Richardson or no prolongation smoothing: grid-block
+  aggregation -> tentative prolongator -> ``P = S T`` with ``S = I -
+  omega/rho(D^-1 A) D^-1 A`` -> ``R = P^H`` -> Galerkin product; coarse
+  levels carry K dofs per grid node.  The device operators are A as
+  ``SparseDIA`` (a blocked level flattened to scalar diagonals, else
+  ``SparseBDIA``) and P, R as gather-free ``ComposedOp`` chains of the
+  smoother S (``SparseDIA``, or ``SparseBDIA`` on a blocked level) and a
+  grid operator;
+* otherwise: strength of connection (of the block graph for BSR) ->
+  (diagonal-dominance filter) -> aggregation -> tentative prolongator ->
+  prolongation smoothing (Jacobi, Richardson, energy minimization) -> R by
+  symmetry -> Galerkin product, in BSR blocks on a blocked level (->
+  coarse filter); the device operators are whatever ``device_operator``
+  chooses for A (DIA, dense or padded ELL) and, for P and R, the
+  aggregate-root embedding as DIA where it exists and is banded (K equal
+  to the fine dofs per node), else ``device_operator``'s form.
 
 Setups outside the port raise ``NotImplementedError`` naming the ROADMAP
 item that ports them.
 """
 
 from __future__ import annotations
+
+import warnings
 
 import numpy as np
 import scipy.sparse as sp
@@ -29,8 +39,10 @@ import torch
 from ..amg_core import have_native, identity_minus_rowscaled_native
 from ..multilevel import Level, MultilevelSolver
 from ..relaxation.smoothing import change_smoothers, rho_D_inv_A
-from ..sparse import (ComposedOp, GridPoolOp, GridRepeatOp, SparseDIA,
-                      device_operator, root_embedded_transfers)
+from ..sparse import (ComposedOp, DenseOp, GridPoolOp, GridRepeatOp,
+                      SparseBDIA, SparseDIA, device_operator,
+                      root_embedded_transfers)
+from ..sparse.device_op import DIA_MEM_BUDGET, DIA_MEM_FLOOR
 from ..strength import (classical_strength_of_connection,
                         symmetric_strength_of_connection)
 from ..util.linalg import approximate_spectral_radius
@@ -103,7 +115,8 @@ def _smooth_P(T, A, C, B, flag, sym_hint=None):
         return richardson_prolongation_smoother(A, T, sym_hint=sym_hint,
                                                 **kwargs)
     if fn == "energy":
-        return energy_prolongation_smoother(A, T, C, B, **kwargs)
+        return energy_prolongation_smoother(A, T, C, B, None, (False, {}),
+                                            **kwargs)
     if fn is None:
         return to_csr(T)
     raise ValueError(f"unrecognized prolongation smoother {fn!r}")
@@ -136,10 +149,10 @@ def smoothed_aggregation_solver(A, B=None, BH=None, symmetry="hermitian",
     and there is no fallback to the CPU.  With ``finalize_device=False`` the
     levels hold only the host matrices.
 
-    Ported: scalar hermitian or symmetric problems with one near-nullspace
-    candidate, on a 2-D grid (``A.grid``) or without grid metadata; other
-    setups (nonsymmetric, BSR input, several candidates, 3-D grid metadata)
-    raise ``NotImplementedError``.
+    Ported: hermitian or symmetric problems, CSR or BSR, with any number
+    of near-nullspace candidates ``B`` (n, K), on a 2-D grid (``A.grid``)
+    or without grid metadata; other setups (nonsymmetric, 3-D grid
+    metadata) raise ``NotImplementedError``.
 
     Examples
     --------
@@ -158,22 +171,24 @@ def smoothed_aggregation_solver(A, B=None, BH=None, symmetry="hermitian",
                          "'hermitian' for the symmetry parameter")
     if symmetry == "nonsymmetric":
         raise not_ported("nonsymmetric SA", _UNSTRUCTURED)
-    if sp.issparse(A) and A.format == "bsr" and A.blocksize[0] > 1:
-        raise not_ported("blocked (BSR) SA", "bdia/bell")
 
     A_in = A
+    blocksize = 1
+    if sp.issparse(A_in) and A_in.format == "bsr":
+        blocksize = A_in.blocksize[0]
     A = to_csr(A_in)
     n = A.shape[0]
     if B is None:
-        B = np.ones((n, 1), dtype=A.dtype)
+        B = np.kron(np.ones((n // blocksize, 1), dtype=A.dtype),
+                    np.eye(blocksize, dtype=A.dtype))
     else:
         B = np.asarray(B, dtype=A.dtype)
         if B.ndim == 1:
             B = B[:, None]
         if B.shape[0] != n:
             raise ValueError("near nullspace has incorrect dimensions")
-        if B.shape[1] > 1:
-            raise not_ported("multi-candidate SA", "bdia/bell")
+        if B.shape[1] > 5:
+            warnings.warn("Having more than 5 candidates per level is costly")
 
     max_levels, max_coarse, strength = levelize_strength_or_aggregation(
         strength, max_levels, max_coarse)
@@ -185,8 +200,9 @@ def smoothed_aggregation_solver(A, B=None, BH=None, symmetry="hermitian",
 
     levels = [Level()]
     levels[0].A_csr = A
+    levels[0].A_bsr = sp.bsr_matrix(A_in) if blocksize > 1 else None
     levels[0].B = B
-    levels[0].blocksize = 1
+    levels[0].blocksize = blocksize
     levels[0].symmetry = symmetry
     levels[0].grid = getattr(A_in, "grid", None)
     # anisotropy-aware semicoarsening is only contractive together with
@@ -200,7 +216,8 @@ def smoothed_aggregation_solver(A, B=None, BH=None, symmetry="hermitian",
         levels[0].grid = tuple(kw0["grid"])
 
     while (len(levels) < max_levels
-           and levels[-1].A_csr.shape[0] > max_coarse):
+           and levels[-1].A_csr.shape[0] // max(levels[-1].blocksize, 1)
+           > max_coarse):
         n_prev = levels[-1].A_csr.shape[0]
         _extend_sa_hierarchy(levels, strength, aggregate, smooth,
                              improve_candidates, diagonal_dominance, keep,
@@ -218,16 +235,47 @@ def smoothed_aggregation_solver(A, B=None, BH=None, symmetry="hermitian",
     return ml
 
 
+def _banded_device_op(A_csr, q, A_bsr, npdt, device):
+    """``SparseBDIA`` of a level with q dofs per grid node, or None when its
+    block pattern is not banded (more than 64 block diagonals) or the
+    dense bands would pass the scalar chooser's memory budget."""
+    if A_bsr is None or A_bsr.blocksize != (q, q):
+        A_bsr = A_csr.tobsr(blocksize=(q, q))
+    nb = A_bsr.shape[0] // q
+    brows = np.repeat(np.arange(nb), np.diff(A_bsr.indptr))
+    n_off = np.unique(A_bsr.indices - brows).size
+    if n_off * nb * q * q > max(DIA_MEM_BUDGET * max(A_bsr.nnz, 1),
+                                DIA_MEM_FLOOR):
+        return None
+    try:
+        blocks, offs = SparseBDIA.host_blocks(A_bsr, max_offsets=64,
+                                              dtype=npdt)
+    except ValueError:
+        return None
+    return SparseBDIA(torch.as_tensor(blocks, device=device), offs,
+                      A_csr.shape)
+
+
 def _finalize_device_operators(levels, op_dtype=None, device="cuda"):
     """Build the device form of every level.  A: ``device_operator``'s
-    choice.  Transfers of a structured level: P = ``ComposedOp(S,
-    GridRepeatOp)`` and R = ``ComposedOp(GridPoolOp, S^H)`` with S and S^H
-    as ``SparseDIA``; of any other level: the aggregate-root embedding
-    where it is banded, else ``device_operator``'s choice.  Every array is
-    cast to ``op_dtype`` on the host and moved to ``device`` once."""
+    choice; on a blocked level with a grid, a scalar DIA or dense form
+    first (a banded operator of uniform blocks is a scalar DIA of at most
+    ``n_off * (2q - 1)`` diagonals, and rides the DIA kernel), else
+    ``SparseBDIA``, else the padded ELL.  Transfers of a structured level:
+    P = ``ComposedOp(S, GridRepeatOp)`` and R = ``ComposedOp(GridPoolOp,
+    S^H)`` with S and S^H as ``SparseDIA`` (``SparseBDIA`` with q > 1 dofs
+    per node); of any other level: the aggregate-root embedding where it
+    is banded, else ``device_operator``'s choice.  Every array is cast to
+    ``op_dtype`` on the host and moved to ``device`` once."""
     npdt = numpy_dtype(op_dtype)
     for lvl in levels:
+        q_lvl = max(getattr(lvl, "blocksize", 1), 1)
         lvl.A = device_operator(lvl.A_csr, dtype=npdt, device=device)
+        if (q_lvl > 1 and getattr(lvl, "grid", None) is not None
+                and not isinstance(lvl.A, (SparseDIA, DenseOp))):
+            lvl.A = _banded_device_op(lvl.A_csr, q_lvl,
+                                      getattr(lvl, "A_bsr", None), npdt,
+                                      device) or lvl.A
         if not hasattr(lvl, "P_csr"):
             continue
         meta = getattr(lvl, "struct_meta", None)
@@ -240,31 +288,46 @@ def _finalize_device_operators(levels, op_dtype=None, device="cuda"):
                 lvl.R = device_operator(lvl.R_csr, dtype=npdt, device=device)
             continue
         n_f, n_c = lvl.P_csr.shape
+        q = meta.get("q", 1)
         wmap = meta["wmap"]
         if npdt is not None:
             wmap = wmap.astype(npdt, copy=False)
         wmap = torch.as_tensor(wmap, device=device)
-        T = GridRepeatOp(wmap, meta["grid"], meta["block"], (n_f, n_c))
+        T = GridRepeatOp(wmap, meta["grid"], meta["block"], (n_f, n_c),
+                         node_dofs=q)
         # for symmetry='symmetric' the host builds R_csr = P.T (no
         # conjugation); a real wmap makes conj a no-op either way
-        pool_conj = (np.iscomplexobj(meta["wmap"])
-                     and getattr(lvl, "symmetry", "hermitian") == "hermitian")
+        conj = (getattr(lvl, "symmetry", "hermitian") == "hermitian")
         Tt = GridPoolOp(wmap, meta["grid"], meta["block"], (n_c, n_f),
-                        conj=pool_conj)
+                        node_dofs=q,
+                        conj=conj and np.iscomplexobj(meta["wmap"]))
         if meta["degree"] == 0 or meta["S_csr"] is None:
             lvl.P, lvl.R = T, Tt
             continue
         # S = I - c D^{-1} A shares A's banded structure; S and S^H are
-        # built on the host (a shift of each diagonal vector for S^H)
+        # built on the host (a shift of each diagonal for S^H)
         s_shape = meta["S_csr"].shape
-        s_diags, s_offs = SparseDIA.host_diags(meta["S_csr"], dtype=npdt,
-                                               max_offsets=1024)
-        sh_diags, sh_offs = SparseDIA.host_transpose(s_diags, s_offs,
-                                                     s_shape)
-        S = SparseDIA(torch.as_tensor(s_diags, device=device), s_offs,
-                      s_shape)
-        SH = SparseDIA(torch.as_tensor(sh_diags, device=device), sh_offs,
-                       s_shape[::-1])
+        if q > 1:
+            s_blocks, s_offs = SparseBDIA.host_blocks(
+                meta["S_csr"].tobsr(blocksize=(q, q)), dtype=npdt)
+            sh_blocks, sh_offs = SparseBDIA.host_transpose(
+                s_blocks, s_offs,
+                conj=conj and np.iscomplexobj(meta["S_csr"].data))
+            S = SparseBDIA(torch.as_tensor(s_blocks, device=device), s_offs,
+                           s_shape)
+            SH = SparseBDIA(torch.as_tensor(sh_blocks, device=device),
+                            sh_offs, s_shape)
+        else:
+            s_diags, s_offs = SparseDIA.host_diags(meta["S_csr"], dtype=npdt,
+                                                   max_offsets=1024)
+            sh_diags, sh_offs = SparseDIA.host_transpose(s_diags, s_offs,
+                                                         s_shape)
+            if conj and np.iscomplexobj(meta["S_csr"].data):
+                sh_diags = sh_diags.conj()
+            S = SparseDIA(torch.as_tensor(s_diags, device=device), s_offs,
+                          s_shape)
+            SH = SparseDIA(torch.as_tensor(sh_diags, device=device),
+                           sh_offs, s_shape[::-1])
         lvl.P = ComposedOp([S] * meta["degree"] + [T], (n_f, n_c))
         lvl.R = ComposedOp([Tt] + [SH] * meta["degree"], (n_c, n_f))
 
@@ -314,17 +377,22 @@ def _extend_structured(levels, lvl, A, B, grid, sfn, skw, akw, keep,
                        symmetry):
     """One structured coarsening step: grid-block aggregation and Jacobi
     prolongation smoothing, recorded with the metadata that
-    :func:`_finalize_device_operators` needs."""
+    :func:`_finalize_device_operators` needs.  With K candidates the coarse
+    level carries K dofs per grid node (node-major) and its operator is
+    block-banded."""
     block = akw.get("block")
+    q_lvl = max(getattr(lvl, "blocksize", 1), 1)
     if block is None:
         # per-level anisotropy-aware blocks: under strong grid-aligned
         # anisotropy with line relaxation, coarsen only the weak axes
-        strides = [int(np.prod(grid[kk + 1:])) for kk in range(len(grid))]
+        strides = [int(np.prod(grid[kk + 1:])) * q_lvl
+                   for kk in range(len(grid))]
         coup = np.array([np.abs(A.diagonal(s)).sum() + 1e-300
                          for s in strides])
-        line_smoothing = getattr(lvl, "_line_smoother", False)
-        if (line_smoothing and len(grid) >= 2
-                and coup.max() > 25.0 * coup.min()):
+        K_cand = B.shape[1]
+        if (getattr(lvl, "_line_smoother", False)
+                and K_cand % q_lvl == 0 and q_lvl in (1, K_cand)
+                and len(grid) >= 2 and coup.max() > 25.0 * coup.min()):
             geo = float(np.sqrt(coup.max() * coup.min()))
             block = tuple(1 if cc > geo else 3 for cc in coup)
             sfn, skw = "jacobi_weak", {}
@@ -339,8 +407,16 @@ def _extend_structured(levels, lvl, A, B, grid, sfn, skw, akw, keep,
     T.sort_indices()
 
     n = A.shape[0]
-    wmap = np.zeros(n, dtype=A.dtype)
-    wmap[np.repeat(np.arange(n), np.diff(T.indptr))] = T.data
+    K = B.shape[1]
+    rows_w = np.repeat(np.arange(n), np.diff(T.indptr))
+    if K == 1 and q_lvl == 1:
+        wmap = np.zeros(n, dtype=A.dtype)
+        wmap[rows_w] = T.data
+    else:
+        # (n_dofs, K): the weight of each fine dof on its node's K coarse
+        # values; needed on a node-blocked level even for K == 1
+        wmap = np.zeros((n, K), dtype=A.dtype)
+        wmap[rows_w, T.indices % K] = T.data
 
     S_csr, degree = structured_smoother_S(A, sfn, skw, symmetry)
     P = T
@@ -350,7 +426,7 @@ def _extend_structured(levels, lvl, A, B, grid, sfn, skw, akw, keep,
 
     lvl.struct_meta = {"grid": tuple(grid), "block": block, "wmap": wmap,
                        "S_csr": S_csr, "degree": degree, "sfn": sfn,
-                       "skw": dict(skw) if skw else {}}
+                       "skw": dict(skw) if skw else {}, "K": K, "q": q_lvl}
     lvl.P_csr = P
     lvl.R_csr = R
     if keep:
@@ -363,20 +439,50 @@ def _extend_structured(levels, lvl, A, B, grid, sfn, skw, akw, keep,
     new = Level()
     new.A_csr = A_coarse
     new.B = B_coarse
-    new.blocksize = 1
+    new.blocksize = K                 # K dofs per coarse grid node
     new.symmetry = symmetry
+    new.A_bsr = None
     new.grid = cgrid
-    A_coarse.grid = cgrid
+    if K == 1:
+        A_coarse.grid = cgrid
     new._line_smoother = getattr(lvl, "_line_smoother", False)
     levels.append(new)
 
 
-def galerkin_product(lvl, A):
-    """The coarse operator ``R A P`` of the level's transfers, stored
-    zeros dropped."""
-    A_coarse = (lvl.R_csr @ A @ lvl.P_csr).tocsr()
+def galerkin_product(lvl, A, bs, K_c, symmetry):
+    """The coarse operator ``R A P`` of the level's transfers, stored zeros
+    dropped; on a blocked level (``bs`` > 1 dofs per node, ``K_c`` > 1
+    coarse candidates) in BSR blocks.  Returns ``(A_coarse_csr,
+    A_coarse_bsr or None)``."""
+    A_coarse_bsr = None
+    if (bs > 1 and getattr(lvl, "A_bsr", None) is not None and K_c > 1
+            and lvl.P_csr.shape[0] % bs == 0
+            and lvl.P_csr.shape[1] % K_c == 0):
+        try:
+            Pb = lvl.P_csr.tobsr(blocksize=(bs, K_c))
+            Rb = Pb.conjugate().transpose() if symmetry == "hermitian" \
+                else Pb.transpose()
+            A_coarse_bsr = Rb @ lvl.A_bsr @ Pb
+            A_coarse = A_coarse_bsr.tocsr()
+        except ValueError:
+            A_coarse_bsr = None
+    if A_coarse_bsr is None:
+        A_coarse = (lvl.R_csr @ A @ lvl.P_csr).tocsr()
     A_coarse.eliminate_zeros()
-    return A_coarse
+    return A_coarse, A_coarse_bsr
+
+
+def coarse_bsr_twin(A_coarse, A_coarse_bsr, blocksize, filtered=False):
+    """The coarse level's BSR twin: the BSR Galerkin product when its
+    blocksize matches and no filter changed the CSR form, else a
+    conversion; None on a scalar level."""
+    if blocksize <= 1 or A_coarse.shape[0] % blocksize:
+        return None
+    if (A_coarse_bsr is not None and not filtered
+            and A_coarse_bsr.blocksize == (blocksize, blocksize)):
+        A_coarse_bsr.eliminate_zeros()
+        return A_coarse_bsr
+    return A_coarse.tobsr(blocksize=(blocksize, blocksize))
 
 
 def _extend_sa_hierarchy(levels, strength, aggregate, smooth,
@@ -386,9 +492,14 @@ def _extend_sa_hierarchy(levels, strength, aggregate, smooth,
     lvl = levels[-1]
     A = lvl.A_csr
     B = lvl.B
+    bs = lvl.blocksize
     i = len(levels) - 1
+    # a blocked level's strength, aggregation and smoothing see its BSR
+    # twin: the block graph, node aggregates, BSR prolongation smoothing
+    A_bsr = getattr(lvl, "A_bsr", None)
+    A_for_strength = A_bsr if (bs > 1 and A_bsr is not None) else A
 
-    # improve the candidate by relaxing on A B = 0
+    # improve the candidates by relaxing on A B = 0
     ic = improve_candidates[i]
     if ic is not None:
         b0 = np.zeros((A.shape[0], 1), dtype=A.dtype)
@@ -403,28 +514,29 @@ def _extend_sa_hierarchy(levels, strength, aggregate, smooth,
         raise not_ported(f"SA on a matrix with {len(grid)}-D grid metadata",
                          _UNSTRUCTURED)
     # structured-grid path: grid-block aggregation keeps every level a
-    # stencil matrix, so the device operators are DIA and grid transfers
+    # stencil matrix (q = max(bs, 1) dofs per grid node), so the device
+    # operators are DIA (or BDIA) and grid transfers
     if (grid is not None
             and (afn == "grid" or (afn == "standard" and len(grid) == 2))
             and sfn in (None, "jacobi", "richardson")
-            and np.prod(grid) == A.shape[0]):
+            and np.prod(grid) * max(bs, 1) == A.shape[0]):
         _extend_structured(levels, lvl, A, B, grid, sfn, skw, akw, keep,
                            symmetry)
         return
 
-    C = _strength(A, B, strength[i])
+    C = _strength(A_for_strength, B, strength[i])
     if diagonal_dominance:
         kwargs = diagonal_dominance[1] \
             if isinstance(diagonal_dominance, tuple) else {}
         C = eliminate_diag_dom_nodes(A, C, **(kwargs if isinstance(
             kwargs, dict) else {}))
 
-    AggOp, Cpts = _aggregate(C, A, B, aggregate[i])
+    AggOp, Cpts = _aggregate(C, A_for_strength, B, aggregate[i])
     if AggOp.shape[1] == 0:
         return
 
     T, B_coarse = fit_candidates(AggOp, B)
-    P = _smooth_P(T, A, C, B_coarse, smooth[i], sym_hint=True)
+    P = _smooth_P(T, A_for_strength, C, B_coarse, smooth[i], sym_hint=True)
     R = P.conjugate().T.tocsr() if symmetry == "hermitian" else P.T.tocsr()
 
     lvl.C = C if keep else None
@@ -435,13 +547,22 @@ def _extend_sa_hierarchy(levels, strength, aggregate, smooth,
     lvl.R_csr = to_csr(R)
 
     # the fine position of every coarse dof, for the gather-free DIA form
-    # of the transfers (sparse/embed.py): aggregate a embeds at its root
+    # of the transfers (sparse/embed.py): coarse dof a*K+k embeds at fine
+    # dof roots[a]*q+k, one to one only when K equals the fine dofs per
+    # node q (a blocked level 0 with K != q keeps device_operator's form)
     if Cpts is not None:
+        n_agg = AggOp.shape[1]
+        nc = lvl.P_csr.shape[1]
         roots = np.asarray(Cpts, dtype=np.int64)
-        if roots.size and roots.size == AggOp.shape[1] == lvl.P_csr.shape[1]:
-            lvl.root_dofs = roots
+        if n_agg and roots.size == n_agg and nc % n_agg == 0:
+            K = nc // n_agg
+            q = max(bs, 1)
+            if K == q:
+                lvl.root_dofs = (roots[:, None] * q
+                                 + np.arange(K)[None, :]).ravel()
 
-    A_coarse = galerkin_product(lvl, A)
+    A_coarse, A_coarse_bsr = galerkin_product(lvl, A, bs, B_coarse.shape[1],
+                                              symmetry)
     if coarse_filter:
         # drop weak Galerkin fill-in, lumped onto the diagonal (row sums
         # kept): bounds the densification of coarse operators
@@ -451,6 +572,8 @@ def _extend_sa_hierarchy(levels, strength, aggregate, smooth,
     new = Level()
     new.A_csr = A_coarse
     new.B = B_coarse
-    new.blocksize = 1
+    new.blocksize = B.shape[1] if B.shape[1] > 1 else 1
     new.symmetry = symmetry
+    new.A_bsr = coarse_bsr_twin(A_coarse, A_coarse_bsr, new.blocksize,
+                                filtered=bool(coarse_filter))
     levels.append(new)

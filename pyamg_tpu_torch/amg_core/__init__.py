@@ -2,8 +2,10 @@
 
 Port of the bindings of ``pyamg_tpu/amg_core/__init__.py`` that the ported
 setup calls: the greedy aggregations, first-fit coloring, the Gauss-Seidel
-sweeps, ``S = I - c D^-1 A``, classical strength and the CSR-to-DIA
-conversion.  The source is ``csrc/amg_core.cpp``; ``_build.build_host``
+sweeps (scalar and block), ``S = I - c D^-1 A``, classical strength, the
+CSR-to-DIA conversion, and the pattern-restricted products, constraint
+projections and Gram matrices of the energy-minimization CG in scalar (CSR)
+and block (BSR) form.  The source is ``csrc/amg_core.cpp``; ``_build.build_host``
 compiles it at first use into ``_build/`` (never beside the source).  Every
 binding returns ``None`` (or ``False`` for the in-place sweeps) when the
 library is unavailable or the input is not what it takes, and the caller
@@ -26,7 +28,10 @@ __all__ = ["have_native", "standard_aggregation_native",
            "gauss_seidel_sweeps_native", "gauss_seidel_indexed_native",
            "identity_minus_rowscaled_native", "classical_strength_native",
            "dia_offsets_native", "csr_to_dia_fill_native",
-           "csr_to_dia_native"]
+           "csr_to_dia_native", "bsr_gauss_seidel_native",
+           "masked_spgemm_native", "constraint_project_native",
+           "pattern_gram_native", "masked_spgemm_bsr_native",
+           "constraint_project_bsr_native", "pattern_gram_bsr_native"]
 
 _lib = None
 
@@ -92,6 +97,32 @@ def _declare(lib):
                                        _i64p, _f64p]
     lib.classical_strength_i32.argtypes = [_I, _i32p, _i32p, _f64p, _D,
                                            _i32p, _i32p, _f64p]
+    lib.bsr_gauss_seidel.argtypes = [_I, _I, _i64p, _i64p, _f64p, _f64p,
+                                     _f64p, _f64p, _I, _I, _I]
+    lib.masked_spgemm_rr.argtypes = [_I, _I, _i64p, _i64p, _f64p, _i64p,
+                                     _i64p, _f64p, _i64p, _i64p, _f64p]
+    lib.masked_spgemm_rr_i32.argtypes = [_I, _I, _i32p, _i32p, _f64p, _i32p,
+                                         _i32p, _f64p, _i32p, _i32p, _f64p]
+    vp = ctypes.c_void_p
+    lib.constraint_project.argtypes = [_I, _I, _i64p, _i64p, _f64p, _f64p,
+                                       vp, _f64p]
+    lib.constraint_project_i32.argtypes = [_I, _I, _i32p, _i32p, _f64p,
+                                           _f64p, vp, _f64p]
+    lib.pattern_gram.argtypes = [_I, _I, _i64p, _i64p, _f64p, _f64p]
+    lib.pattern_gram_i32.argtypes = [_I, _I, _i32p, _i32p, _f64p, _f64p]
+    lib.masked_spgemm_bsr.argtypes = [_I, _I, _I, _I, _i64p, _i64p, _f64p,
+                                      _i64p, _i64p, _f64p, _i64p, _i64p,
+                                      _f64p]
+    lib.masked_spgemm_bsr_i32.argtypes = [_I, _I, _I, _I, _i32p, _i32p,
+                                          _f64p, _i32p, _i32p, _f64p, _i32p,
+                                          _i32p, _f64p]
+    lib.constraint_project_bsr.argtypes = [_I, _I, _I, _I, _i64p, _i64p,
+                                           _f64p, _f64p, vp, _f64p]
+    lib.constraint_project_bsr_i32.argtypes = [_I, _I, _I, _I, _i32p, _i32p,
+                                               _f64p, _f64p, vp, _f64p]
+    lib.pattern_gram_bsr.argtypes = [_I, _I, _I, _i64p, _i64p, _f64p, _f64p]
+    lib.pattern_gram_bsr_i32.argtypes = [_I, _I, _I, _i32p, _i32p, _f64p,
+                                         _f64p]
     for name in ("dia_offsets", "dia_offsets_i32",
                  "identity_minus_rowscaled", "identity_minus_rowscaled_i32",
                  "classical_strength", "classical_strength_i32"):
@@ -100,7 +131,13 @@ def _declare(lib):
                  "naive_aggregation", "gauss_seidel_indexed",
                  "gauss_seidel_sweeps", "gauss_seidel_sweeps_i32",
                  "first_fit_coloring", "csr_to_dia_f64", "csr_to_dia_f32",
-                 "csr_to_dia_f64_i32", "csr_to_dia_f32_i32"):
+                 "csr_to_dia_f64_i32", "csr_to_dia_f32_i32",
+                 "bsr_gauss_seidel", "masked_spgemm_rr",
+                 "masked_spgemm_rr_i32", "constraint_project",
+                 "constraint_project_i32", "pattern_gram", "pattern_gram_i32",
+                 "masked_spgemm_bsr", "masked_spgemm_bsr_i32",
+                 "constraint_project_bsr", "constraint_project_bsr_i32",
+                 "pattern_gram_bsr", "pattern_gram_bsr_i32"):
         getattr(lib, name).restype = None
 
 
@@ -109,14 +146,20 @@ def _csr_arrays(A):
             np.ascontiguousarray(A.indices, dtype=np.int64))
 
 
+def _ix_pair(*arrays):
+    """``(arrays, suffix)``: scipy's native int32 index arrays pass to the
+    ``*_i32`` entry points without a copy when all are int32; anything
+    else widens to int64."""
+    if all(a.dtype == np.int32 for a in arrays):
+        return [np.ascontiguousarray(a) for a in arrays], "_i32"
+    return [np.ascontiguousarray(a, dtype=np.int64) for a in arrays], ""
+
+
 def _csr_ix(A):
-    """``(indptr, indices, suffix)``: scipy's native int32 index arrays pass
-    to the ``*_i32`` entry points without a copy; anything else widens to
-    int64."""
-    p, j = A.indptr, A.indices
-    if p.dtype == np.int32 and j.dtype == np.int32:
-        return np.ascontiguousarray(p), np.ascontiguousarray(j), "_i32"
-    return (*_csr_arrays(A), "")
+    """``(indptr, indices, suffix)`` of a CSR matrix, as :func:`_ix_pair`
+    gives them."""
+    (p, j), sfx = _ix_pair(A.indptr, A.indices)
+    return p, j, sfx
 
 
 def _real_f64(A):
@@ -279,3 +322,167 @@ def csr_to_dia_native(A_csr, dtype=None, max_offsets=128):
     if diags is None:
         return None
     return diags, tuple(int(o) for o in offs)
+
+
+def bsr_gauss_seidel_native(indptr, indices, data, Dinv, x, b, bs,
+                            start, stop, step):
+    """One in-place block Gauss-Seidel pass over the block rows ``start``,
+    ``start + step``, ... (not reaching ``stop``) of BSR arrays (real
+    float64 only); False when it did not run."""
+    lib = _load()
+    if not lib or data.dtype != np.float64 or np.iscomplexobj(data):
+        return False
+    if x.dtype != np.float64 or not x.flags.c_contiguous:
+        return False
+    lib.bsr_gauss_seidel(
+        indptr.shape[0] - 1, int(bs),
+        np.ascontiguousarray(indptr, dtype=np.int64),
+        np.ascontiguousarray(indices, dtype=np.int64),
+        np.ascontiguousarray(data, dtype=np.float64),
+        np.ascontiguousarray(Dinv, dtype=np.float64), x,
+        np.ascontiguousarray(b, dtype=np.float64),
+        int(start), int(stop), int(step))
+    return True
+
+
+def _csr_operand(M, need_sorted=False):
+    """M as CSR without a copy when it is one; an unsorted one is copied
+    before sorting, so that a caller's arrays never change."""
+    import scipy.sparse as sp
+
+    M = M if sp.issparse(M) and M.format == "csr" else sp.csr_matrix(M)
+    if need_sorted and not M.has_sorted_indices:
+        M = M.copy()
+        M.sort_indices()
+    return M
+
+
+def masked_spgemm_native(A, B, pattern):
+    """``(A @ B)`` on ``pattern``'s sparsity only (CSR in and out; only the
+    structure of ``pattern`` is read); None without the library or for data
+    that is not real float64."""
+    lib = _load()
+    if not lib:
+        return None
+    import scipy.sparse as sp
+
+    A = _csr_operand(A, need_sorted=True)
+    if not _real_f64(A):
+        return None
+    Br = _csr_operand(B)
+    if not _real_f64(Br):
+        return None
+    P = _csr_operand(pattern, need_sorted=True)
+    Cx = np.zeros(P.nnz, dtype=np.float64)
+    a, sfx = _ix_pair(A.indptr, A.indices, Br.indptr, Br.indices, P.indptr,
+                      P.indices)
+    getattr(lib, "masked_spgemm_rr" + sfx)(
+        A.shape[0], Br.shape[1], a[0], a[1],
+        np.ascontiguousarray(A.data, dtype=np.float64), a[2], a[3],
+        np.ascontiguousarray(Br.data, dtype=np.float64), a[4], a[5], Cx)
+    # fresh index arrays: callers change the result in place
+    return sp.csr_matrix((Cx, P.indices.copy(), P.indptr.copy()),
+                         shape=P.shape)
+
+
+def constraint_project_native(vals, indptr, indices, B, BtBinv, fmask=None):
+    """Project the values ``vals`` of a CSR pattern in place so that
+    ``(U @ B)[fmask] == 0`` (rows off ``fmask`` are zeroed); False when the
+    library is missing or the data is not float64 with at most 16
+    candidates."""
+    lib = _load()
+    if not lib:
+        return False
+    B = np.asarray(B)
+    k = B.shape[1]
+    if (k > 16 or vals.dtype != np.float64 or B.dtype != np.float64
+            or np.asarray(BtBinv).dtype != np.float64):
+        return False
+    fm = None if fmask is None else np.ascontiguousarray(fmask,
+                                                         dtype=np.uint8)
+    (ip, ix), sfx = _ix_pair(indptr, indices)
+    getattr(lib, "constraint_project" + sfx)(
+        indptr.shape[0] - 1, k, ip, ix, np.ascontiguousarray(B),
+        np.ascontiguousarray(BtBinv), None if fm is None else fm.ctypes.data,
+        vals)
+    return True
+
+
+def pattern_gram_native(indptr, indices, B):
+    """``(n, k, k)`` per-row Gram matrices of B over a CSR pattern, or None
+    without the library or for B that is not float64 with at most 16
+    columns."""
+    lib = _load()
+    if not lib:
+        return None
+    B = np.asarray(B)
+    k = B.shape[1]
+    if k > 16 or B.dtype != np.float64:
+        return None
+    n = indptr.shape[0] - 1
+    out = np.empty((n, k, k), dtype=np.float64)
+    (ip, ix), sfx = _ix_pair(indptr, indices)
+    getattr(lib, "pattern_gram" + sfx)(n, k, ip, ix,
+                                       np.ascontiguousarray(B), out)
+    return out
+
+
+def masked_spgemm_bsr_native(nbc, R, Cb, Ap, Aj, Ax, Bp, Bj, Bx, Cp, Cj):
+    """Blocked masked product: ``(A @ B)`` on the block pattern
+    ``(Cp, Cj)``, A of (R, R) blocks, B and C of (R, Cb) blocks; the
+    ``(nnzb, R, Cb)`` values, or None without the library or for data that
+    is not float64."""
+    lib = _load()
+    if not lib or Ax.dtype != np.float64 or Bx.dtype != np.float64:
+        return None
+    Cx = np.zeros((int(Cp[-1]), R, Cb), dtype=np.float64)
+    a, sfx = _ix_pair(Ap, Aj, Bp, Bj, Cp, Cj)
+    getattr(lib, "masked_spgemm_bsr" + sfx)(
+        Ap.shape[0] - 1, int(nbc), int(R), int(Cb), a[0], a[1],
+        np.ascontiguousarray(Ax), a[2], a[3], np.ascontiguousarray(Bx),
+        a[4], a[5], Cx)
+    return Cx
+
+
+def constraint_project_bsr_native(vals, indptr, indices, R, Cb, B, Gblock,
+                                  fmask=None):
+    """The blocked projection in place: ``vals`` (nnzb, R, Cb) on the block
+    pattern, B (scalar columns, k), ``Gblock`` (block rows, k, k) the Gram
+    pseudo-inverse of each block row, ``fmask`` a keep mask per scalar row.
+    False when the library is missing or the data is not float64 with at
+    most 16 candidates."""
+    lib = _load()
+    if not lib:
+        return False
+    B = np.asarray(B)
+    k = B.shape[1]
+    if (k > 16 or vals.dtype != np.float64 or B.dtype != np.float64
+            or np.asarray(Gblock).dtype != np.float64):
+        return False
+    fm = None if fmask is None else np.ascontiguousarray(fmask,
+                                                         dtype=np.uint8)
+    (ip, ix), sfx = _ix_pair(indptr, indices)
+    getattr(lib, "constraint_project_bsr" + sfx)(
+        indptr.shape[0] - 1, int(R), int(Cb), k, ip, ix,
+        np.ascontiguousarray(B), np.ascontiguousarray(Gblock),
+        None if fm is None else fm.ctypes.data, vals)
+    return True
+
+
+def pattern_gram_bsr_native(indptr, indices, Cb, B):
+    """``(block rows, k, k)`` Gram matrices of B over a block pattern whose
+    blocks span ``Cb`` scalar columns each, or None without the library or
+    for B that is not float64 with at most 16 columns."""
+    lib = _load()
+    if not lib:
+        return None
+    B = np.asarray(B)
+    k = B.shape[1]
+    if k > 16 or B.dtype != np.float64:
+        return None
+    nbr = indptr.shape[0] - 1
+    out = np.empty((nbr, k, k), dtype=np.float64)
+    (ip, ix), sfx = _ix_pair(indptr, indices)
+    getattr(lib, "pattern_gram_bsr" + sfx)(nbr, int(Cb), k, ip, ix,
+                                           np.ascontiguousarray(B), out)
+    return out

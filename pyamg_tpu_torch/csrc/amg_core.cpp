@@ -13,6 +13,13 @@
 //   * dia_offsets, csr_to_dia  -- CSR to diagonal storage in two passes
 //   * identity_minus_rowscaled -- S = I - c D^-1 A on A's own pattern
 //   * classical_strength       -- classical strength of connection, one pass
+//   * bsr_gauss_seidel         -- block Gauss-Seidel sweep over BSR storage
+//   * masked_spgemm_rr         -- (A B) on a given CSR pattern only
+//   * constraint_project,      -- the energy-minimization CG's projection
+//     pattern_gram                U B = 0 and its per-row Gram matrices
+//   * masked_spgemm_bsr,       -- the same three on a block pattern, for
+//     constraint_project_bsr,     the blocked (BSR) energy CG
+//     pattern_gram_bsr
 //
 // Build: g++ -O3 -shared -fPIC -std=c++17 [-fopenmp] amg_core.cpp
 
@@ -366,6 +373,383 @@ I classical_strength_i32(I n, const int32_t* Ap, const int32_t* Aj,
                          int32_t* Sp, int32_t* Sj, double* Sx) {
     return classical_strength_impl<int32_t>(n, Ap, Aj, Ax, theta, Sp, Sj,
                                             Sx);
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// block Gauss-Seidel sweep over BSR storage: for each block row i in
+// [start, stop) by step,  x_i = Dinv_i * (b_i - sum_{j != i} A_ij x_j).
+// data: (nnzb, bs, bs) row-major blocks; Dinv: (nb, bs, bs).
+// ---------------------------------------------------------------------------
+extern "C" {
+
+void bsr_gauss_seidel(I nb, I bs,
+                      const I* indptr, const I* indices, const double* data,
+                      const double* Dinv,
+                      double* x, const double* b,
+                      I start, I stop, I step) {
+    (void)nb;
+    const I bb = bs * bs;
+    std::vector<double> rhs(bs);
+    for (I i = start; step > 0 ? i < stop : i > stop; i += step) {
+        for (I k = 0; k < bs; k++) rhs[k] = b[i * bs + k];
+        for (I jj = indptr[i]; jj < indptr[i + 1]; jj++) {
+            const I j = indices[jj];
+            if (j == i) continue;
+            const double* blk = data + jj * bb;
+            const double* xj = x + j * bs;
+            for (I r = 0; r < bs; r++) {
+                double acc = 0.0;
+                for (I c = 0; c < bs; c++) acc += blk[r * bs + c] * xj[c];
+                rhs[r] -= acc;
+            }
+        }
+        const double* dinv = Dinv + i * bb;
+        double* xi = x + i * bs;
+        for (I r = 0; r < bs; r++) {
+            double acc = 0.0;
+            for (I c = 0; c < bs; c++) acc += dinv[r * bs + c] * rhs[c];
+            xi[r] = acc;
+        }
+    }
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// masked (pattern-restricted) sparse product, row-scatter form:
+// C_ij = sum_k A_ik B_kj for (i, j) in C's pattern only.  Row i tags its
+// output slots in a dense slot map; A row i's entries stream B's rows into
+// the tagged slots.  All three operands CSR; Cx must be caller-zeroed.
+// ---------------------------------------------------------------------------
+template <typename Ix>
+static void masked_spgemm_rr_impl(I n_row, I n_col,
+                                  const Ix* Ap, const Ix* Aj,
+                                  const double* Ax,
+                                  const Ix* Bp, const Ix* Bj,
+                                  const double* Bx,
+                                  const Ix* Cp, const Ix* Cj, double* Cx) {
+    std::vector<int64_t> slot(n_col, -1);
+    for (I i = 0; i < n_row; i++) {
+        for (Ix cc = Cp[i]; cc < Cp[i + 1]; cc++) slot[Cj[cc]] = cc;
+        for (Ix ka = Ap[i]; ka < Ap[i + 1]; ka++) {
+            const Ix k = Aj[ka];
+            const double a = Ax[ka];
+            for (Ix kb = Bp[k]; kb < Bp[k + 1]; kb++) {
+                const int64_t s = slot[Bj[kb]];
+                if (s >= 0) Cx[s] += a * Bx[kb];
+            }
+        }
+        for (Ix cc = Cp[i]; cc < Cp[i + 1]; cc++) slot[Cj[cc]] = -1;
+    }
+}
+
+// ---------------------------------------------------------------------------
+// in-place constraint projection of pattern values so that U B = 0 row by
+// row (skipping fmask == 0 rows, which are zeroed):
+//   ub    = sum_{e in row} vals[e] * B[col[e], :]
+//   coef  = BtBinv[i] @ ub
+//   vals[e] -= coef . B[col[e], :]
+// ---------------------------------------------------------------------------
+template <typename Ix>
+static void constraint_project_impl(Ix n, I k,
+                                    const Ix* Pp, const Ix* Pj,
+                                    const double* B,        // (ncols, k)
+                                    const double* BtBinv,   // (n, k, k)
+                                    const uint8_t* fmask,   // nullable (n,)
+                                    double* vals) {
+    constexpr I KMAX = 16;
+    #pragma omp parallel for schedule(static)
+    for (Ix i = 0; i < n; ++i) {
+        double ub[KMAX], coef[KMAX];
+        const Ix s = Pp[i], e = Pp[i + 1];
+        if (fmask && !fmask[i]) {
+            for (Ix p = s; p < e; ++p) vals[p] = 0.0;
+            continue;
+        }
+        for (I t = 0; t < k; ++t) ub[t] = 0.0;
+        for (Ix p = s; p < e; ++p) {
+            const double v = vals[p];
+            const double* brow = B + (size_t)Pj[p] * k;
+            for (I t = 0; t < k; ++t) ub[t] += v * brow[t];
+        }
+        const double* M = BtBinv + (size_t)i * k * k;
+        for (I t = 0; t < k; ++t) {
+            double acc = 0.0;
+            for (I l = 0; l < k; ++l) acc += M[t * k + l] * ub[l];
+            coef[t] = acc;
+        }
+        for (Ix p = s; p < e; ++p) {
+            const double* brow = B + (size_t)Pj[p] * k;
+            double acc = 0.0;
+            for (I t = 0; t < k; ++t) acc += coef[t] * brow[t];
+            vals[p] -= acc;
+        }
+    }
+}
+
+// per-row Gram matrices over a CSR pattern: out[i] = sum_{e in row i}
+// B_e B_e^T, without the padded (n, L, k) gather numpy pays.
+template <typename Ix>
+static void pattern_gram_impl(Ix n, I k,
+                              const Ix* Pp, const Ix* Pj,
+                              const double* B,      // (ncols, k)
+                              double* out) {        // (n, k, k)
+    #pragma omp parallel for schedule(static)
+    for (Ix i = 0; i < n; ++i) {
+        double* G = out + (size_t)i * k * k;
+        for (I t = 0; t < k * k; ++t) G[t] = 0.0;
+        for (Ix p = Pp[i]; p < Pp[i + 1]; ++p) {
+            const double* brow = B + (size_t)Pj[p] * k;
+            for (I t = 0; t < k; ++t) {
+                const double bt = brow[t];
+                for (I l = t; l < k; ++l)
+                    G[t * k + l] += bt * brow[l];
+            }
+        }
+        for (I t = 0; t < k; ++t)       // symmetrize the upper triangle
+            for (I l = 0; l < t; ++l)
+                G[t * k + l] = G[l * k + t];
+    }
+}
+
+// ---------------------------------------------------------------------------
+// blocked energy-minimization kernels: the energy CG on a node-blocked
+// problem keeps every iterate as dense (R x Cb) blocks on the BLOCK pattern,
+// with one Gram per block row (all R scalar rows of a block row share the
+// same column set).
+// ---------------------------------------------------------------------------
+
+// C = (A @ B) restricted to C's BLOCK pattern.  A: (nbr x nbr) blocks RxR
+// row-major; B, C: (nbr x nbc) blocks RxCb.  Cx must be caller-zeroed.
+// RT/CT > 0 bake the block shape in at compile time (the dispatcher
+// instantiates the elasticity shapes); -1 reads the runtime arguments.
+template <int RT, int CT, typename Ix>
+static void masked_spgemm_bsr_body(I nbr, I nbc, I R_, I Cb_,
+                                   const Ix* Ap, const Ix* Aj,
+                                   const double* Ax,
+                                   const Ix* Bp, const Ix* Bj,
+                                   const double* Bx,
+                                   const Ix* Cp, const Ix* Cj, double* Cx) {
+    const I R = RT > 0 ? (I)RT : R_;
+    const I Cb = CT > 0 ? (I)CT : Cb_;
+    std::vector<int64_t> slot(nbc, -1);
+    for (I i = 0; i < nbr; i++) {
+        for (Ix cc = Cp[i]; cc < Cp[i + 1]; cc++) slot[Cj[cc]] = cc;
+        for (Ix ka = Ap[i]; ka < Ap[i + 1]; ka++) {
+            const double* a = Ax + (size_t)ka * R * R;
+            const Ix k = Aj[ka];
+            for (Ix kb = Bp[k]; kb < Bp[k + 1]; kb++) {
+                const int64_t s = slot[Bj[kb]];
+                if (s < 0) continue;
+                const double* b = Bx + (size_t)kb * R * Cb;
+                double* c = Cx + (size_t)s * R * Cb;
+                for (I r = 0; r < R; r++)
+                    for (I t = 0; t < R; t++) {
+                        const double av = a[r * R + t];
+                        for (I q = 0; q < Cb; q++)
+                            c[r * Cb + q] += av * b[t * Cb + q];
+                    }
+            }
+        }
+        for (Ix cc = Cp[i]; cc < Cp[i + 1]; cc++) slot[Cj[cc]] = -1;
+    }
+}
+
+template <typename Ix>
+static void masked_spgemm_bsr_impl(I nbr, I nbc, I R, I Cb,
+                                   const Ix* Ap, const Ix* Aj,
+                                   const double* Ax,
+                                   const Ix* Bp, const Ix* Bj,
+                                   const double* Bx,
+                                   const Ix* Cp, const Ix* Cj, double* Cx) {
+    // R = spatial dofs, Cb = rigid-body-mode count (2D / 3D elasticity)
+    if (R == 2 && Cb == 3)
+        masked_spgemm_bsr_body<2, 3, Ix>(nbr, nbc, R, Cb, Ap, Aj, Ax,
+                                         Bp, Bj, Bx, Cp, Cj, Cx);
+    else if (R == 2 && Cb == 2)
+        masked_spgemm_bsr_body<2, 2, Ix>(nbr, nbc, R, Cb, Ap, Aj, Ax,
+                                         Bp, Bj, Bx, Cp, Cj, Cx);
+    else if (R == 3 && Cb == 6)
+        masked_spgemm_bsr_body<3, 6, Ix>(nbr, nbc, R, Cb, Ap, Aj, Ax,
+                                         Bp, Bj, Bx, Cp, Cj, Cx);
+    else if (R == 3 && Cb == 3)
+        masked_spgemm_bsr_body<3, 3, Ix>(nbr, nbc, R, Cb, Ap, Aj, Ax,
+                                         Bp, Bj, Bx, Cp, Cj, Cx);
+    else
+        masked_spgemm_bsr_body<-1, -1, Ix>(nbr, nbc, R, Cb, Ap, Aj, Ax,
+                                           Bp, Bj, Bx, Cp, Cj, Cx);
+}
+
+// in-place projection of BLOCKED pattern values so that U @ B == 0 row by
+// row.  vals: (nnzb, R, Cb); B: (nbc*Cb, k) scalar coarse candidates; G:
+// (nbr, k, k) per-block-row Gram pinv; fmask: nullable per-SCALAR-row keep
+// mask.
+template <typename Ix>
+static void constraint_project_bsr_impl(I nbr, I R, I Cb, I k,
+                                        const Ix* Pp, const Ix* Pj,
+                                        const double* B,
+                                        const double* G,
+                                        const uint8_t* fmask,
+                                        double* vals) {
+    constexpr I KMAX = 16;
+    const I rc = R * Cb;
+    #pragma omp parallel for schedule(static)
+    for (I i = 0; i < nbr; i++) {
+        double ub[KMAX], coef[KMAX];
+        const Ix s = Pp[i], e = Pp[i + 1];
+        const double* M = G + (size_t)i * k * k;
+        for (I r = 0; r < R; r++) {
+            if (fmask && !fmask[i * R + r]) {
+                for (Ix p = s; p < e; p++) {
+                    double* v = vals + (size_t)p * rc + (size_t)r * Cb;
+                    for (I q = 0; q < Cb; q++) v[q] = 0.0;
+                }
+                continue;
+            }
+            for (I t = 0; t < k; t++) ub[t] = 0.0;
+            for (Ix p = s; p < e; p++) {
+                const double* v = vals + (size_t)p * rc + (size_t)r * Cb;
+                const double* brow = B + (size_t)Pj[p] * Cb * k;
+                for (I q = 0; q < Cb; q++)
+                    for (I t = 0; t < k; t++)
+                        ub[t] += v[q] * brow[q * k + t];
+            }
+            for (I t = 0; t < k; t++) {
+                double acc = 0.0;
+                for (I l = 0; l < k; l++) acc += M[t * k + l] * ub[l];
+                coef[t] = acc;
+            }
+            for (Ix p = s; p < e; p++) {
+                double* v = vals + (size_t)p * rc + (size_t)r * Cb;
+                const double* brow = B + (size_t)Pj[p] * Cb * k;
+                for (I q = 0; q < Cb; q++) {
+                    double acc = 0.0;
+                    for (I t = 0; t < k; t++)
+                        acc += coef[t] * brow[q * k + t];
+                    v[q] -= acc;
+                }
+            }
+        }
+    }
+}
+
+// per-BLOCK-row Gram over a block pattern: out[i] = sum over the scalar
+// columns {Pj[p]*Cb + q} of B_col B_col^T.
+template <typename Ix>
+static void pattern_gram_bsr_impl(I nbr, I Cb, I k,
+                                  const Ix* Pp, const Ix* Pj,
+                                  const double* B,     // (nbc*Cb, k)
+                                  double* out) {       // (nbr, k, k)
+    #pragma omp parallel for schedule(static)
+    for (I i = 0; i < nbr; i++) {
+        double* G = out + (size_t)i * k * k;
+        for (I t = 0; t < k * k; t++) G[t] = 0.0;
+        for (Ix p = Pp[i]; p < Pp[i + 1]; p++) {
+            const double* brows = B + (size_t)Pj[p] * Cb * k;
+            for (I q = 0; q < Cb; q++) {
+                const double* brow = brows + (size_t)q * k;
+                for (I t = 0; t < k; t++) {
+                    const double bt = brow[t];
+                    for (I l = t; l < k; l++)
+                        G[t * k + l] += bt * brow[l];
+                }
+            }
+        }
+        for (I t = 0; t < k; t++)
+            for (I l = 0; l < t; l++)
+                G[t * k + l] = G[l * k + t];
+    }
+}
+
+extern "C" {
+
+void masked_spgemm_rr(I n_row, I n_col,
+                      const I* Ap, const I* Aj, const double* Ax,
+                      const I* Bp, const I* Bj, const double* Bx,
+                      const I* Cp, const I* Cj, double* Cx) {
+    masked_spgemm_rr_impl<I>(n_row, n_col, Ap, Aj, Ax, Bp, Bj, Bx,
+                             Cp, Cj, Cx);
+}
+
+void masked_spgemm_rr_i32(I n_row, I n_col,
+                          const int32_t* Ap, const int32_t* Aj,
+                          const double* Ax,
+                          const int32_t* Bp, const int32_t* Bj,
+                          const double* Bx,
+                          const int32_t* Cp, const int32_t* Cj, double* Cx) {
+    masked_spgemm_rr_impl<int32_t>(n_row, n_col, Ap, Aj, Ax, Bp, Bj, Bx,
+                                   Cp, Cj, Cx);
+}
+
+void constraint_project(I n, I k, const I* Pp, const I* Pj,
+                        const double* B, const double* BtBinv,
+                        const uint8_t* fmask, double* vals) {
+    constraint_project_impl<I>(n, k, Pp, Pj, B, BtBinv, fmask, vals);
+}
+
+void constraint_project_i32(I n, I k, const int32_t* Pp, const int32_t* Pj,
+                            const double* B, const double* BtBinv,
+                            const uint8_t* fmask, double* vals) {
+    constraint_project_impl<int32_t>((int32_t)n, k, Pp, Pj, B, BtBinv,
+                                     fmask, vals);
+}
+
+void pattern_gram(I n, I k, const I* Pp, const I* Pj,
+                  const double* B, double* out) {
+    pattern_gram_impl<I>(n, k, Pp, Pj, B, out);
+}
+
+void pattern_gram_i32(I n, I k, const int32_t* Pp, const int32_t* Pj,
+                      const double* B, double* out) {
+    pattern_gram_impl<int32_t>((int32_t)n, k, Pp, Pj, B, out);
+}
+
+void masked_spgemm_bsr(I nbr, I nbc, I R, I Cb,
+                       const I* Ap, const I* Aj, const double* Ax,
+                       const I* Bp, const I* Bj, const double* Bx,
+                       const I* Cp, const I* Cj, double* Cx) {
+    masked_spgemm_bsr_impl<I>(nbr, nbc, R, Cb, Ap, Aj, Ax,
+                              Bp, Bj, Bx, Cp, Cj, Cx);
+}
+
+void masked_spgemm_bsr_i32(I nbr, I nbc, I R, I Cb,
+                           const int32_t* Ap, const int32_t* Aj,
+                           const double* Ax,
+                           const int32_t* Bp, const int32_t* Bj,
+                           const double* Bx,
+                           const int32_t* Cp, const int32_t* Cj,
+                           double* Cx) {
+    masked_spgemm_bsr_impl<int32_t>(nbr, nbc, R, Cb, Ap, Aj, Ax,
+                                    Bp, Bj, Bx, Cp, Cj, Cx);
+}
+
+void constraint_project_bsr(I nbr, I R, I Cb, I k,
+                            const I* Pp, const I* Pj, const double* B,
+                            const double* G, const uint8_t* fmask,
+                            double* vals) {
+    constraint_project_bsr_impl<I>(nbr, R, Cb, k, Pp, Pj, B, G, fmask,
+                                   vals);
+}
+
+void constraint_project_bsr_i32(I nbr, I R, I Cb, I k,
+                                const int32_t* Pp, const int32_t* Pj,
+                                const double* B, const double* G,
+                                const uint8_t* fmask, double* vals) {
+    constraint_project_bsr_impl<int32_t>(nbr, R, Cb, k, Pp, Pj, B, G,
+                                         fmask, vals);
+}
+
+void pattern_gram_bsr(I nbr, I Cb, I k, const I* Pp, const I* Pj,
+                      const double* B, double* out) {
+    pattern_gram_bsr_impl<I>(nbr, Cb, k, Pp, Pj, B, out);
+}
+
+void pattern_gram_bsr_i32(I nbr, I Cb, I k,
+                          const int32_t* Pp, const int32_t* Pj,
+                          const double* B, double* out) {
+    pattern_gram_bsr_impl<int32_t>(nbr, Cb, k, Pp, Pj, B, out);
 }
 
 }  // extern "C"

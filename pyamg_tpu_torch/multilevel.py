@@ -46,7 +46,11 @@ _CYCLES = ("V", "W", "F", "AMLI")
 class Level:
     """One level of the hierarchy: the device operators ``A``, ``P``, ``R``
     and smoothers, the host CSR twins the setup built them from, and setup
-    byproducts kept for inspection."""
+    byproducts kept for inspection.  A blocked level also records its dofs
+    per node (``blocksize``: the BSR blocksize of the input at level 0, the
+    candidate count K below) and ``A_bsr``, the BSR twin of ``A_csr`` (None
+    on a scalar level); host-side fields, which ``astype`` and the coarse
+    solver leave as they are."""
 
     def __init__(self, **kw):
         self.presmoother = None

@@ -17,7 +17,8 @@ import numpy as np
 import scipy.sparse as sp
 from scipy.sparse.linalg import spsolve_triangular
 
-from ..amg_core import (gauss_seidel_indexed_native,
+from ..amg_core import (bsr_gauss_seidel_native,
+                        gauss_seidel_indexed_native,
                         gauss_seidel_sweeps_native)
 from ..util.utils import get_block_diag, to_csr
 
@@ -168,8 +169,8 @@ def block_jacobi(A, x, b, Dinv=None, blocksize=1, iterations=1, omega=1.0):
 
 def block_gauss_seidel(A, x, b, Dinv=None, blocksize=1, iterations=1,
                        sweep="forward"):
-    """Block Gauss-Seidel, sequential over block rows; 1x1 blocks are
-    scalar Gauss-Seidel."""
+    """Block Gauss-Seidel, sequential over block rows (the compiled sweep
+    for real float64); 1x1 blocks are scalar Gauss-Seidel."""
     bs = int(blocksize)
     if bs == 1 and Dinv is None:
         return gauss_seidel(A, x, b, iterations=iterations, sweep=sweep)
@@ -181,6 +182,22 @@ def block_gauss_seidel(A, x, b, Dinv=None, blocksize=1, iterations=1,
     B = sp.bsr_matrix(A, blocksize=(bs, bs))
     nb = B.shape[0] // bs
     indptr, indices, data = B.indptr, B.indices, B.data
+    if (data.dtype == np.float64 and Dinv.dtype == np.float64
+            and x_v.dtype == np.float64):
+        xc = np.ascontiguousarray(x_v)
+        done = True
+        for _ in range(iterations):
+            if sweep in ("forward", "symmetric"):
+                done &= bsr_gauss_seidel_native(indptr, indices, data, Dinv,
+                                                xc, b_v, bs, 0, nb, 1)
+            if sweep in ("backward", "symmetric"):
+                done &= bsr_gauss_seidel_native(indptr, indices, data, Dinv,
+                                                xc, b_v, bs, nb - 1, -1, -1)
+            if not done:
+                break
+        if done:
+            return _store(x, xc)
+        x_v = xc           # no library: the Python sweep from here
     xb = x_v.reshape(nb, bs)
     bb = b_v.reshape(nb, bs)
 

@@ -308,7 +308,10 @@ def _make_smoother_data(lvl, fn_name, kwargs, dtype, device):
                                       device=device)
         Dinv = kwargs.get("Dinv")
         if Dinv is None:
-            Dinv = get_block_diag(A_csr, bs, inv_flag=True)
+            A_blk = getattr(lvl, "A_bsr", None)
+            if A_blk is None or A_blk.blocksize != (bs, bs):
+                A_blk = A_csr
+            Dinv = get_block_diag(A_blk, bs, inv_flag=True)
         Dinv = np.asarray(Dinv)
         if fn_name == "block_jacobi":
             omega = float(kwargs.get("omega", 1.0))

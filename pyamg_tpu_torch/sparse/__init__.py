@@ -1,10 +1,14 @@
 """Sparse operators: DIA storage on the hand-written SpMV kernel
 (``dia_kernel``; ``dia_variants`` holds two more DIA SpMV kernels in other
 layouts, which the DIA benchmark runs), padded ELL with the masked-SpGEMM
-kernels of the device setup, gather-free grid transfers, the fine-embedded
+kernels of the device setup, their block forms (``SparseBDIA``, banded
+blocks in shifted batched products; ``BlockELL``), gather-free grid
+transfers, the fine-embedded
 DIA transfers of unstructured levels (``embed``), and the device-format
 chooser."""
 
+from .bdia import SparseBDIA
+from .bell import BlockELL
 from .dia import SparseDIA
 from .ell import SparseELL
 from .linop import (ComposedOp, CptProlongOp, CptRestrictOp, DenseOp,
@@ -12,6 +16,6 @@ from .linop import (ComposedOp, CptProlongOp, CptRestrictOp, DenseOp,
 from .device_op import device_operator
 from .embed import embedded_dia_transfers, root_embedded_transfers
 
-__all__ = ["SparseDIA", "SparseELL", "ComposedOp", "GridRepeatOp", "GridPoolOp",
+__all__ = ["SparseDIA", "SparseELL", "SparseBDIA", "BlockELL", "ComposedOp", "GridRepeatOp", "GridPoolOp",
            "DenseOp", "CptProlongOp", "CptRestrictOp", "device_operator",
            "embedded_dia_transfers", "root_embedded_transfers"]

@@ -13,7 +13,8 @@ import scipy.sparse as sp
 import torch
 
 __all__ = ["unpack_arg", "to_csr", "get_diagonal", "get_block_diag",
-           "amalgamate", "scale_rows", "row_reduce",
+           "amalgamate", "unamal", "blocksize", "compute_BtBinv",
+           "scale_rows", "row_reduce",
            "scale_rows_by_largest_entry", "filter_matrix_rows", "coord2rbm",
            "eliminate_diag_dom_nodes", "relaxation_as_linear_operator",
            "levelize_strength_or_aggregation",
@@ -54,7 +55,12 @@ def unpack_arg(v):
 
 
 def to_csr(A):
-    """Coerce a scipy matrix (any format) or a dense array to CSR."""
+    """Coerce a scipy matrix (any format), a dense array, or a block device
+    operator (``SparseBDIA``, ``BlockELL``) to CSR."""
+    from ..sparse import BlockELL, SparseBDIA
+
+    if isinstance(A, (BlockELL, SparseBDIA)):
+        return A.to_scipy().tocsr()
     if sp.issparse(A):
         return A.tocsr()
     return sp.csr_matrix(np.asarray(A))
@@ -106,6 +112,52 @@ def amalgamate(A, blocksize):
     data = np.ones(B.indices.shape[0], dtype=A.dtype)
     return sp.csr_matrix((data, B.indices.copy(), B.indptr.copy()),
                          shape=(nb, nb))
+
+
+def unamal(A, rows, cols):
+    """Expand each stored entry of A into a (rows, cols) block of ones (the
+    structure only)."""
+    A = to_csr(A)
+    blocks = np.ones((A.nnz, rows, cols))
+    return sp.bsr_matrix((blocks, A.indices, A.indptr),
+                         shape=(A.shape[0] * rows,
+                                A.shape[1] * cols)).tocsr()
+
+
+def blocksize(A):
+    """Block size of a BSR matrix (1 for anything else)."""
+    return A.blocksize[0] if sp.issparse(A) and A.format == "bsr" else 1
+
+
+def compute_BtBinv(B, sparsity):
+    """Per-row Gram pseudo-inverses: for each row i of the sparsity
+    pattern, ``pinv(B[cols(i)]^H B[cols(i)])``, shape (n, k, k).  The Grams
+    come from the compiled library for real float64 B, else from one padded
+    batched einsum."""
+    from ..amg_core import pattern_gram_native
+    from .linalg import pinv_array
+
+    S = to_csr(sparsity)
+    B = np.asarray(B)
+    k = B.shape[1]
+    n = S.shape[0]
+    nnz_row = np.diff(S.indptr)
+    L = int(nnz_row.max()) if n else 0
+    if L == 0:
+        return np.zeros((n, k, k), dtype=B.dtype)
+    if B.dtype == np.float64:
+        gram = pattern_gram_native(S.indptr, S.indices, B)
+        if gram is not None:
+            return pinv_array(gram)
+    rows = np.repeat(np.arange(n), nnz_row)
+    offs = np.arange(S.nnz) - np.repeat(S.indptr[:-1], nnz_row)
+    cols = np.zeros((n, L), dtype=np.int64)
+    valid = np.zeros((n, L), dtype=bool)
+    cols[rows, offs] = S.indices
+    valid[rows, offs] = True
+    Bp = B[cols] * valid[:, :, None]            # (n, L, k)
+    gram = np.einsum("nlj,nlk->njk", Bp.conj(), Bp)
+    return pinv_array(gram)
 
 
 def scale_rows(A, v, copy=True):

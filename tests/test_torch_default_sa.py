@@ -298,6 +298,12 @@ def test_keep_holds_the_setup_byproducts():
     assert not hasattr(host.levels[0], "A") and host.levels[0].P_csr.nnz
 
 
+# options that raised until the blocked slice ported them: they now build
+# the JAX package's hierarchy (test_torch_blocked.py and
+# test_torch_energy.py compare them level by level)
+PORTED_SINCE = ("two-candidates", "filtered-jacobi", "bsr")
+
+
 @pytest.mark.parametrize("kw", [
     dict(symmetry="nonsymmetric"),
     dict(B=np.ones((400, 2))),
@@ -305,7 +311,7 @@ def test_keep_holds_the_setup_byproducts():
     dict(strength=("energy_based", {})),
     dict(aggregate="lloyd"),
     dict(aggregate="pairwise"),
-    dict(smooth="energy"),
+    dict(smooth=("energy", {"krylov": "cgnr"})),
     dict(smooth=("jacobi", {"filter": True})),
     dict(presmoother="zebra"),
     dict(postsmoother=("jacobi_ne", {})),
@@ -314,13 +320,21 @@ def test_keep_holds_the_setup_byproducts():
 ], ids=["nonsymmetric", "two-candidates", "evolution", "energy_based",
         "lloyd", "pairwise", "energy", "filtered-jacobi", "zebra",
         "jacobi_ne", "bsr", "grid3d"])
-def test_options_outside_the_port_raise(kw):
+def test_options_outside_the_port_raise(kw, request):
     kw = dict(kw)
     A = sp.csr_matrix(poisson((20, 20), format="csr").tocoo())
     if kw.pop("bsr", False):
         A = A.tobsr(blocksize=(2, 2))
     if kw.pop("grid3d", False):
         A = poisson((6, 6, 6), format="csr")
+    if request.node.callspec.id in PORTED_SINCE:
+        ours = pyamg_tpu_torch.smoothed_aggregation_solver(
+            A, max_coarse=20, device="cpu", **kw)
+        ref = _jax_default(A.copy(), max_coarse=20, **kw)
+        assert [lvl.A_csr.shape for lvl in ours.levels] == \
+            [lvl.A_csr.shape for lvl in ref.levels]
+        assert len(ours.levels) > 1
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pyamg_tpu_torch.smoothed_aggregation_solver(A, max_coarse=20,
                                                     device="cpu", **kw)
@@ -361,8 +375,12 @@ def test_classical_strength_matches_jax(graph, theta):
     assert ours.nnz == ref.nnz and abs(ours - ref).max() <= 1e-15
     with pytest.raises(ValueError, match="theta"):
         classical_strength_of_connection(A, theta=1.5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        classical_strength_of_connection(A.tobsr(blocksize=(2, 2)))
+    # a block (BSR) operator: filtered entry by entry, then amalgamated
+    Ab = A[:A.shape[0] // 2 * 2, :A.shape[0] // 2 * 2].tobsr(blocksize=(2, 2))
+    ours_b = classical_strength_of_connection(Ab, theta=theta)
+    ref_b = jax_classical(Ab.copy(), theta=theta)
+    assert ours_b.shape == (Ab.shape[0] // 2,) * 2
+    assert ours_b.nnz == ref_b.nnz and abs(ours_b - ref_b).max() == 0
 
 
 @pytest.mark.parametrize("seed", [0, 4])

@@ -134,8 +134,12 @@ def test_fit_candidates_matches_jax_with_unaggregated_rows():
     (T, Bc), (JT, JBc) = fit_candidates(AggOp, B), jax_fit(AggOp, B)
     _equal_csr(T, JT)
     np.testing.assert_array_equal(Bc, JBc)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fit_candidates(AggOp, np.ones((C.shape[0], 2)))
+    # two candidates (ported with the blocked slice): the batched QR
+    B2 = np.column_stack([B[:, 0], np.random.default_rng(2).random(
+        C.shape[0])])
+    (T2, Bc2), (JT2, JBc2) = fit_candidates(AggOp, B2), jax_fit(AggOp, B2)
+    _equal_csr(T2, JT2)
+    np.testing.assert_array_equal(Bc2, JBc2)
 
 
 @pytest.mark.parametrize("reverse", [False, True])

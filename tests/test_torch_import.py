@@ -42,14 +42,16 @@ def test_public_surface():
         ["gallery", "krylov", "parallel", "smoothed_aggregation_solver",
          "MultilevelSolver", "MultilevelSolverSet", "multilevel_solver",
          "multilevel_solver_set", "coarse_grid_solver", "SparseDIA",
-         "SparseELL", "__version__"])
+         "SparseELL", "SparseBDIA", "BlockELL", "__version__"])
     from pyamg_tpu_torch import (aggregation, amg_core, gallery, krylov,
                                  relaxation, sparse, strength)
 
     for module, names in (
             (aggregation, ["parallel_aggregation", "standard_aggregation",
                            "jacobi_prolongation_smoother",
-                           "richardson_prolongation_smoother"]),
+                           "richardson_prolongation_smoother",
+                           "energy_prolongation_smoother",
+                           "fit_candidates"]),
             (relaxation, ["relaxation", "rho_block_D_inv_A",
                           "change_smoothers"]),
             (relaxation.relaxation, ["gauss_seidel", "sor", "jacobi",
@@ -57,7 +59,8 @@ def test_public_surface():
                                      "block_gauss_seidel",
                                      "gauss_seidel_indexed", "make_system"]),
             (sparse, ["CptProlongOp", "CptRestrictOp",
-                      "embedded_dia_transfers", "root_embedded_transfers"]),
+                      "embedded_dia_transfers", "root_embedded_transfers",
+                      "SparseBDIA", "BlockELL"]),
             (strength, ["classical_strength_of_connection",
                         "symmetric_strength_of_connection"]),
             (amg_core, ["have_native", "standard_aggregation_native",
@@ -66,7 +69,12 @@ def test_public_surface():
                         "gauss_seidel_sweeps_native",
                         "gauss_seidel_indexed_native",
                         "identity_minus_rowscaled_native",
-                        "classical_strength_native", "csr_to_dia_native"]),
+                        "classical_strength_native", "csr_to_dia_native",
+                        "bsr_gauss_seidel_native", "masked_spgemm_native",
+                        "constraint_project_native", "pattern_gram_native",
+                        "masked_spgemm_bsr_native",
+                        "constraint_project_bsr_native",
+                        "pattern_gram_bsr_native"]),
             (krylov, KRYLOV),
             (gallery, ["gauge_laplacian", "diffusion_stencil_2d",
                        "linear_elasticity", "regular_triangle_mesh",

@@ -120,7 +120,7 @@ def test_grid_aggregation_and_fit_candidates_match_jax(grid, block):
 
 @pytest.mark.parametrize("change", [
     {"improve_candidates": (("zebra", {}), None), "presmoother": "zebra"},
-    {"smooth": ("energy", {}), "unstructured": True},
+    {"smooth": ("energy", {"krylov": "gmres"}), "unstructured": True},
     {"presmoother": "gauss_seidel_nr"},
     {"symmetry": "nonsymmetric"},
     {"grid3d": True},

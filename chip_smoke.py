@@ -45,7 +45,17 @@ computes the same function:
   ``elasticity_rbm_sa`` size (100^2) the energy call, the default call
   (Jacobi P on the structured path, ``SparseBDIA`` smoothers) and the
   same matrix as CSR with B (kernel: dia_matvec on level 0 flattened to
-  21 scalar diagonals and on every DIA level below).
+  21 scalar diagonals and on every DIA level below);
+* classical AMG, ``benchmarks/suite.py``'s first two configurations:
+  ``classical_poisson_500`` (``ruge_stuben_solver(A, CF="RS")``, float32
+  operators, ``solve_mp`` to 1e-10; held against the reference pyamg's
+  fingerprint of the hierarchy; with multicolor Gauss-Seidel and with zebra
+  line relaxation) and ``anisotropic_1024_classical`` (the rotated
+  anisotropic stencil at 1024^2, evolution strength, standard
+  interpolation), setup stage by stage (kernel: dia_matvec on every DIA
+  level and C-point-embedded DIA transfer); then the same operator through
+  ``parallel.classical_setup_sharded`` in float32, its masked products on
+  masked_spgemm_banded and masked_spgemm_gather, and CG to 1e-6.
 
     python3 chip_smoke.py          # from the repository root, one GPU
 
@@ -130,6 +140,18 @@ ACCELS_STALL = ("cgnr", "cgne")
 ELASTICITY_1M = dict(grid=(724, 724), iters=15, iters_tol=2, opc_max=1.4)
 ELASTICITY_RBM = (100, 100)
 ELASTICITY_KW = dict(max_coarse=100, smooth=("energy", {"maxiter": 2}))
+# the classical cells of benchmarks/suite.py:358-390: the JAX package's
+# inner iterations of solve_mp to 1e-10 (tests/test_multilevel.py:388-428
+# for classical_poisson_500: 8 with multicolor GS, 7 with zebra, the
+# reference's 7; its structural record 12 for the anisotropic cell, where
+# the reference takes 20: benchmarks/reference_cpu.json:2-29)
+CLASSICAL_500 = dict(grid=(500, 500), iters={"gauss_seidel": 8, "zebra": 7})
+ANISO = dict(grid=(1024, 1024), iters=12,
+             stencil=dict(epsilon=0.01, theta=np.pi / 4, type="FD"),
+             strength=("evolution", {"k": 2, "epsilon": 4.0}))
+# classical_setup_sharded's grid (suite.py:289-313: CG to 1e-6 in 60)
+SHARDED_GRID = (1024, 1024)
+FINGERPRINTS = ("tests", "fixtures", "rs_reference_fingerprints.json")
 DEFAULT_SA = {
     "structured": dict(rows=[1048576, 116964, 12996, 1444, 169], opc=1.225,
                        cg=9, cycles=10),
@@ -375,26 +397,30 @@ def main_path(torch):
 
 
 @contextlib.contextmanager
-def recording_products(store, limit):
-    """Keep the operands ``(label, A, B, pattern)`` of the general setup's
-    first ``limit`` masked products (S*T, A*P, R*AP of each level in turn)
-    while passing every call on unchanged."""
-    from pyamg_tpu_torch.parallel import setup
+def recording_products(store, limit, module=None, names=("S*T", "A*P",
+                                                        "R*AP")):
+    """Keep the operands ``(label, A, B, pattern)`` of the first ``limit``
+    masked products of a device setup (``module``, by default the general
+    one: S*T, A*P, R*AP of each level in turn, labelled by ``names``) while
+    passing every call on unchanged."""
+    if module is None:
+        from pyamg_tpu_torch.parallel import setup as module
 
-    real = setup.masked_spgemm_auto
-    names = ("S*T", "A*P", "R*AP")
+    real = module.masked_spgemm_auto
+    k_level = len(names)
 
     def record(A, B, pattern):
         if len(store) < limit:
             k = len(store)
-            store.append((f"level {k // 3} {names[k % 3]}", A, B, pattern))
+            store.append((f"level {k // k_level} {names[k % k_level]}", A, B,
+                          pattern))
         return real(A, B, pattern)
 
-    setup.masked_spgemm_auto = record
+    module.masked_spgemm_auto = record
     try:
         yield
     finally:
-        setup.masked_spgemm_auto = real
+        module.masked_spgemm_auto = real
 
 
 def general_path(torch):
@@ -501,7 +527,7 @@ def check_spgemm(torch, products):
     setup, in float32 and float64; returns the largest absolute difference
     per kernel and body."""
     phase("6. masked_spgemm kernels vs plain")
-    from pyamg_tpu_torch.sparse import SparseELL, spgemm_kernel
+    from pyamg_tpu_torch.sparse import SparseELL
     from pyamg_tpu_torch.sparse.spgemm_device import pattern_spgemm
 
     sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "tests"))
@@ -515,7 +541,17 @@ def check_spgemm(torch, products):
         A, B = case()
         cases.append((label, ell(A), ell(B),
                       pattern_spgemm(A, B, device="cuda")))
-    cases += products
+    return hold_spgemm(torch, cases + products)
+
+
+def hold_spgemm(torch, cases):
+    """Both SpGEMM kernels' bodies against the plain twin on every ``(label,
+    A, B, pattern)`` of ``cases``, in float32 and float64; returns the
+    largest absolute difference per kernel and body.  The launches made
+    here are taken off the kernels' counts."""
+    from pyamg_tpu_torch.sparse import spgemm_kernel
+
+    before = dict(spgemm_kernel.launches)
     worst = {}
     for dtype in (torch.float32, torch.float64):
         name_dt = str(dtype).split(".")[-1]
@@ -542,6 +578,7 @@ def check_spgemm(torch, products):
                   + "  ".join(f"{name.removeprefix('masked_spgemm_')} "
                               f"{err:.1e}" for name, err in errs.items()))
     print(f"largest absolute difference from the twin: {worst}")
+    spgemm_kernel.launches.update(before)
     return worst
 
 
@@ -1546,12 +1583,15 @@ def _elasticity_stages():
 
 def _form(op):
     """Short name of a device operator: its class, its DIA offsets or BDIA
-    block diagonals, a composed chain's parts."""
+    block diagonals, a composed chain's parts, an embedded transfer's
+    DIA."""
     if op is None:
         return "-"
     kind = type(op).__name__.replace("Sparse", "")
     if kind == "ComposedOp":
         return "(" + "+".join(_form(o) for o in op.ops) + ")"
+    if hasattr(op, "dia"):
+        return f"{kind.removesuffix('Op')}(DIA[{op.dia.n_offsets}])"
     if hasattr(op, "n_offsets"):
         return f"{kind}[{op.n_offsets}]"
     return kind
@@ -1764,6 +1804,398 @@ def elasticity_rbm(torch):
     return launches, worst
 
 
+def _classical_stages():
+    """``stage_timer`` stages of ``ruge_stuben_solver``: the host stages of
+    the level loop, the device arrays and the smoothers."""
+    from pyamg_tpu_torch.classical import classical as rs
+
+    return [("strength", rs, "_strength_matrix"),
+            ("splitting", rs, "_splitting"),
+            ("interpolation", rs, "direct_interpolation"),
+            ("interpolation", rs, "standard_interpolation"),
+            ("Galerkin R*A*P", rs, "_galerkin"),
+            ("device arrays", rs, "device_operator"),
+            ("device arrays", rs, "_device_transfers"),
+            ("smoothers", rs, "change_smoothers")]
+
+
+def classical_setup(torch, A, **kw):
+    """``ruge_stuben_solver(A, op_dtype=float32, **kw)`` on the card, stage
+    by stage; prints the hierarchy (rows, nnz, the form of A, P and R, the
+    smoother) and returns ``(ml, setup_s)``."""
+    import pyamg_tpu_torch
+    from profile_general import stage_timer
+
+    stages = _classical_stages()
+    secs = {label: 0.0 for label, _, _ in stages}
+    calls = {label: 0 for label, _, _ in stages}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with stage_timer(torch.device("cuda"), secs, calls, stages):
+        ml = pyamg_tpu_torch.ruge_stuben_solver(
+            A, op_dtype=torch.float32, device="cuda", **kw)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    rest = setup_s - sum(secs.values())
+    print(f"setup_s {setup_s:.3f}: " + ", ".join(
+        f"{label} {secs[label]:.3f} ({calls[label]})" for label in secs)
+        + f", rest (level loop, glue) {rest:.3f}")
+    for i, lvl in enumerate(ml.levels):
+        sm = lvl.presmoother
+        smoother = "-" if sm is None else sm.kind + (
+            f" {sm.sweep}, {sm.color_masks.shape[0]} colors"
+            if sm.color_masks is not None else
+            f" {sm.sweep}, gather form, {sm.color_rows.shape[0]} colors"
+            if sm.color_rows is not None else
+            f" {sm.sweep}, lines along axis {sm.line_axis}"
+            if sm.line_tri is not None else "")
+        print(f"level {i}: rows {lvl.A.shape[0]:8d} nnz {lvl.nnz:9d}  A "
+              f"{_form(lvl.A)}  P {_form(getattr(lvl, 'P', None))}  R "
+              f"{_form(getattr(lvl, 'R', None))}  {smoother}")
+    print(f"levels {len(ml.levels)}  operator_complexity "
+          f"{ml.operator_complexity():.6f}  grid_complexity "
+          f"{ml.grid_complexity():.6f}")
+    return ml, setup_s
+
+
+def classical_solve(torch, ml, A, b, **kw):
+    """``solve_mp(b, tol=1e-10, **kw)`` once, then best of 3, and one
+    V-cycle's dia_matvec launches; returns ``(info, relres, best_s,
+    per_cycle)``."""
+    x, info = ml.solve_mp(b, tol=TOL, return_info=True, **kw)
+    torch.cuda.synchronize()
+    relres = _true_relres(A, b, x)
+    runs = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ml.solve_mp(b, tol=TOL, **kw)
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t0)
+    b32 = torch.as_tensor(b, device="cuda", dtype=torch.float32)
+    cycle = ml.cycle_fn("V")
+    per_cycle = _launches_of(lambda: cycle(torch.zeros_like(b32), b32))
+    print(f"solve_mp(tol=1e-10{''.join(f', {k}={v}' for k, v in kw.items())}"
+          f"): {info}  true f64 relres {relres:.3e}  solve_s best of 3 "
+          f"{min(runs):.4f}  runs {[round(r, 4) for r in runs]} (after the "
+          f"first, which also builds the float64 operator);  dia_matvec "
+          f"launches a V-cycle {per_cycle}")
+    return info, relres, min(runs), per_cycle
+
+
+def _fingerprint_mismatches(ml, want):
+    """Where a classical hierarchy leaves the reference pyamg's fingerprint
+    (levels, rows, nnz, sha256 of the splittings and of A's and P's
+    patterns, opc, gc, P's sum); an empty list when it holds."""
+    import hashlib
+
+    def sha(*arrays):
+        h = hashlib.sha256()
+        for a in arrays:
+            h.update(np.ascontiguousarray(a).tobytes())
+        return h.hexdigest()
+
+    bad = []
+    if len(ml.levels) != len(want["levels"]):
+        return [f"{len(ml.levels)} levels, want {len(want['levels'])}"]
+    for key, got in (("opc", ml.operator_complexity()),
+                     ("gc", ml.grid_complexity())):
+        if abs(got - want[key]) >= 2e-6:
+            bad.append(f"{key} {got} want {want[key]}")
+    for i, (lvl, w) in enumerate(zip(ml.levels, want["levels"])):
+        A = lvl.A_csr.tocsr()
+        A.sort_indices()
+        got = [(A.shape[0], A.nnz), sha(A.indptr.astype(np.int64),
+                                        A.indices.astype(np.int64))]
+        wanted = [(w["n"], w["nnz"]), w["A_struct_sha"]]
+        if i < len(ml.levels) - 1:
+            P = lvl.P_csr.tocsr()
+            P.sort_indices()
+            got += [sha(np.asarray(lvl.splitting, np.int32)), P.nnz,
+                    sha(P.indptr.astype(np.int64),
+                        P.indices.astype(np.int64))]
+            wanted += [w["splitting_sha"], w["P_nnz"], w["P_struct_sha"]]
+            if abs(float(P.sum()) - w["P_data_sum"]) > \
+                    1e-9 * abs(w["P_data_sum"]):
+                bad.append(f"level {i} P sum")
+        bad += [f"level {i} field {k}" for k, (g, x) in
+                enumerate(zip(got, wanted)) if g != x]
+    return bad
+
+
+def classical_poisson(torch):
+    """``benchmarks/suite.py``'s ``classical_poisson_500`` through the
+    port's entry point: ``ruge_stuben_solver(A, CF="RS", op_dtype=float32)``
+    on the 500^2 Poisson problem, ``solve_mp`` to 1e-10 on ``b = A @
+    rng(0).random(n)``; with multicolor Gauss-Seidel (the default) and
+    with zebra smoothers.  Holds the host hierarchy against the reference
+    pyamg's fingerprint, the inner iterations, the relres, the kernel
+    against its twin on every DIA operator.  Returns the phase's
+    dia_matvec launches and the largest kernel-vs-plain difference."""
+    phase("21. classical AMG: classical_poisson_500")
+    from pyamg_tpu_torch.gallery import poisson
+    from pyamg_tpu_torch.sparse import dia_kernel, spgemm_kernel
+
+    want = json.loads(pathlib.Path(__file__).resolve().parent.joinpath(
+        *FINGERPRINTS).read_text())["poisson_500"]
+    A = poisson(CLASSICAL_500["grid"], format="csr")
+    b = A @ np.random.default_rng(0).random(A.shape[0])
+    dia_kernel.launches = 0
+    spgemm_kernel.plain_cuda_calls = 0
+    twin, worst = [0], 0.0
+    for smoother in ("gauss_seidel", "zebra"):
+        print(f"-- {smoother}")
+        kw = {} if smoother == "gauss_seidel" else dict(
+            presmoother="zebra", postsmoother="zebra")
+        with counting_twin_calls(torch, twin):
+            ml, _ = classical_setup(torch, A, CF="RS", **kw)
+            info, relres, _, _ = classical_solve(torch, ml, A, b)
+        bad = _fingerprint_mismatches(ml, want)
+        print(f"reference fingerprint (poisson_500): "
+              f"{'held' if not bad else bad}")
+        launches = dia_kernel.launches
+        worst = max(worst, hold_dia_cases(torch, np.random.default_rng(21),
+                                          dia_operators(ml)))
+        if bad:
+            raise AssertionError(f"the hierarchy left the reference's "
+                                 f"fingerprint: {bad}")
+        iters = CLASSICAL_500["iters"][smoother]
+        if abs(info["inner_iterations"] - iters) > 1 or not relres <= TOL:
+            raise AssertionError(f"{smoother}: {info}, relres {relres}; "
+                                 f"expected {iters}+-1 and <= {TOL}")
+    print(f"dia_matvec launches over the phase {launches};  plain twin "
+          f"calls on CUDA {twin[0]} (DIA) {spgemm_kernel.plain_cuda_calls} "
+          f"(SpGEMM)")
+    if launches <= 0:
+        raise AssertionError("the classical solves launched no dia_matvec")
+    if twin[0] or spgemm_kernel.plain_cuda_calls:
+        raise AssertionError("a plain twin ran on CUDA")
+    return launches, worst
+
+
+def _aniso(grid):
+    from pyamg_tpu_torch.gallery import diffusion_stencil_2d, stencil_grid
+
+    return stencil_grid(diffusion_stencil_2d(**ANISO["stencil"]), grid,
+                        format="csr")
+
+
+def anisotropic_classical(torch):
+    """``benchmarks/suite.py``'s ``anisotropic_1024_classical``: the
+    rotated anisotropic stencil (epsilon 0.01, theta pi/4, finite
+    differences) at 1024^2, ``ruge_stuben_solver`` with evolution strength
+    (k 2, epsilon 4), RS splitting, standard interpolation, float32
+    operators; ``solve_mp`` to 1e-10 with 60 inner iterations.  Returns
+    the hierarchy, the phase's dia_matvec launches and the largest
+    kernel-vs-plain difference."""
+    phase("22. classical AMG: anisotropic_1024_classical")
+    from pyamg_tpu_torch.sparse import dia_kernel, spgemm_kernel
+
+    A = _aniso(ANISO["grid"])
+    b = A @ np.random.default_rng(0).random(A.shape[0])
+    dia_kernel.launches = 0
+    spgemm_kernel.plain_cuda_calls = 0
+    twin = [0]
+    with counting_twin_calls(torch, twin):
+        ml, _ = classical_setup(torch, A, strength=ANISO["strength"],
+                                CF="RS", interpolation="standard")
+        info, relres, _, _ = classical_solve(torch, ml, A, b,
+                                             inner_maxiter=60)
+    launches = dia_kernel.launches
+    worst = hold_dia_cases(torch, np.random.default_rng(22),
+                           dia_operators(ml))
+    time_level0_dia(torch, ml)
+    print(f"dia_matvec launches over the phase {launches};  plain twin "
+          f"calls on CUDA {twin[0]} (DIA) {spgemm_kernel.plain_cuda_calls} "
+          f"(SpGEMM)")
+    if abs(info["inner_iterations"] - ANISO["iters"]) > 1 \
+            or not relres <= TOL:
+        raise AssertionError(f"{info}, relres {relres}; expected "
+                             f"{ANISO['iters']}+-1 and <= {TOL}")
+    if launches <= 0:
+        raise AssertionError("the anisotropic solve launched no dia_matvec")
+    if twin[0] or spgemm_kernel.plain_cuda_calls:
+        raise AssertionError("a plain twin ran on CUDA")
+    return ml, launches, worst
+
+
+def time_level0_dia(torch, ml):
+    """dia_matvec on a hierarchy's level-0 operator (float32) beside its
+    plain version, its bound and cuSPARSE's CSR SpMV; the launches made
+    here are taken off the count."""
+    from pyamg_tpu_torch.benchmarks.dia_spmv_bench import csr_tensor
+    from pyamg_tpu_torch.sparse import dia_kernel
+
+    A0 = ml.levels[0].A
+    xv = torch.rand(A0.shape[1], device="cuda", dtype=torch.float32)
+    As = csr_tensor(ml.levels[0].A_csr, "cuda", torch.float32)
+    before = dia_kernel.launches
+    k_ms, p_ms, l_ms = _medians(torch, lambda: A0.matvec(xv),
+                                lambda: A0.matvec_plain(xv),
+                                lambda: torch.mv(As, xv))
+    dia_kernel.launches = before
+    nbytes, flops = dia_work(A0, xv)
+    b_ms, b_by = bound(nbytes, flops)
+    print(f"dia_matvec level 0 {tuple(A0.shape)}, {A0.n_offsets} offsets, "
+          f"{nbytes / 1e6:.1f} MB: kernel {k_ms * 1e3:.2f} us, bound "
+          f"{b_ms * 1e3:.2f} us ({b_by}), kernel/bound {k_ms / b_ms:.2f};  "
+          f"plain {p_ms * 1e3:.2f} us;  cuSPARSE torch.mv(csr int32) "
+          f"{l_ms * 1e3:.2f} us")
+
+
+def time_classical_products(torch, products):
+    """The SpGEMM kernels at two shapes of the classical device setup --
+    level 0's evolution squaring (banded) and R*AP (gather), float32 --
+    beside the plain version, the bound and cuSPARSE SpGEMM."""
+    from pyamg_tpu_torch.sparse import spgemm_kernel
+
+    before = dict(spgemm_kernel.launches)
+    by_label = {label: (A, B, pat) for label, A, B, pat in products}
+    for name, label in (("masked_spgemm_banded", "level 0 evolution A~*A~"),
+                        ("masked_spgemm_gather", "level 0 R*AP")):
+        A, B, pattern = by_label[label]
+        slabs, bodies = spgemm_bodies(A, B, pattern)
+        kernel = bodies[name][0]
+        plain = functools.partial(spgemm_kernel.masked_matmul_vals_plain,
+                                  *slabs)
+        library, same, rel = spgemm_library(torch, A, B, pattern, kernel())
+        k_ms, p_ms, lib_ms = _medians(torch, kernel, plain, library)
+        b_ms, b_by, nbytes, needed = spgemm_bound(A, B, slabs)
+        print(f"{name} float32: {label} A {tuple(slabs[0].shape)} B "
+              f"{tuple(slabs[2].shape)} out {tuple(slabs[4].shape)}  kernel "
+              f"{k_ms * 1e3:.1f} us, bound {b_ms * 1e3:.1f} us ({b_by}, "
+              f"{nbytes / 1e6:.1f} MB, {needed} products), kernel/bound "
+              f"{k_ms / b_ms:.2f};  plain {p_ms * 1e3:.1f} us;  cuSPARSE "
+              f"SpGEMM {lib_ms * 1e3:.1f} us (its pattern equals the mask: "
+              f"{same}; max rel difference {rel:.1e})")
+    spgemm_kernel.launches.update(before)
+
+
+def classical_sharded(torch, ml_host):
+    """``parallel.classical_setup_sharded`` on the anisotropic operator
+    with the same strength, splitting and interpolation, float32, then CG
+    to 1e-6 (60 iterations at most), as ``benchmarks/suite.py:289-313``
+    runs it: the setup stage by stage, every masked product recorded and
+    both SpGEMM kernels held against their twin on each.  The same setup in
+    float64 must give the levels of the host hierarchy ``ml_host`` of the
+    same operator (rows, nnz, splittings; values to 1e-10), the comparison
+    of ``tests/test_parallel.py:446-470``; the float32 setup's coarse
+    values carry float32 rounding into the next level's strength, and the
+    level where it leaves the host build is printed.  Returns the float32
+    setup's SpGEMM kernel launches and the largest kernel-vs-plain
+    difference per kernel."""
+    phase(f"23. classical_setup_sharded, {SHARDED_GRID[0]}^2, one card")
+    import pyamg_tpu_torch.classical.split as split
+    import pyamg_tpu_torch.parallel.classical_setup as cs
+    import pyamg_tpu_torch.strength as strength
+    from profile_general import stage_timer
+    from pyamg_tpu_torch.sparse import SparseELL, spgemm_kernel
+
+    A = _aniso(SHARDED_GRID)
+    b = A @ np.random.default_rng(0).random(A.shape[0])
+    kw = dict(strength=ANISO["strength"], CF="RS", interpolation="standard",
+              device="cuda")
+    if ml_host is None:       # phase 22 ran another size: a host build
+        import pyamg_tpu_torch
+
+        ml_host = pyamg_tpu_torch.ruge_stuben_solver(
+            A, op_dtype=torch.float32, **kw)
+    stages = [("strength (host, with its device squarings)", strength,
+               "evolution_strength_of_connection"),
+              ("splitting", split, "RS"),
+              ("masked products", cs, "masked_spgemm_auto"),
+              ("transposes onto patterns", cs, "ell_transpose_onto"),
+              ("symbolic patterns", cs, "_pattern_csr"),
+              ("coarse read-back", SparseELL, "to_scipy"),
+              ("ELL slabs from scipy (host) and uploads", SparseELL,
+               "from_scipy"),
+              ("slot maps (host)", cs, "_enc_csr"),
+              ("slot maps (host)", cs, "_slab_from_csr"),
+              ("smoothers (coloring)", cs, "_ell_smoother")]
+    secs = {label: 0.0 for label, _, _ in stages}
+    calls = {label: 0 for label, _, _ in stages}
+    products = []
+    for name in spgemm_kernel.launches:
+        spgemm_kernel.launches[name] = 0
+    spgemm_kernel.plain_cuda_calls = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with recording_products(products, 10 ** 6, cs,
+                            ("evolution A~*A~", "denominators",
+                             "distribution", "A*P", "R*AP")):
+        with stage_timer(torch.device("cuda"), secs, calls, stages):
+            sol = cs.classical_setup_sharded(A, dtype=np.float32, **kw)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    launches = dict(spgemm_kernel.launches)
+    plain_calls = spgemm_kernel.plain_cuda_calls
+    print(f"setup_s {setup_s:.3f}: " + ", ".join(
+        f"{label} {secs[label]:.3f} ({calls[label]})" for label in secs)
+        + f", rest (slabs, uploads, glue) "
+        f"{setup_s - sum(secs.values()):.3f};  SpGEMM launches {launches};  "
+        f"plain twin calls on CUDA {plain_calls}")
+    print(sol)
+
+    runs = []
+    for _ in range(3):
+        res = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x = sol.solve(b, tol=1e-6, maxiter=60, accel="cg", residuals=res)
+        torch.cuda.synchronize()
+        runs.append(time.perf_counter() - t0)
+    relres = _true_relres(A, b, x)
+    print(f"solve(accel='cg', tol=1e-6, maxiter=60) float32: iterations "
+          f"{len(res) - 1}  true f64 relres {relres:.3e}  solve_s best of 3 "
+          f"{min(runs):.4f}  runs {[round(r, 4) for r in runs]}")
+
+    def levels(h):
+        return [(lvl.A_csr.shape[0], lvl.A_csr.nnz) for lvl in h.levels]
+
+    def same_splits(h):
+        return [bool(np.array_equal(ls.splitting, lh.splitting))
+                for ls, lh in zip(h.levels[:-1], ml_host.levels[:-1])]
+
+    want = levels(ml_host)
+    got32, split32 = levels(sol), same_splits(sol)
+    equal32 = next((i for i, (g, w, s) in enumerate(
+        zip(got32, want, split32 + [True])) if g != w or not s),
+        len(want))
+    print(f"float32 setup: levels (rows, nnz) {got32};  the host build's "
+          f"{want};  equal down to level {equal32 - 1} (splittings "
+          f"{split32})")
+    t0 = time.perf_counter()
+    sol64 = cs.classical_setup_sharded(A, dtype=np.float64, **kw)
+    torch.cuda.synchronize()
+    setup64_s = time.perf_counter() - t0
+    plain_calls += spgemm_kernel.plain_cuda_calls
+    got64, split64 = levels(sol64), same_splits(sol64)
+    rel64 = [float(abs(ls.A_csr - lh.A_csr).max() / abs(lh.A_csr).max())
+             for ls, lh in zip(sol64.levels, ml_host.levels)] \
+        if got64 == want else None
+    print(f"float64 setup ({setup64_s:.3f} s): levels {got64};  splittings "
+          f"equal {split64};  max rel difference of A per level from the "
+          f"host build {rel64}")
+    if got64 != want or not all(split64) or max(rel64) > 1e-10:
+        raise AssertionError("the float64 device setup's levels differ from "
+                             "the host build's")
+    spgemm_kernel.launches.update(launches)
+    print(f"holding both SpGEMM kernels against their twin on the float32 "
+          f"setup's {len(products)} masked products:")
+    worst = hold_spgemm(torch, products)
+    time_classical_products(torch, products)
+    if not (np.isfinite(relres) and relres <= 1e-5 and len(res) - 1 < 60):
+        raise AssertionError(f"CG: {len(res) - 1} iterations, relres "
+                             f"{relres}")
+    if len(products) != sum(launches.values()) or not products:
+        raise AssertionError(f"recorded {len(products)} masked products, "
+                             f"the kernels launched {launches}")
+    if plain_calls:
+        raise AssertionError(f"the setups ran the plain twin on CUDA "
+                             f"{plain_calls} times")
+    return launches, worst
+
+
 def main():
     import torch
 
@@ -1819,6 +2251,17 @@ def main():
     worst["dia_matvec"] = max(worst["dia_matvec"], err_1m, err_rbm)
     print(f"dia_matvec launches by the elasticity phases 19-20: 1M "
           f"{n_1m}, 100^2 {n_rbm}")
+    n_500, err_500 = classical_poisson(torch)
+    ml_aniso, n_aniso, err_aniso = anisotropic_classical(torch)
+    sharded_launches, sharded_worst = classical_sharded(
+        torch, ml_aniso if SHARDED_GRID == ANISO["grid"] else None)
+    launches["dia_matvec"] += n_500 + n_aniso
+    worst["dia_matvec"] = max(worst["dia_matvec"], err_500, err_aniso)
+    for name, count in sharded_launches.items():
+        launches[name] += count
+        worst[name] = max(worst[name], sharded_worst.get(name, 0.0))
+    print(f"launches by the classical phases 21-23: dia_matvec "
+          f"{n_500} + {n_aniso};  {sharded_launches}")
     print(f"chip_smoke seconds: {time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": [dict(
         name=name, **KERNELS[name], launches=launches[name],

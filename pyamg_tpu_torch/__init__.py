@@ -33,12 +33,24 @@ What is ported:
   run on two hand-written masked-SpGEMM kernels
   (``csrc/masked_spgemm.cu``); multicolor Gauss-Seidel V-cycles and CG on
   padded-ELL levels;
+* classical (Ruge-Stuben) AMG, ``ruge_stuben_solver(A)``: every strength
+  measure (classical, symmetric, evolution, energy-based, distance,
+  affinity, algebraic distance), the C/F splittings RS, PMIS, PMISc,
+  CLJP, CLJPc, MIS, CR and grid, direct and standard interpolation, on the
+  host (the RS splitting, both interpolations and the evolution measure's
+  steps compiled in ``amg_core``); DIA levels and C-point-embedded DIA
+  transfers on the DIA kernel; multicolor Gauss-Seidel, zebra and line
+  Jacobi smoothers (every line of a grid solved at once by parallel cyclic
+  reduction); and ``parallel.classical_setup_sharded``, its setup with the
+  interpolation values, the evolution squarings and the Galerkin products
+  on the masked-SpGEMM kernels;
 * the DIA SpMV benchmark with two more hand-written DIA kernels
   (``benchmarks.dia_spmv_bench``).
 """
 
-from . import gallery, krylov, parallel
+from . import classical, gallery, krylov, parallel
 from .aggregation import smoothed_aggregation_solver
+from .classical import ruge_stuben_solver
 from .multilevel import (MultilevelSolver, MultilevelSolverSet,
                          coarse_grid_solver, multilevel_solver,
                          multilevel_solver_set)
@@ -46,7 +58,8 @@ from .sparse import BlockELL, SparseBDIA, SparseDIA, SparseELL
 
 __version__ = "0.1.0"
 
-__all__ = ["gallery", "krylov", "parallel", "smoothed_aggregation_solver",
+__all__ = ["classical", "gallery", "krylov", "parallel",
+           "smoothed_aggregation_solver", "ruge_stuben_solver",
            "MultilevelSolver", "MultilevelSolverSet", "multilevel_solver",
            "multilevel_solver_set", "coarse_grid_solver", "SparseDIA",
            "SparseELL", "SparseBDIA", "BlockELL", "__version__"]

@@ -43,7 +43,11 @@ from ..sparse import (ComposedOp, DenseOp, GridPoolOp, GridRepeatOp,
                       SparseBDIA, SparseDIA, device_operator,
                       root_embedded_transfers)
 from ..sparse.device_op import DIA_MEM_BUDGET, DIA_MEM_FLOOR
-from ..strength import (classical_strength_of_connection,
+from ..strength import (affinity_distance, algebraic_distance,
+                        classical_strength_of_connection,
+                        distance_strength_of_connection,
+                        energy_based_strength_of_connection,
+                        evolution_strength_of_connection,
                         symmetric_strength_of_connection)
 from ..util.linalg import approximate_spectral_radius
 from ..util.utils import (eliminate_diag_dom_nodes, filter_matrix_rows,
@@ -77,9 +81,18 @@ def _strength(A, B, flag):
         C = to_csr(A).copy()
         C.data = np.ones_like(C.data)
         return C
-    if fn in ("distance", "ode", "evolution", "energy_based",
-              "algebraic_distance", "affinity"):
-        raise not_ported(f"strength of connection {fn!r}", _UNSTRUCTURED)
+    if fn == "distance":
+        return distance_strength_of_connection(A, **kwargs)
+    if fn in ("ode", "evolution"):
+        if "B" in kwargs:
+            return evolution_strength_of_connection(A, **kwargs)
+        return evolution_strength_of_connection(A, B, **kwargs)
+    if fn == "energy_based":
+        return energy_based_strength_of_connection(A, **kwargs)
+    if fn == "algebraic_distance":
+        return algebraic_distance(A, **kwargs)
+    if fn == "affinity":
+        return affinity_distance(A, **kwargs)
     raise ValueError(f"unrecognized strength of connection method {fn!r}")
 
 

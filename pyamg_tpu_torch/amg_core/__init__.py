@@ -5,7 +5,9 @@ setup calls: the greedy aggregations, first-fit coloring, the Gauss-Seidel
 sweeps (scalar and block), ``S = I - c D^-1 A``, classical strength, the
 CSR-to-DIA conversion, and the pattern-restricted products, constraint
 projections and Gram matrices of the energy-minimization CG in scalar (CSR)
-and block (BSR) form.  The source is ``csrc/amg_core.cpp``; ``_build.build_host``
+and block (BSR) form; for classical AMG the Ruge-Stuben splitting, direct
+and standard interpolation, the evolution measure's steps and the batched
+tridiagonal solves of the line smoothers.  The source is ``csrc/amg_core.cpp``; ``_build.build_host``
 compiles it at first use into ``_build/`` (never beside the source).  Every
 binding returns ``None`` (or ``False`` for the in-place sweeps) when the
 library is unavailable or the input is not what it takes, and the caller
@@ -31,7 +33,12 @@ __all__ = ["have_native", "standard_aggregation_native",
            "csr_to_dia_native", "bsr_gauss_seidel_native",
            "masked_spgemm_native", "constraint_project_native",
            "pattern_gram_native", "masked_spgemm_bsr_native",
-           "constraint_project_bsr_native", "pattern_gram_bsr_native"]
+           "constraint_project_bsr_native", "pattern_gram_bsr_native",
+           "rs_cf_splitting", "identity_minus_scaled_native",
+           "identity_minus_colscaled_native", "pattern_values_native",
+           "evolution_nulldim1_native", "distance_filter_native",
+           "evolution_epilogue_native", "direct_interpolation_native",
+           "standard_interpolation_native", "thomas_lines_native"]
 
 _lib = None
 
@@ -123,6 +130,34 @@ def _declare(lib):
     lib.pattern_gram_bsr.argtypes = [_I, _I, _I, _i64p, _i64p, _f64p, _f64p]
     lib.pattern_gram_bsr_i32.argtypes = [_I, _I, _I, _i32p, _i32p, _f64p,
                                          _f64p]
+    for sfx, ix in (("", _i64p), ("_i32", _i32p)):
+        getattr(lib, "rs_cf_splitting" + sfx).argtypes = [_I, ix, ix, ix,
+                                                          ix, _i32p]
+        getattr(lib, "identity_minus_scaled" + sfx).argtypes = [
+            _I, ix, ix, _f64p, _D, _f64p]
+        getattr(lib, "evolution_nulldim1" + sfx).argtypes = [
+            _I, ix, ix, _f64p, _f64p, _D]
+        getattr(lib, "identity_minus_colscaled" + sfx).argtypes = [
+            _I, ix, ix, _f64p, _f64p, _D, _f64p]
+        getattr(lib, "pattern_values" + sfx).argtypes = [_I, ix, ix, ix, ix,
+                                                         _f64p, _f64p]
+        getattr(lib, "distance_filter" + sfx).argtypes = [_I, ix, ix, _f64p,
+                                                          _D]
+        getattr(lib, "evolution_epilogue" + sfx).argtypes = [
+            _I, ix, ix, _f64p, _D, _I, ix, ix, _f64p]
+        getattr(lib, "direct_interpolation" + sfx).argtypes = [
+            _I, ix, ix, _f64p, ix, ix, _i32p, ix, ix, ix, _f64p]
+        getattr(lib, "standard_interpolation" + sfx).argtypes = [
+            _I, ix, ix, _f64p, ix, ix, _f64p, _i32p, ix, ix, ix, _f64p]
+        for name in ("identity_minus_scaled", "identity_minus_colscaled",
+                     "pattern_values", "evolution_epilogue",
+                     "direct_interpolation", "standard_interpolation"):
+            getattr(lib, name + sfx).restype = _I
+        for name in ("rs_cf_splitting", "evolution_nulldim1",
+                     "distance_filter"):
+            getattr(lib, name + sfx).restype = None
+    lib.thomas_lines.argtypes = [_I, _I, _f64p, _f64p, _f64p, _f64p, _f64p]
+    lib.thomas_lines.restype = None
     for name in ("dia_offsets", "dia_offsets_i32",
                  "identity_minus_rowscaled", "identity_minus_rowscaled_i32",
                  "classical_strength", "classical_strength_i32"):
@@ -486,3 +521,167 @@ def pattern_gram_bsr_native(indptr, indices, Cb, B):
     getattr(lib, "pattern_gram_bsr" + sfx)(nbr, int(Cb), k, ip, ix,
                                            np.ascontiguousarray(B), out)
     return out
+
+
+def rs_cf_splitting(S, T):
+    """Ruge-Stuben splitting (int32, 1 = C) of the strength pattern S (no
+    diagonal) and its transpose T, or None without the library."""
+    lib = _load()
+    if not lib:
+        return None
+    (Sp, Sj, Tp, Tj), sfx = _ix_pair(S.indptr, S.indices, T.indptr,
+                                     T.indices)
+    out = np.zeros(S.shape[0], dtype=np.int32)
+    getattr(lib, "rs_cf_splitting" + sfx)(S.shape[0], Sp, Sj, Tp, Tj, out)
+    return out
+
+
+def _scaled_identity(name, M, c, *extra):
+    lib = _load()
+    if not lib or not _real_f64(M):
+        return None
+    n = M.shape[0]
+    Sx = np.empty(M.nnz, dtype=np.float64)
+    Mp, Mj, sfx = _csr_ix(M)
+    got = getattr(lib, name + sfx)(
+        n, Mp, Mj, np.ascontiguousarray(M.data, dtype=np.float64), *extra,
+        float(c), Sx)
+    return Sx if got == n else None
+
+
+def identity_minus_scaled_native(M, c):
+    """Data array of ``I - c M`` over M's own CSR pattern, or None without
+    the library, for data that is not real float64, or when a row lacks a
+    stored diagonal."""
+    return _scaled_identity("identity_minus_scaled", M, c)
+
+
+def identity_minus_colscaled_native(A, Dinv, c):
+    """Data array of ``I - c A diag(Dinv)`` over A's own CSR pattern (for
+    an exactly symmetric A, the transpose of ``I - c D^-1 A``), or None as
+    :func:`identity_minus_scaled_native`."""
+    return _scaled_identity("identity_minus_colscaled", A, c,
+                            np.ascontiguousarray(Dinv, dtype=np.float64))
+
+
+def pattern_values_native(C, A):
+    """Data array of A's values on C's pattern (both sorted), or None
+    without the library, for data that is not real float64, or when an
+    entry of C is absent from A (scipy's ``multiply`` then keeps the exact
+    intersection)."""
+    lib = _load()
+    if not lib or not _real_f64(A) or C.shape != A.shape:
+        return None
+    (Cp, Cj, Ap, Aj), sfx = _ix_pair(C.indptr, C.indices, A.indptr,
+                                     A.indices)
+    out = np.empty(C.nnz, dtype=np.float64)
+    missing = getattr(lib, "pattern_values" + sfx)(
+        A.shape[0], Cp, Cj, Ap, Aj,
+        np.ascontiguousarray(A.data, dtype=np.float64), out)
+    return out if missing == 0 else None
+
+
+def evolution_nulldim1_native(Atilde, b1, tiny):
+    """The evolution measure's one-candidate misfit, in place on the data
+    of a CSR matrix (real float64 only); False when it did not run."""
+    lib = _load()
+    if not lib or not _real_f64(Atilde) or \
+            not Atilde.data.flags.c_contiguous:
+        return False
+    Ap, Aj, sfx = _csr_ix(Atilde)
+    getattr(lib, "evolution_nulldim1" + sfx)(
+        Atilde.shape[0], Ap, Aj, Atilde.data,
+        np.ascontiguousarray(b1, dtype=np.float64), float(tiny))
+    return True
+
+
+def distance_filter_native(C, epsilon):
+    """The relative distance filter in place on the data of a CSR matrix
+    (real float64 only; dropped entries zeroed, for the caller to
+    compact); False when it did not run."""
+    lib = _load()
+    if not lib or not _real_f64(C) or not C.data.flags.c_contiguous:
+        return False
+    Cp, Cj, sfx = _csr_ix(C)
+    getattr(lib, "distance_filter" + sfx)(C.shape[0], Cp, Cj, C.data,
+                                          float(epsilon))
+    return True
+
+
+def evolution_epilogue_native(Atilde, epsilon, symmetrize):
+    """The evolution measure's tail (distance filter, ``0.5 (S + S^T)``,
+    unit diagonal, inversion, row scaling) in one call; the finished CSR
+    strength matrix, or None without the library or for data that is not
+    real float64.  Consumes ``Atilde.data``."""
+    lib = _load()
+    if not lib or not _real_f64(Atilde):
+        return None
+    import scipy.sparse as sp
+
+    n = Atilde.shape[0]
+    cap = 2 * Atilde.nnz + n
+    Ap, Aj, sfx = _csr_ix(Atilde)
+    idt = np.int32 if sfx else np.int64
+    Op = np.empty(n + 1, dtype=idt)
+    Oj = np.empty(cap, dtype=idt)
+    Ox = np.empty(cap, dtype=np.float64)
+    eps = np.inf if epsilon is None else float(epsilon)
+    nnz = getattr(lib, "evolution_epilogue" + sfx)(
+        n, Ap, Aj, np.ascontiguousarray(Atilde.data, dtype=np.float64), eps,
+        int(bool(symmetrize)), Op, Oj, Ox)
+    return sp.csr_matrix((Ox[:nnz], Oj[:nnz], Op), shape=Atilde.shape)
+
+
+def _interpolation(name, A, S, with_values, splitting, cmap, nc, cap):
+    import scipy.sparse as sp
+
+    lib = _load()
+    if not lib or not _real_f64(A) or (with_values and not _real_f64(S)):
+        return None
+    n = A.shape[0]
+    (Ap, Aj, Sp, Sj), sfx = _ix_pair(A.indptr, A.indices, S.indptr,
+                                     S.indices)
+    idt = np.int32 if sfx else np.int64
+    Pp = np.zeros(n + 1, dtype=idt)
+    Pj = np.zeros(cap, dtype=idt)
+    Px = np.zeros(cap, dtype=np.float64)
+    vals = (np.ascontiguousarray(S.data, dtype=np.float64),) \
+        if with_values else ()
+    nnz = getattr(lib, name + sfx)(
+        n, Ap, Aj, np.ascontiguousarray(A.data, dtype=np.float64), Sp, Sj,
+        *vals, np.ascontiguousarray(splitting, dtype=np.int32),
+        np.ascontiguousarray(cmap, dtype=idt), Pp, Pj, Px)
+    return sp.csr_matrix((Px[:nnz].copy(), Pj[:nnz].copy(), Pp),
+                         shape=(n, int(nc)))
+
+
+def direct_interpolation_native(A, C, splitting, cmap, nc):
+    """Direct interpolation P (CSR) from A and the strength pattern C (both
+    sorted), or None without the library or for data that is not real
+    float64."""
+    return _interpolation("direct_interpolation", A, C, False, splitting,
+                          cmap, nc, C.nnz + A.shape[0])
+
+
+def standard_interpolation_native(A, S, splitting, cmap, nc):
+    """Standard interpolation P (CSR) from A and S, A's values on the
+    strength pattern (both sorted), or None without the library or for
+    data that is not real float64."""
+    return _interpolation("standard_interpolation", A, S, True, splitting,
+                          cmap, nc, S.nnz + A.shape[0])
+
+
+def thomas_lines_native(dl, dm, du, R):
+    """Batched Thomas solve of independent tridiagonal lines, every array
+    (nlines, L) float64 C-contiguous, in place on R; False when it did not
+    run."""
+    lib = _load()
+    arrays = (dl, dm, du, R)
+    if not lib or any(a.dtype != np.float64 for a in arrays) \
+            or not R.flags.c_contiguous:
+        return False
+    nlines, L = R.shape
+    lib.thomas_lines(nlines, L, *(np.ascontiguousarray(a)
+                                  for a in (dl, dm, du)), R,
+                     np.empty_like(R))
+    return True

@@ -20,6 +20,16 @@
 //   * masked_spgemm_bsr,       -- the same three on a block pattern, for
 //     constraint_project_bsr,     the blocked (BSR) energy CG
 //     pattern_gram_bsr
+//   * rs_cf_splitting          -- Ruge-Stuben C/F splitting
+//   * identity_minus_scaled,   -- I - c M and I - c A D^-1 on the operand's
+//     identity_minus_colscaled    own pattern (the evolution measure's step)
+//   * pattern_values           -- A's values on a sorted pattern
+//   * evolution_nulldim1,      -- the evolution measure's one-candidate fit,
+//     distance_filter,            its distance filter and its fused tail
+//     evolution_epilogue
+//   * direct_interpolation,    -- classical interpolation, one pass each
+//     standard_interpolation
+//   * thomas_lines             -- batched tridiagonal solves (line smoothers)
 //
 // Build: g++ -O3 -shared -fPIC -std=c++17 [-fopenmp] amg_core.cpp
 
@@ -750,6 +760,589 @@ void pattern_gram_bsr_i32(I nbr, I Cb, I k,
                           const int32_t* Pp, const int32_t* Pj,
                           const double* B, double* out) {
     pattern_gram_bsr_impl<int32_t>(nbr, Cb, k, Pp, Pj, B, out);
+}
+
+}  // extern "C"
+
+// ===========================================================================
+// Classical (Ruge-Stuben) AMG and the evolution strength measure
+// ===========================================================================
+
+// ---------------------------------------------------------------------------
+// Ruge-Stuben first-pass C/F splitting.  S (dependencies, CSR, no diagonal)
+// and T = S^T (influences) as index arrays; splitting out: 1 = C, 0 = F.
+// Interval-list form: nodes live in one permutation array grouped by their
+// weight lambda, a weight change is an O(1) swap to an interval boundary,
+// and the scan walks the permutation from the high end.  Which tie is taken
+// and where a re-weighted node lands decide the coarse grids of the deeper
+// levels, so the boundary moves are part of the result.
+// ---------------------------------------------------------------------------
+template <typename Ix>
+static void rs_cf_splitting_impl(I n, const Ix* Sp, const Ix* Sj,
+                                 const Ix* Tp, const Ix* Tj,
+                                 int32_t* splitting) {
+    const int32_t U = -1, F = 0, C = 1;
+    std::vector<I> lambda(n);
+    for (I i = 0; i < n; i++) lambda[i] = Tp[i + 1] - Tp[i];
+
+    std::vector<I> ivl_start(n + 2, 0), ivl_len(n + 2, 0);
+    std::vector<I> at_pos(n), pos_of(n);
+    for (I i = 0; i < n; i++) ivl_len[lambda[i]]++;
+    for (I v = 0, acc = 0; v <= n; v++) {
+        ivl_start[v] = acc;
+        acc += ivl_len[v];
+        ivl_len[v] = 0;
+    }
+    for (I i = 0; i < n; i++) {
+        I p = ivl_start[lambda[i]] + ivl_len[lambda[i]]++;
+        at_pos[p] = i;
+        pos_of[i] = p;
+    }
+
+    std::fill(splitting, splitting + n, U);
+    // isolated nodes (no influences, or only a stored self-loop) are F
+    for (I i = 0; i < n; i++)
+        if (lambda[i] == 0 || (lambda[i] == 1 && Tj[Tp[i]] == i))
+            splitting[i] = F;
+
+    auto swap_nodes = [&](I pa, I pb) {
+        pos_of[at_pos[pa]] = pb;
+        pos_of[at_pos[pb]] = pa;
+        std::swap(at_pos[pa], at_pos[pb]);
+    };
+
+    for (I scan = n - 1; scan >= 0; scan--) {
+        I i = at_pos[scan];
+        ivl_len[lambda[i]]--;
+        if (splitting[i] == F) continue;
+        splitting[i] = C;
+        // undecided influences of i become F; their dependencies gain
+        // weight (moved to the tail boundary of their interval)
+        for (I jj = Tp[i]; jj < Tp[i + 1]; jj++) {
+            I j = Tj[jj];
+            if (splitting[j] != U) continue;
+            splitting[j] = F;
+            for (I kk = Sp[j]; kk < Sp[j + 1]; kk++) {
+                I k = Sj[kk];
+                if (splitting[k] != U || lambda[k] >= n - 1) continue;
+                I lv = lambda[k];
+                I tail = ivl_start[lv] + ivl_len[lv] - 1;
+                swap_nodes(pos_of[k], tail);
+                ivl_len[lv]--;
+                ivl_len[lv + 1]++;
+                ivl_start[lv + 1] = tail;
+                lambda[k]++;
+            }
+        }
+        // undecided dependencies of i lose weight (moved to the head
+        // boundary of their interval)
+        for (I jj = Sp[i]; jj < Sp[i + 1]; jj++) {
+            I j = Sj[jj];
+            if (splitting[j] != U || lambda[j] == 0) continue;
+            I lv = lambda[j];
+            I head = ivl_start[lv];
+            swap_nodes(pos_of[j], head);
+            ivl_len[lv]--;
+            ivl_len[lv - 1]++;
+            ivl_start[lv]++;
+            ivl_start[lv - 1] = ivl_start[lv] - ivl_len[lv - 1];
+            lambda[j]--;
+        }
+    }
+    for (I i = 0; i < n; i++)
+        splitting[i] = (splitting[i] == C) ? 1 : 0;
+}
+
+// ---------------------------------------------------------------------------
+// S = I - c*M on M's own CSR pattern in one value pass (+1 at the stored
+// diagonal), and S = I - c*A*diag(Dinv) (column scaling: for an exactly
+// symmetric A, the transpose of I - c D^-1 A without a CSC conversion;
+// -(c * (A_ij * Dinv_j)) associates as the transpose route does, so both
+// give the same bits).  Each returns the number of rows with a stored
+// diagonal; the caller falls back to a sparse sum when it is short of n.
+// ---------------------------------------------------------------------------
+template <typename Ix>
+static I identity_minus_scaled_impl(I n, const Ix* Ap, const Ix* Aj,
+                                    const double* Ax, double c, double* Sx) {
+    I diag_rows = 0;
+    for (I i = 0; i < n; i++) {
+        bool has_diag = false;
+        for (Ix jj = Ap[i]; jj < Ap[i + 1]; jj++) {
+            double v = -c * Ax[jj];
+            if ((I)Aj[jj] == i) { v += 1.0; has_diag = true; }
+            Sx[jj] = v;
+        }
+        diag_rows += has_diag;
+    }
+    return diag_rows;
+}
+
+template <typename Ix>
+static I identity_minus_colscaled_impl(I n, const Ix* Ap, const Ix* Aj,
+                                       const double* Ax, const double* Dinv,
+                                       double c, double* Sx) {
+    I diag_rows = 0;
+    for (I i = 0; i < n; i++) {
+        bool has_diag = false;
+        for (Ix jj = Ap[i]; jj < Ap[i + 1]; jj++) {
+            double v = -c * (Ax[jj] * Dinv[Aj[jj]]);
+            if ((I)Aj[jj] == i) { v += 1.0; has_diag = true; }
+            Sx[jj] = v;
+        }
+        diag_rows += has_diag;
+    }
+    return diag_rows;
+}
+
+// ---------------------------------------------------------------------------
+// out[kc] = A[i, Cj[kc]] for every entry of the sorted pattern C, by a
+// two-pointer merge over each sorted A row; returns the number of pattern
+// entries absent from A (the caller then takes scipy's ``multiply``).
+// ---------------------------------------------------------------------------
+template <typename Ix>
+static I pattern_values_impl(I n, const Ix* Cp, const Ix* Cj,
+                             const Ix* Ap, const Ix* Aj, const double* Ax,
+                             double* out) {
+    I missing = 0;
+    for (I i = 0; i < n; i++) {
+        Ix ka = Ap[i];
+        const Ix ka_end = Ap[i + 1];
+        for (Ix kc = Cp[i]; kc < Cp[i + 1]; kc++) {
+            const Ix col = Cj[kc];
+            while (ka < ka_end && Aj[ka] < col) ka++;
+            if (ka < ka_end && Aj[ka] == col) {
+                out[kc] = Ax[ka];
+            } else {
+                out[kc] = 0.0;
+                missing++;
+            }
+        }
+    }
+    return missing;
+}
+
+// ---------------------------------------------------------------------------
+// evolution strength with one candidate b: the fitted value at column j of
+// row i is zhat = b_j z_ii / b_i and the stored value becomes the misfit
+// |1 - zhat/z|, or 0 where the fit points against z or is below 1e-4 of
+// it; misfits below `tiny` become 1e-4.  In place on Ax.
+// ---------------------------------------------------------------------------
+template <typename Ix>
+static void evolution_nulldim1_impl(I n, const Ix* Ap, const Ix* Aj,
+                                    double* Ax, const double* b1,
+                                    double tiny) {
+    for (I i = 0; i < n; i++) {
+        double zii = 0.0;
+        for (I jj = Ap[i]; jj < Ap[i + 1]; jj++)
+            if (Aj[jj] == i) { zii = Ax[jj]; break; }
+        const double coeff = zii / b1[i];
+        for (I jj = Ap[i]; jj < Ap[i + 1]; jj++) {
+            const double z = Ax[jj];
+            const double zhat = coeff * b1[Aj[jj]];
+            const double ratio = zhat / z;          // IEEE: inf/nan ok
+            const double misfit = std::abs(1.0 - ratio);
+            const bool aligned = zhat * z >= 0.0;
+            const bool significant = std::abs(ratio) >= 1e-4;
+            double out = (aligned && significant) ? misfit : 0.0;
+            if (out > 0.0 && out < tiny) out = 1e-4;
+            if (!(out == out)) out = 0.0;           // NaN (z == zhat == 0)
+            Ax[jj] = out;
+        }
+    }
+}
+
+// ---------------------------------------------------------------------------
+// relative distance filter: keep off-diagonal S_ij < epsilon * min_k S_ik,
+// set the stored diagonal to 1, zero the rest (the caller compacts).
+// ---------------------------------------------------------------------------
+template <typename Ix>
+static void distance_filter_impl(I n, const Ix* Ap, const Ix* Aj, double* Ax,
+                                 double epsilon) {
+    for (I i = 0; i < n; i++) {
+        double dmin = std::numeric_limits<double>::infinity();
+        for (I jj = Ap[i]; jj < Ap[i + 1]; jj++)
+            if (Aj[jj] != i && Ax[jj] < dmin) dmin = Ax[jj];
+        const double thresh = epsilon * dmin;
+        for (I jj = Ap[i]; jj < Ap[i + 1]; jj++) {
+            if (Aj[jj] == i) Ax[jj] = 1.0;
+            else if (!(Ax[jj] < thresh)) Ax[jj] = 0.0;
+        }
+    }
+}
+
+// ---------------------------------------------------------------------------
+// the tail of the evolution measure in one call: distance filter in place,
+// the filtered transpose by a counting scatter, then per row the union
+// 0.5 (a + a^T) with a forced unit diagonal, inverted and scaled so that
+// its largest entry is 1.  Output capacity 2 nnz + n; returns nnz.
+// ---------------------------------------------------------------------------
+template <typename Ix>
+static I evolution_epilogue_impl(I n, const Ix* Ap, const Ix* Aj, double* Ax,
+                                 double eps, int symmetrize,
+                                 Ix* Op, Ix* Oj, double* Ox) {
+    const double inf = std::numeric_limits<double>::infinity();
+    for (I i = 0; i < n; i++) {
+        double dmin = inf;
+        for (Ix jj = Ap[i]; jj < Ap[i + 1]; jj++)
+            if ((I)Aj[jj] != i && Ax[jj] < dmin) dmin = Ax[jj];
+        const double thresh = eps * dmin;
+        for (Ix jj = Ap[i]; jj < Ap[i + 1]; jj++) {
+            if ((I)Aj[jj] == i) Ax[jj] = 1.0;
+            else if (!(Ax[jj] < thresh)) Ax[jj] = 0.0;
+        }
+    }
+
+    std::vector<Ix> Tp(n + 1, 0);
+    std::vector<Ix> Tj;
+    std::vector<double> Tx;
+    if (symmetrize) {
+        for (I i = 0; i < n; i++)
+            for (Ix jj = Ap[i]; jj < Ap[i + 1]; jj++)
+                if (Ax[jj] != 0.0) Tp[(I)Aj[jj] + 1]++;
+        for (I t = 0; t < n; t++) Tp[t + 1] += Tp[t];
+        Tj.resize(Tp[n]);
+        Tx.resize(Tp[n]);
+        std::vector<Ix> fill(Tp.begin(), Tp.end() - 1);
+        for (I i = 0; i < n; i++)
+            for (Ix jj = Ap[i]; jj < Ap[i + 1]; jj++)
+                if (Ax[jj] != 0.0) {
+                    const Ix pos = fill[(I)Aj[jj]]++;
+                    Tj[pos] = (Ix)i;
+                    Tx[pos] = Ax[jj];
+                }
+    }
+
+    I nnz = 0;
+    Op[0] = 0;
+    for (I i = 0; i < n; i++) {
+        const I row_start = nnz;
+        Ix ka = Ap[i], ea = Ap[i + 1];
+        Ix kt = symmetrize ? Tp[i] : ea;
+        const Ix et = symmetrize ? Tp[i + 1] : ea;
+        bool wrote_diag = false;
+        while (true) {
+            while (ka < ea && Ax[ka] == 0.0) ka++;       // skip dropped
+            const bool ha = ka < ea, ht = kt < et;
+            if (!ha && !ht) break;
+            I ja = ha ? (I)Aj[ka] : n, jt = ht ? (I)Tj[kt] : n;
+            I j; double v;
+            if (ja == jt)      { v = 0.5 * (Ax[ka] + Tx[kt]); j = ja;
+                                 ka++; kt++; }
+            else if (ja < jt)  { v = symmetrize ? 0.5 * Ax[ka] : Ax[ka];
+                                 j = ja; ka++; }
+            else               { v = 0.5 * Tx[kt]; j = jt; kt++; }
+            if (!wrote_diag && j >= i) {
+                if (j == i) { v = 1.0; wrote_diag = true; }
+                else { Oj[nnz] = (Ix)i; Ox[nnz++] = 1.0; wrote_diag = true; }
+            }
+            Oj[nnz] = (Ix)j;
+            Ox[nnz++] = v;
+        }
+        if (!wrote_diag) { Oj[nnz] = (Ix)i; Ox[nnz++] = 1.0; }
+        double mx = 0.0;
+        for (I t = row_start; t < nnz; t++) {
+            Ox[t] = 1.0 / Ox[t];
+            const double a = std::abs(Ox[t]);
+            if (a > mx) mx = a;
+        }
+        if (mx != 0.0) {
+            const double s = 1.0 / mx;
+            for (I t = row_start; t < nnz; t++) Ox[t] *= s;
+        }
+        Op[i + 1] = (Ix)nnz;
+    }
+    return nnz;
+}
+
+// ---------------------------------------------------------------------------
+// direct interpolation in one pass.  F row i: alpha = (sum of all negative
+// off-diagonal a_ij) / (the same over strong C neighbours), beta likewise
+// for the positive ones (all positive off-diagonal mass lumped into the
+// diagonal when no strong C neighbour is positive); P_ij = -(alpha or
+// beta) / d_i * a_ij over the strong C neighbours j.  C row i: a 1 at
+// cmap[i].  A sorted CSR, C the strength pattern (sorted; values unused).
+// Capacity C.nnz + n; returns nnz.
+// ---------------------------------------------------------------------------
+template <typename Ix>
+static I direct_interpolation_impl(I n,
+                                   const Ix* Ap, const Ix* Aj,
+                                   const double* Ax,
+                                   const Ix* Cp, const Ix* Cj,
+                                   const int32_t* splitting, const Ix* cmap,
+                                   Ix* Pp, Ix* Pj, double* Px) {
+    I nnz = 0;
+    Pp[0] = 0;
+    for (I i = 0; i < n; i++) {
+        if (splitting[i] == 1) {
+            Pj[nnz] = cmap[i];
+            Px[nnz++] = 1.0;
+            Pp[i + 1] = nnz;
+            continue;
+        }
+        double diag = 0.0, sum_all_neg = 0.0, sum_all_pos = 0.0;
+        for (I jj = Ap[i]; jj < Ap[i + 1]; jj++) {
+            const double x = Ax[jj];
+            if (Aj[jj] == i) diag += x;
+            else if (x < 0.0) sum_all_neg += x;
+            else sum_all_pos += x;
+        }
+        double ssn = 0.0, ssp = 0.0;
+        const I ae = Ap[i + 1];
+        I a = Ap[i];
+        for (I cc = Cp[i]; cc < Cp[i + 1]; cc++) {
+            const I j = Cj[cc];
+            if (j == i || splitting[j] != 1) continue;
+            while (a < ae && Aj[a] < j) a++;
+            if (a < ae && Aj[a] == j) {
+                const double x = Ax[a];
+                if (x < 0.0) ssn += x; else ssp += x;
+            }
+        }
+        const bool no_pos = (ssp == 0.0);
+        const double d = diag + (no_pos ? sum_all_pos : 0.0);
+        const double alpha = (ssn != 0.0) ? sum_all_neg / ssn : 0.0;
+        const double beta = no_pos ? 0.0 : sum_all_pos / ssp;
+        const double negc = -alpha / d;   // d == 0 -> inf, as in numpy
+        const double posc = -beta / d;
+        a = Ap[i];
+        for (I cc = Cp[i]; cc < Cp[i + 1]; cc++) {
+            const I j = Cj[cc];
+            if (j == i || splitting[j] != 1) continue;
+            while (a < ae && Aj[a] < j) a++;
+            if (a < ae && Aj[a] == j) {
+                const double x = Ax[a];
+                Pj[nnz] = cmap[j];
+                Px[nnz++] = (x < 0.0 ? negc : posc) * x;
+            }
+        }
+        Pp[i + 1] = nnz;
+    }
+    return nnz;
+}
+
+// ---------------------------------------------------------------------------
+// standard (distance-two) interpolation in one pass.  F row i:
+// P_ik = -(a_ik + sum_j (a_ij / denom_ij) a_jk) / d_i over the strong C
+// neighbours k of i, j over its strong F neighbours, denom_ij = sum of
+// a_jm over j's strong C neighbours m shared with i; a zero denominator
+// lumps a_ij into d_i = a_ii + (weak off-diagonal mass of row i) + lump.
+// C row i: a 1 at cmap[i]; a row with d_i == 0 emits nothing.  A and S
+// (A's values on the strength pattern) sorted CSR.  Returns nnz.
+// ---------------------------------------------------------------------------
+template <typename Ix>
+static I standard_interpolation_impl(I n,
+                                     const Ix* Ap, const Ix* Aj,
+                                     const double* Ax,
+                                     const Ix* Sp, const Ix* Sj,
+                                     const double* Sx,
+                                     const int32_t* splitting,
+                                     const Ix* cmap,
+                                     Ix* Pp, Ix* Pj, double* Px) {
+    std::vector<double> contrib(n, 0.0);
+    std::vector<char> inCi(n, 0);
+    I nnz = 0;
+    Pp[0] = 0;
+    for (I i = 0; i < n; i++) {
+        if (splitting[i] == 1) {
+            Pj[nnz] = cmap[i];
+            Px[nnz++] = 1.0;
+            Pp[i + 1] = nnz;
+            continue;
+        }
+        for (I jj = Sp[i]; jj < Sp[i + 1]; jj++) {
+            const I j = Sj[jj];
+            if (j != i && splitting[j] == 1) inCi[j] = 1;
+        }
+        double lump = 0.0;
+        for (I jj = Sp[i]; jj < Sp[i + 1]; jj++) {
+            const I j = Sj[jj];
+            if (j == i || splitting[j] == 1) continue;  // strong F only
+            double denom = 0.0;
+            for (I kk = Sp[j]; kk < Sp[j + 1]; kk++) {
+                const I m = Sj[kk];
+                if (m != j && splitting[m] == 1 && inCi[m]) denom += Sx[kk];
+            }
+            if (denom == 0.0) { lump += Sx[jj]; continue; }
+            const double bij = Sx[jj] / denom;
+            for (I kk = Sp[j]; kk < Sp[j + 1]; kk++) {
+                const I m = Sj[kk];
+                if (m != j && splitting[m] == 1 && inCi[m])
+                    contrib[m] += bij * Sx[kk];
+            }
+        }
+        double diag = 0.0, offA = 0.0;
+        for (I jj = Ap[i]; jj < Ap[i + 1]; jj++) {
+            if (Aj[jj] == i) diag += Ax[jj];
+            else offA += Ax[jj];
+        }
+        double offS = 0.0;
+        for (I jj = Sp[i]; jj < Sp[i + 1]; jj++)
+            if (Sj[jj] != i) offS += Sx[jj];
+        const double d = diag + (offA - offS) + lump;
+        if (d != 0.0) {
+            for (I jj = Sp[i]; jj < Sp[i + 1]; jj++) {
+                const I k = Sj[jj];
+                if (k == i || splitting[k] != 1) continue;
+                Pj[nnz] = cmap[k];
+                Px[nnz++] = -(Sx[jj] + contrib[k]) / d;
+            }
+        }
+        for (I jj = Sp[i]; jj < Sp[i + 1]; jj++) {
+            const I j = Sj[jj];
+            inCi[j] = 0;
+            contrib[j] = 0.0;
+        }
+        Pp[i + 1] = nnz;
+    }
+    return nnz;
+}
+
+// ---------------------------------------------------------------------------
+// batched Thomas solve of independent tridiagonal lines, the inner solve of
+// the host line relaxations: all arrays (nlines, L) row-major, R
+// overwritten with the solution; a zero pivot is taken as 1, as the numpy
+// form does.
+// ---------------------------------------------------------------------------
+static void thomas_lines_impl(I nlines, I L,
+                              const double* dl, const double* dm,
+                              const double* du, double* R, double* cp) {
+    #pragma omp parallel for schedule(static)
+    for (I l = 0; l < nlines; l++) {
+        const double* a = dl + (size_t)l * L;
+        const double* b = dm + (size_t)l * L;
+        const double* c = du + (size_t)l * L;
+        double* x = R + (size_t)l * L;
+        double* w = cp + (size_t)l * L;
+        double den = b[0] == 0.0 ? 1.0 : b[0];
+        w[0] = c[0] / den;
+        x[0] = x[0] / den;
+        for (I i = 1; i < L; i++) {
+            den = b[i] - a[i] * w[i - 1];
+            if (den == 0.0) den = 1.0;
+            w[i] = c[i] / den;
+            x[i] = (x[i] - a[i] * x[i - 1]) / den;
+        }
+        for (I i = L - 2; i >= 0; i--)
+            x[i] -= w[i] * x[i + 1];
+    }
+}
+
+extern "C" {
+
+void rs_cf_splitting(I n, const I* Sp, const I* Sj, const I* Tp,
+                     const I* Tj, int32_t* splitting) {
+    rs_cf_splitting_impl<I>(n, Sp, Sj, Tp, Tj, splitting);
+}
+
+void rs_cf_splitting_i32(I n, const int32_t* Sp, const int32_t* Sj,
+                         const int32_t* Tp, const int32_t* Tj,
+                         int32_t* splitting) {
+    rs_cf_splitting_impl<int32_t>(n, Sp, Sj, Tp, Tj, splitting);
+}
+
+I identity_minus_scaled(I n, const I* Ap, const I* Aj, const double* Ax,
+                        double c, double* Sx) {
+    return identity_minus_scaled_impl<I>(n, Ap, Aj, Ax, c, Sx);
+}
+
+I identity_minus_scaled_i32(I n, const int32_t* Ap, const int32_t* Aj,
+                            const double* Ax, double c, double* Sx) {
+    return identity_minus_scaled_impl<int32_t>(n, Ap, Aj, Ax, c, Sx);
+}
+
+I identity_minus_colscaled(I n, const I* Ap, const I* Aj, const double* Ax,
+                           const double* Dinv, double c, double* Sx) {
+    return identity_minus_colscaled_impl<I>(n, Ap, Aj, Ax, Dinv, c, Sx);
+}
+
+I identity_minus_colscaled_i32(I n, const int32_t* Ap, const int32_t* Aj,
+                               const double* Ax, const double* Dinv,
+                               double c, double* Sx) {
+    return identity_minus_colscaled_impl<int32_t>(n, Ap, Aj, Ax, Dinv, c,
+                                                  Sx);
+}
+
+I pattern_values(I n, const I* Cp, const I* Cj, const I* Ap, const I* Aj,
+                 const double* Ax, double* out) {
+    return pattern_values_impl<I>(n, Cp, Cj, Ap, Aj, Ax, out);
+}
+
+I pattern_values_i32(I n, const int32_t* Cp, const int32_t* Cj,
+                     const int32_t* Ap, const int32_t* Aj,
+                     const double* Ax, double* out) {
+    return pattern_values_impl<int32_t>(n, Cp, Cj, Ap, Aj, Ax, out);
+}
+
+void evolution_nulldim1(I n, const I* Ap, const I* Aj, double* Ax,
+                        const double* b1, double tiny) {
+    evolution_nulldim1_impl<I>(n, Ap, Aj, Ax, b1, tiny);
+}
+
+void evolution_nulldim1_i32(I n, const int32_t* Ap, const int32_t* Aj,
+                            double* Ax, const double* b1, double tiny) {
+    evolution_nulldim1_impl<int32_t>(n, Ap, Aj, Ax, b1, tiny);
+}
+
+void distance_filter(I n, const I* Ap, const I* Aj, double* Ax,
+                     double epsilon) {
+    distance_filter_impl<I>(n, Ap, Aj, Ax, epsilon);
+}
+
+void distance_filter_i32(I n, const int32_t* Ap, const int32_t* Aj,
+                         double* Ax, double epsilon) {
+    distance_filter_impl<int32_t>(n, Ap, Aj, Ax, epsilon);
+}
+
+I evolution_epilogue(I n, const I* Ap, const I* Aj, double* Ax, double eps,
+                     I symmetrize, I* Op, I* Oj, double* Ox) {
+    return evolution_epilogue_impl<I>(n, Ap, Aj, Ax, eps, (int)symmetrize,
+                                      Op, Oj, Ox);
+}
+
+I evolution_epilogue_i32(I n, const int32_t* Ap, const int32_t* Aj,
+                         double* Ax, double eps, I symmetrize,
+                         int32_t* Op, int32_t* Oj, double* Ox) {
+    return evolution_epilogue_impl<int32_t>(n, Ap, Aj, Ax, eps,
+                                            (int)symmetrize, Op, Oj, Ox);
+}
+
+I direct_interpolation(I n, const I* Ap, const I* Aj, const double* Ax,
+                       const I* Cp, const I* Cj, const int32_t* splitting,
+                       const I* cmap, I* Pp, I* Pj, double* Px) {
+    return direct_interpolation_impl<I>(n, Ap, Aj, Ax, Cp, Cj, splitting,
+                                        cmap, Pp, Pj, Px);
+}
+
+I direct_interpolation_i32(I n, const int32_t* Ap, const int32_t* Aj,
+                           const double* Ax, const int32_t* Cp,
+                           const int32_t* Cj, const int32_t* splitting,
+                           const int32_t* cmap, int32_t* Pp, int32_t* Pj,
+                           double* Px) {
+    return direct_interpolation_impl<int32_t>(n, Ap, Aj, Ax, Cp, Cj,
+                                              splitting, cmap, Pp, Pj, Px);
+}
+
+I standard_interpolation(I n, const I* Ap, const I* Aj, const double* Ax,
+                         const I* Sp, const I* Sj, const double* Sx,
+                         const int32_t* splitting, const I* cmap,
+                         I* Pp, I* Pj, double* Px) {
+    return standard_interpolation_impl<I>(n, Ap, Aj, Ax, Sp, Sj, Sx,
+                                          splitting, cmap, Pp, Pj, Px);
+}
+
+I standard_interpolation_i32(I n, const int32_t* Ap, const int32_t* Aj,
+                             const double* Ax, const int32_t* Sp,
+                             const int32_t* Sj, const double* Sx,
+                             const int32_t* splitting, const int32_t* cmap,
+                             int32_t* Pp, int32_t* Pj, double* Px) {
+    return standard_interpolation_impl<int32_t>(n, Ap, Aj, Ax, Sp, Sj, Sx,
+                                                splitting, cmap, Pp, Pj,
+                                                Px);
+}
+
+void thomas_lines(I nlines, I L, const double* dl, const double* dm,
+                  const double* du, double* R, double* cp) {
+    thomas_lines_impl(nlines, L, dl, dm, du, R, cp);
 }
 
 }  // extern "C"

@@ -40,7 +40,7 @@ from ..util.utils import not_ported, unpack_arg
 from .sharding import ShardedSolver, _pad_ell, pad_to
 
 __all__ = ["general_sa_setup_sharded", "rootnode_setup_sharded",
-           "adaptive_sa_setup_sharded", "classical_setup_sharded"]
+           "adaptive_sa_setup_sharded"]
 
 _DISTRIBUTED = "the distributed path"
 
@@ -257,8 +257,3 @@ def rootnode_setup_sharded(*args, **kwargs):
 def adaptive_sa_setup_sharded(*args, **kwargs):
     """Adaptive SA setup with a device numeric phase: not ported yet."""
     raise not_ported("adaptive_sa_setup_sharded", "the other constructors")
-
-
-def classical_setup_sharded(*args, **kwargs):
-    """Classical AMG setup with a device numeric phase: not ported yet."""
-    raise not_ported("classical_setup_sharded", "classical")

@@ -5,9 +5,11 @@ Richardson, the polynomial (Chebyshev) smoother applied by Horner's rule,
 multicolor Gauss-Seidel in mask form (one full matvec per color: cheap on
 DIA levels) and in gather form (each row of the matrix touched once per
 sweep: for padded-ELL levels), multicolor SOR, block Jacobi and multicolor
-block Gauss-Seidel, with forward, backward and symmetric sweeps.  Every
-step is a matvec, or a gather, plus vector updates.  The NE/NR, Schwarz,
-line and Krylov smoothers are not ported yet and raise.
+block Gauss-Seidel, with forward, backward and symmetric sweeps, and the
+scalar line smoothers (line Jacobi and zebra line Gauss-Seidel: every line
+of a grid solved at once by parallel cyclic reduction).  Every step is a
+matvec, or a gather, plus vector updates.  The NE/NR, Schwarz, Krylov and
+node-blocked line smoothers are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from ..util.utils import not_ported, torch_dtype
 __all__ = ["SmootherData", "jacobi_step", "richardson_step",
            "polynomial_step", "multicolor_gs_step",
            "multicolor_gs_gather_step", "block_jacobi_step",
-           "apply_smoother"]
+           "batched_tridiag_pcr", "line_relaxation_step", "apply_smoother"]
 
 
 @dataclass(frozen=True)
@@ -42,6 +44,11 @@ class SmootherData:
     color_rows: Optional[torch.Tensor] = None    # (C, R), -1 padded
     color_cols: Optional[torch.Tensor] = None    # (C, R, W)
     color_data: Optional[torch.Tensor] = None    # (C, R, W)
+    # line smoothers: (3, nlines, L) sub-, main and super-diagonal of the
+    # lines along grid axis ``line_axis``
+    line_tri: Optional[torch.Tensor] = None
+    grid: Optional[Tuple[int, ...]] = None
+    line_axis: int = 0
 
     def astype(self, dtype):
         """This state with every floating-point array cast to ``dtype``
@@ -53,7 +60,8 @@ class SmootherData:
         return replace(self, dinv=cast(self.dinv),
                        color_masks=cast(self.color_masks),
                        block_dinv=cast(self.block_dinv),
-                       color_data=cast(self.color_data))
+                       color_data=cast(self.color_data),
+                       line_tri=cast(self.line_tri))
 
 
 def jacobi_step(A, dinv, x, b, omega=1.0):
@@ -126,6 +134,53 @@ def _multicolor_block_gs(A, sm, x, b, reverse):
     return x
 
 
+def batched_tridiag_pcr(dl, d, du, B):
+    """Solve the tridiagonal systems ``(dl, d, du) x = B``, one per row of
+    the (nlines, L) arrays, by parallel cyclic reduction: log2(L) rounds,
+    each eliminating the couplings at distance s from every row at once.
+    Neighbours beyond a line's end are identity rows."""
+    L = d.shape[-1]
+
+    def shift(a, s, fill=0.0):
+        # a[..., i + s], ``fill`` beyond the ends
+        pad = torch.full(a.shape[:-1] + (abs(s),), fill, dtype=a.dtype,
+                         device=a.device)
+        if s > 0:
+            return torch.cat([a[..., s:], pad], dim=-1)
+        return torch.cat([pad, a[..., :s]], dim=-1)
+
+    s = 1
+    while s < L:
+        alpha = -dl / shift(d, -s, 1.0)
+        beta = -du / shift(d, s, 1.0)
+        d = d + alpha * shift(du, -s) + beta * shift(dl, s)
+        B = B + alpha * shift(B, -s) + beta * shift(B, s)
+        dl = alpha * shift(dl, -s)
+        du = beta * shift(du, s)
+        s *= 2
+    return B / d
+
+
+def line_relaxation_step(A, sm: SmootherData, x, b, zebra_phase=None):
+    """One damped line-Jacobi step (``zebra_phase`` None), or one zebra
+    half-sweep over the even (0) or odd (1) lines: exact solves of the
+    residual along the lines of ``sm.line_axis``."""
+    if sm.line_tri.dim() != 3:
+        raise not_ported("node-blocked line relaxation",
+                         "multicolor GS/SOR/block smoothers")
+    grid = sm.grid
+    axis = sm.line_axis % len(grid)
+    Rg = torch.movedim((b - A.matvec(x)).reshape(grid), axis, -1)
+    lead = Rg.shape[:-1]
+    dx = batched_tridiag_pcr(sm.line_tri[0], sm.line_tri[1], sm.line_tri[2],
+                             Rg.reshape(-1, Rg.shape[-1]))
+    if zebra_phase is not None:
+        keep = torch.arange(dx.shape[0], device=dx.device) % 2 == zebra_phase
+        dx = dx * keep[:, None].to(dx.dtype)
+    dxg = torch.movedim(dx.reshape(lead + (dx.shape[-1],)), -1, axis)
+    return x + sm.omega * dxg.reshape(-1)
+
+
 def _sweeps(sweep):
     """The ``reverse`` flags of a sweep: forward, backward, or both."""
     flags = {"forward": (False,), "backward": (True,),
@@ -164,6 +219,14 @@ def apply_smoother(sm: SmootherData, A, x, b):
                          "multicolor_block_gauss_seidel"):
             for reverse in _sweeps(sm.sweep):
                 x = _multicolor_block_gs(A, sm, x, b, reverse)
+        elif sm.kind == "line_jacobi":
+            x = line_relaxation_step(A, sm, x, b)
+        elif sm.kind in ("zebra", "line_gauss_seidel"):
+            phases = (1, 0) if sm.sweep == "backward" else (0, 1)
+            if sm.sweep == "symmetric":
+                phases = (0, 1, 1, 0)
+            for ph in phases:
+                x = line_relaxation_step(A, sm, x, b, zebra_phase=ph)
         else:
             raise not_ported(f"smoother kind {sm.kind!r}",
                              "multicolor GS/SOR/block smoothers")

@@ -1,8 +1,11 @@
 """Host relaxation methods (numpy/scipy), in place on ``x``.
 
 Port of ``make_system``, ``gauss_seidel``, ``jacobi``, ``sor``,
-``polynomial``, ``block_jacobi``, ``block_gauss_seidel`` and
-``gauss_seidel_indexed`` from ``pyamg_tpu/relaxation/relaxation.py``.  They
+``polynomial``, ``block_jacobi``, ``block_gauss_seidel``,
+``gauss_seidel_indexed`` and the scalar line relaxations ``zebra``,
+``line_gauss_seidel`` and ``line_jacobi`` (exact tridiagonal solves along
+one grid axis; compiled Thomas solves where ``amg_core`` loaded) from
+``pyamg_tpu/relaxation/relaxation.py``.  They
 serve the setup phase (``improve_candidates``), the iterative coarse
 solvers and, in the tests, the lexicographic oracle of the device
 smoothers.  Real float64 Gauss-Seidel runs the compiled in-place sweeps of
@@ -19,11 +22,12 @@ from scipy.sparse.linalg import spsolve_triangular
 
 from ..amg_core import (bsr_gauss_seidel_native,
                         gauss_seidel_indexed_native,
-                        gauss_seidel_sweeps_native)
+                        gauss_seidel_sweeps_native, thomas_lines_native)
 from ..util.utils import get_block_diag, to_csr
 
 __all__ = ["make_system", "sor", "gauss_seidel", "jacobi", "polynomial",
-           "block_jacobi", "block_gauss_seidel", "gauss_seidel_indexed"]
+           "block_jacobi", "block_gauss_seidel", "gauss_seidel_indexed",
+           "zebra", "line_gauss_seidel", "line_jacobi"]
 
 _SWEEPS = ("forward", "backward", "symmetric")
 
@@ -251,4 +255,129 @@ def gauss_seidel_indexed(A, x, b, indices, iterations=1, sweep="forward"):
             one_pass(indices)
         if sweep in ("backward", "symmetric"):
             one_pass(indices[::-1])
+    return _store(x, x_v)
+
+
+def _usable_grid(A, grid):
+    """``grid`` (default ``A.grid``) as a tuple when it describes A's rows,
+    else None."""
+    if grid is None:
+        grid = getattr(A, "grid", None)
+    if grid is None or int(np.prod(grid)) != A.shape[0]:
+        return None
+    return tuple(int(g) for g in grid)
+
+
+def zebra(A, x, b, iterations=1, sweep="symmetric", grid=None, axis=None,
+          omega=1.0):
+    """Zebra line relaxation, in place: exact tridiagonal solves along one
+    grid axis (``axis``, default the most strongly coupled), first the even
+    lines and then the odd ones ("forward"; the reverse for "backward",
+    both for "symmetric").  ``grid`` defaults to ``A.grid``; without a grid
+    that describes A it is symmetric Gauss-Seidel."""
+    A, x_v, b_v = make_system(A, x, b)
+    grid = _usable_grid(A, grid)
+    if grid is None:
+        return gauss_seidel(A, x, b, iterations=iterations,
+                            sweep="symmetric")
+    lines, unlines, _solve, solve_phase = _line_setup(A, grid, axis)
+    phases = (0, 1) if sweep in ("forward", "symmetric") else (1, 0)
+    for _ in range(iterations):
+        for ph in phases:
+            x_v += omega * unlines(solve_phase(lines(b_v - A @ x_v), ph))
+    return _store(x, x_v)
+
+
+def _line_setup(A, grid, axis):
+    """The line machinery of a grid operator: ``(lines, unlines,
+    solve_lines, solve_phase)`` for the tridiagonal lines along ``axis``
+    (default: the axis of the largest coupling).  ``lines`` reshapes a
+    vector to (nlines, L), ``unlines`` back; ``solve_lines`` solves every
+    line, ``solve_phase(R, ph)`` the lines of parity ``ph`` (zeros on the
+    others)."""
+    n = A.shape[0]
+    d = len(grid)
+    strides = [int(np.prod(grid[k + 1:])) for k in range(d)]
+    if axis is None:
+        axis = int(np.argmax([np.abs(A.diagonal(s)).sum() for s in strides]))
+    axis = axis % d
+    stride = strides[axis]
+    L = grid[axis]
+
+    d_flat = A.diagonal().copy()
+    d_flat[d_flat == 0] = 1.0
+    du_flat = np.zeros(n, dtype=A.dtype)
+    du_flat[:n - stride] = A.diagonal(stride)
+    dl_flat = np.zeros(n, dtype=A.dtype)
+    dl_flat[stride:] = A.diagonal(-stride)
+    coords = np.unravel_index(np.arange(n), grid)
+    du_flat[coords[axis] == L - 1] = 0.0
+    dl_flat[coords[axis] == 0] = 0.0
+
+    def lines(v):
+        return np.moveaxis(v.reshape(grid), axis, -1).reshape(-1, L)
+
+    def unlines(M):
+        shp = tuple(grid[k] for k in range(d) if k != axis) + (L,)
+        return np.moveaxis(M.reshape(shp), -1, axis).ravel()
+
+    dl, dm, du = lines(dl_flat), lines(d_flat), lines(du_flat)
+    parity = np.arange(dm.shape[0]) % 2
+    real = not np.iscomplexobj(dm)
+    tri = tuple(np.ascontiguousarray(t, dtype=np.float64)
+                for t in (dl, dm, du)) if real else None
+
+    def solve_lines(R):
+        if tri is not None and not np.iscomplexobj(R):
+            xp = np.array(R, dtype=np.float64, order="C", copy=True)
+            if thomas_lines_native(*tri, xp):
+                return xp
+        cp = np.zeros_like(dm)
+        xp = np.zeros_like(R)
+        cp[:, 0] = du[:, 0] / dm[:, 0]
+        xp[:, 0] = R[:, 0] / dm[:, 0]
+        for i in range(1, L):
+            den = dm[:, i] - dl[:, i] * cp[:, i - 1]
+            den = np.where(den == 0, 1.0, den)
+            cp[:, i] = du[:, i] / den
+            xp[:, i] = (R[:, i] - dl[:, i] * xp[:, i - 1]) / den
+        for i in range(L - 2, -1, -1):
+            xp[:, i] -= cp[:, i] * xp[:, i + 1]
+        return xp
+
+    # each parity's lines contiguous: a half-sweep solves only its own
+    tri_ph = None if tri is None else tuple(
+        tuple(np.ascontiguousarray(t[ph::2]) for t in tri) for ph in (0, 1))
+
+    def solve_phase(R, ph):
+        if tri_ph is not None and not np.iscomplexobj(R):
+            Rp = np.array(R[ph::2], dtype=np.float64, order="C", copy=True)
+            if thomas_lines_native(*tri_ph[ph], Rp):
+                out = np.zeros(R.shape, dtype=Rp.dtype)
+                out[ph::2] = Rp
+                return out
+        xp = solve_lines(R)
+        xp[parity != ph] = 0.0
+        return xp
+
+    return lines, unlines, solve_lines, solve_phase
+
+
+def line_gauss_seidel(A, x, b, iterations=1, sweep="symmetric", grid=None,
+                      axis=None):
+    """Even/odd line Gauss-Seidel: :func:`zebra`."""
+    return zebra(A, x, b, iterations=iterations, sweep=sweep, grid=grid,
+                 axis=axis)
+
+
+def line_jacobi(A, x, b, iterations=1, grid=None, axis=None, omega=0.7):
+    """Damped line Jacobi, in place: every line solved from one residual;
+    weighted Jacobi without a grid that describes A."""
+    A, x_v, b_v = make_system(A, x, b)
+    grid = _usable_grid(A, grid)
+    if grid is None:
+        return jacobi(A, x, b, iterations=iterations, omega=omega)
+    lines, unlines, solve_lines, _phase = _line_setup(A, grid, axis)
+    for _ in range(iterations):
+        x_v += omega * unlines(solve_lines(lines(b_v - A @ x_v)))
     return _store(x, x_v)

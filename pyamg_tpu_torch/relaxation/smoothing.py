@@ -2,10 +2,11 @@
 
 Port of ``pyamg_tpu/relaxation/smoothing.py`` for jacobi, richardson,
 chebyshev and polynomial smoothing, multicolor Gauss-Seidel and SOR, block
-Jacobi and block Gauss-Seidel.  Sequential methods run as their multicolor
-form: the colors are geometric on a structured grid (2, or 2^d for a full
-3^d stencil) and greedy first-fit otherwise; a level whose operator is
-padded ELL gets the gather arrays of
+Jacobi and block Gauss-Seidel, and the scalar line smoothers (line Jacobi,
+zebra; on a level without a grid, multicolor Gauss-Seidel).  Sequential
+methods run as their multicolor form: the colors are geometric on a
+structured grid (2, or 2^d for a full 3^d stencil) and greedy first-fit
+otherwise; a level whose operator is padded ELL gets the gather arrays of
 :func:`~pyamg_tpu_torch.relaxation.device.multicolor_gs_gather_step`, any
 other the color masks.  Smoother state is computed on the host in numpy and
 moved to the level's device once.
@@ -325,9 +326,51 @@ def _make_smoother_data(lvl, fn_name, kwargs, dtype, device):
                             color_masks=dev(_color_masks(
                                 A_csr, blocksize=bs, dtype=rdt)))
 
+    if fn_name in ("line_jacobi", "zebra", "line_gauss_seidel"):
+        n = A_csr.shape[0]
+        q = max(getattr(lvl, "blocksize", 1), 1)
+        if grid is not None and q > 1 and int(np.prod(grid)) * q == n:
+            raise not_ported(f"node-blocked smoother {fn_name!r}",
+                             "multicolor GS/SOR/block smoothers")
+        if grid is None or int(np.prod(grid)) != n:
+            # a level without its grid (every coarse level of classical
+            # AMG): multicolor Gauss-Seidel, which needs no geometry
+            return make_smoother_data(lvl, "gauss_seidel",
+                                      {"iterations": iterations,
+                                       "sweep": sweep}, dtype=dtype,
+                                      device=device)
+        grid = tuple(int(g) for g in grid)
+        strides = _grid_strides(grid)
+        axis = kwargs.get("axis")
+        if axis is None:        # the most strongly coupled direction
+            axis = int(np.argmax([np.abs(A_csr.diagonal(st)).sum()
+                                  for st in strides]))
+        axis = axis % len(grid)
+        stride = strides[axis]
+        L = grid[axis]
+        d_flat = A_csr.diagonal().astype(A_csr.dtype)
+        du_flat = np.zeros(n, dtype=A_csr.dtype)
+        du_flat[:n - stride] = A_csr.diagonal(stride)
+        dl_flat = np.zeros(n, dtype=A_csr.dtype)
+        dl_flat[stride:] = A_csr.diagonal(-stride)
+        coords = np.unravel_index(np.arange(n), grid)
+        du_flat[coords[axis] == L - 1] = 0.0
+        dl_flat[coords[axis] == 0] = 0.0
+
+        def lines(v):
+            return np.moveaxis(v.reshape(grid), axis, -1).reshape(-1, L)
+
+        tri = np.stack([lines(dl_flat), lines(d_flat), lines(du_flat)])
+        omega = float(kwargs.get("omega",
+                                 0.7 if fn_name == "line_jacobi" else 1.0))
+        return SmootherData(kind="line_jacobi" if fn_name == "line_jacobi"
+                            else "zebra", iterations=iterations, sweep=sweep,
+                            omega=omega, line_tri=dev(tri), grid=grid,
+                            line_axis=axis)
+
     if fn_name in ("jacobi_ne", "gauss_seidel_ne", "gauss_seidel_nr",
-                   "line_jacobi", "zebra", "line_gauss_seidel", "schwarz",
-                   "strength_based_schwarz", "gmres", "cg", "cgne", "cgnr"):
+                   "schwarz", "strength_based_schwarz", "gmres", "cg",
+                   "cgne", "cgnr"):
         raise not_ported(f"smoother {fn_name!r}",
                          "multicolor GS/SOR/block smoothers")
     raise ValueError(f"unknown smoother {fn_name!r}")

@@ -9,7 +9,9 @@ can run, and be compared, with the setup factored out:
 `` "transfer": {"wmap": (n_fine,) array, "fine_grid": ints, "block": ints,``
 ``              "S": DIA dict or None, "SH": DIA dict or None,``
 ``              "degree": int},            # a structured level's P and R, or``
-`` "P": operator dict, "R": operator dict, # any other level's``
+`` "P": operator dict, "R": operator dict, # any other level's, or``
+`` "splitting": (n_fine,) 0/1 array,       # a classical level's host``
+`` "P_csr": scipy matrix, "R_csr": scipy matrix,   # transfers``
 `` "presmoother": smoother dict, "postsmoother": smoother dict}``
 
 (the last level has A alone).  An operator dict is told by its keys:
@@ -21,11 +23,15 @@ can run, and be compared, with the setup factored out:
   position of each coarse dof), ``shape``, and ``restrict`` true for the
   restriction.
 
+A classical level's transfers are built from its host matrices as
+``ruge_stuben_solver`` builds them: the C-point embedding in DIA where it
+is banded, else ``device_operator``'s form.
+
 A smoother dict holds ``kind`` and whichever of ``iterations``, ``sweep``,
-``omega``, ``coefficients``, ``blocksize`` and the arrays ``dinv``,
-``color_masks``, ``block_dinv``, ``color_rows``, ``color_cols``,
-``color_data`` that kind uses.  ``coarse`` is the coarsest level's dense
-pseudoinverse.
+``omega``, ``coefficients``, ``blocksize``, ``grid``, ``line_axis`` and the
+arrays ``dinv``, ``color_masks``, ``block_dinv``, ``color_rows``,
+``color_cols``, ``color_data``, ``line_tri`` that kind uses.  ``coarse`` is
+the coarsest level's dense pseudoinverse.
 
 :func:`ell_hierarchy_from_numpy` does the same for the padded-ELL
 hierarchies of the general device setup (``parallel.setup``): every
@@ -38,6 +44,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..classical.classical import _device_transfers
 from ..multilevel import Level, MultilevelSolver
 from ..parallel.sharding import ShardedSolver
 from ..relaxation.device import SmootherData
@@ -78,7 +85,11 @@ def _smoother(s, tensor, index):
                         blocksize=int(s.get("blocksize", 1)),
                         color_rows=opt("color_rows", index),
                         color_cols=opt("color_cols", index),
-                        color_data=opt("color_data"))
+                        color_data=opt("color_data"),
+                        line_tri=opt("line_tri"),
+                        grid=None if s.get("grid") is None
+                        else tuple(int(g) for g in s["grid"]),
+                        line_axis=int(s.get("line_axis", 0)))
 
 
 def _operator(d, tensor, index):
@@ -127,6 +138,10 @@ def hierarchy_from_numpy(levels, coarse, device, dtype):
         elif "P" in spec:
             lvl.P = _operator(spec["P"], tensor, index)
             lvl.R = _operator(spec["R"], tensor, index)
+        elif "splitting" in spec:
+            lvl.P, lvl.R = _device_transfers(
+                spec["P_csr"], spec["R_csr"], spec["splitting"], dtype,
+                device)
         if "presmoother" in spec:
             lvl.presmoother = _smoother(spec["presmoother"], tensor, index)
             lvl.postsmoother = _smoother(spec["postsmoother"], tensor, index)

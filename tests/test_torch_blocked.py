@@ -433,8 +433,9 @@ def test_blocked_default_without_host_libraries(monkeypatch):
 
 def test_blocked_levels_smoothers_and_options():
     """Block Gauss-Seidel with bs = 2 at level 0 and bs = 3 below on the
-    device; the warning past 5 candidates; other strength measures on a
-    BSR operator still raise."""
+    device; the warning past 5 candidates; the evolution measure on a BSR
+    operator with its candidates (it raised until the classical slice
+    ported it) builds the JAX package's hierarchy."""
     A, B = linear_elasticity((15, 15))
     Ab = sp.bsr_matrix(A.tocoo().tocsr(), blocksize=(2, 2))
     ml = pyamg_tpu_torch.smoothed_aggregation_solver(
@@ -458,9 +459,14 @@ def test_blocked_levels_smoothers_and_options():
     with pytest.warns(UserWarning, match="5 candidates"):
         pyamg_tpu_torch.smoothed_aggregation_solver(
             Ab, B=B6, max_coarse=1000, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pyamg_tpu_torch.smoothed_aggregation_solver(
-            Ab, B=B, strength="evolution", max_coarse=10, device="cpu")
+    ml = pyamg_tpu_torch.smoothed_aggregation_solver(
+        Ab, B=B, strength="evolution", max_coarse=10, device="cpu")
+    ref = _jax_sa(sp.bsr_matrix(A.tocoo().tocsr(), blocksize=(2, 2)), B=B,
+                  strength="evolution", max_coarse=10)
+    assert [lvl.A_csr.shape for lvl in ml.levels] == \
+        [lvl.A_csr.shape for lvl in ref.levels]
+    for lo, lr in zip(ml.levels, ref.levels):
+        assert abs(lo.A_csr - lr.A_csr).max() <= 1e-10 * abs(lr.A_csr).max()
 
 
 def test_blocked_astype_and_float32_operators():

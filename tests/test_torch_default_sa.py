@@ -298,10 +298,13 @@ def test_keep_holds_the_setup_byproducts():
     assert not hasattr(host.levels[0], "A") and host.levels[0].P_csr.nnz
 
 
-# options that raised until the blocked slice ported them: they now build
-# the JAX package's hierarchy (test_torch_blocked.py and
-# test_torch_energy.py compare them level by level)
-PORTED_SINCE = ("two-candidates", "filtered-jacobi", "bsr")
+# options that raised until a later slice ported them: they now build the
+# JAX package's hierarchy (the blocked options: test_torch_blocked.py and
+# test_torch_energy.py compare them level by level; the evolution and
+# energy-based strength and the zebra smoother, of the classical slice:
+# test_torch_strength.py and test_torch_classical.py)
+PORTED_SINCE = ("two-candidates", "filtered-jacobi", "bsr", "evolution",
+                "energy_based", "zebra")
 
 
 @pytest.mark.parametrize("kw", [

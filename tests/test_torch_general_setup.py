@@ -335,9 +335,13 @@ def test_naive_jacobi_setup_matches_jax():
                                                 device="cpu"),
     lambda A: parallel.rootnode_setup_sharded(A),
     lambda A: parallel.adaptive_sa_setup_sharded(A),
-    lambda A: parallel.classical_setup_sharded(A),
+    lambda A: parallel.classical_setup_sharded(A, n_devices=2,
+                                               device="cpu"),
 ], ids=["n_devices", "mesh", "energy", "rootnode", "adaptive", "classical"])
 def test_setups_off_the_ported_path_raise(call):
+    """(``classical_setup_sharded`` raised on any call until the classical
+    slice ported it on one device: over several it still raises;
+    ``test_torch_classical.py`` compares it with the JAX package.)"""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         call(poisson((10, 10), format="csr"))
 

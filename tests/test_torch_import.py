@@ -39,12 +39,16 @@ def test_public_surface():
     import pyamg_tpu_torch
 
     assert sorted(pyamg_tpu_torch.__all__) == sorted(
-        ["gallery", "krylov", "parallel", "smoothed_aggregation_solver",
+        ["classical", "gallery", "krylov", "parallel",
+         "smoothed_aggregation_solver", "ruge_stuben_solver",
          "MultilevelSolver", "MultilevelSolverSet", "multilevel_solver",
          "multilevel_solver_set", "coarse_grid_solver", "SparseDIA",
          "SparseELL", "SparseBDIA", "BlockELL", "__version__"])
-    from pyamg_tpu_torch import (aggregation, amg_core, gallery, krylov,
-                                 relaxation, sparse, strength)
+    from pyamg_tpu_torch import (aggregation, amg_core, classical, gallery,
+                                 krylov, parallel, relaxation, sparse,
+                                 strength)
+    from pyamg_tpu_torch.classical import split
+    from pyamg_tpu_torch.relaxation import device
 
     for module, names in (
             (aggregation, ["parallel_aggregation", "standard_aggregation",
@@ -62,7 +66,24 @@ def test_public_surface():
                       "embedded_dia_transfers", "root_embedded_transfers",
                       "SparseBDIA", "BlockELL"]),
             (strength, ["classical_strength_of_connection",
-                        "symmetric_strength_of_connection"]),
+                        "symmetric_strength_of_connection",
+                        "evolution_strength_of_connection",
+                        "energy_based_strength_of_connection",
+                        "distance_strength_of_connection",
+                        "affinity_distance", "algebraic_distance",
+                        "relaxation_vectors", "apply_distance_filter",
+                        "apply_absolute_distance_filter",
+                        "ode_strength_of_connection"]),
+            (classical, ["ruge_stuben_solver", "direct_interpolation",
+                         "standard_interpolation", "CR", "binormalize",
+                         "split", "cr"]),
+            (split, ["RS", "PMIS", "PMISc", "CLJP", "CLJPc", "MIS",
+                     "grid_splitting", "preprocess_strength"]),
+            (parallel, ["classical_setup_sharded",
+                        "general_sa_setup_sharded"]),
+            (device, ["batched_tridiag_pcr", "line_relaxation_step"]),
+            (relaxation.relaxation, ["zebra", "line_gauss_seidel",
+                                     "line_jacobi"]),
             (amg_core, ["have_native", "standard_aggregation_native",
                         "naive_aggregation_native",
                         "first_fit_coloring_native",
@@ -74,7 +95,15 @@ def test_public_surface():
                         "constraint_project_native", "pattern_gram_native",
                         "masked_spgemm_bsr_native",
                         "constraint_project_bsr_native",
-                        "pattern_gram_bsr_native"]),
+                        "pattern_gram_bsr_native", "rs_cf_splitting",
+                        "identity_minus_scaled_native",
+                        "identity_minus_colscaled_native",
+                        "pattern_values_native", "evolution_nulldim1_native",
+                        "distance_filter_native",
+                        "evolution_epilogue_native",
+                        "direct_interpolation_native",
+                        "standard_interpolation_native",
+                        "thomas_lines_native"]),
             (krylov, KRYLOV),
             (gallery, ["gauge_laplacian", "diffusion_stencil_2d",
                        "linear_elasticity", "regular_triangle_mesh",
@@ -91,7 +120,8 @@ def _entry_points():
     import pyamg_tpu_torch
     from pyamg_tpu_torch import krylov
     from pyamg_tpu_torch.krylov import _common
-    from pyamg_tpu_torch.parallel import general_sa_setup_sharded
+    from pyamg_tpu_torch.parallel import (classical_setup_sharded,
+                                          general_sa_setup_sharded)
     from pyamg_tpu_torch.sparse import (device_operator,
                                         embedded_dia_transfers,
                                         root_embedded_transfers)
@@ -110,7 +140,9 @@ def _entry_points():
             "root_embedded_transfers": root_embedded_transfers,
             "smoothed_aggregation_solver":
                 pyamg_tpu_torch.smoothed_aggregation_solver,
-            "general_sa_setup_sharded": general_sa_setup_sharded}
+            "general_sa_setup_sharded": general_sa_setup_sharded,
+            "ruge_stuben_solver": pyamg_tpu_torch.ruge_stuben_solver,
+            "classical_setup_sharded": classical_setup_sharded}
 
 
 @pytest.mark.parametrize("name", ["MultilevelSolver", "SparseDIA.from_scipy",
@@ -120,6 +152,8 @@ def _entry_points():
                                   "root_embedded_transfers",
                                   "smoothed_aggregation_solver",
                                   "general_sa_setup_sharded",
+                                  "ruge_stuben_solver",
+                                  "classical_setup_sharded",
                                   "krylov.prepare", "krylov.make_matvec",
                                   "gallery.demo"]
                          + [f"krylov.{name}" for name in KRYLOV])

@@ -130,7 +130,10 @@ def test_setups_off_the_ported_path_raise(change):
     """Setups outside the port raise and name their ROADMAP item.  (Block Gauss-Seidel ``improve_candidates``, Richardson
     prolongation smoothing, Gauss-Seidel smoothers and matrices without
     grid metadata raised here before they were ported:
-    ``test_torch_default_sa.py`` now compares them with the JAX package.)"""
+    ``test_torch_default_sa.py`` now compares them with the JAX package.
+    Zebra smoothing and candidate relaxation raised until the classical
+    slice ported the scalar line smoothers: they now build the JAX
+    package's structured hierarchy, zebra smoothers included.)"""
     kw = dict(KW)
     kw.update({k: v for k, v in change.items()
                if k not in ("grid3d", "unstructured")})
@@ -138,5 +141,18 @@ def test_setups_off_the_ported_path_raise(change):
                 format="csr")
     if change.get("unstructured"):
         A = A.tocoo().tocsr()           # a fresh matrix: no grid tag
+    if kw.get("presmoother") == "zebra":
+        ours = pyamg_tpu_torch.smoothed_aggregation_solver(A, device="cpu",
+                                                           **kw)
+        ref = pyamg_tpu.smoothed_aggregation_solver(
+            jax_poisson((20, 20), format="csr"), **kw)
+        assert len(ours.levels) == len(ref.levels) > 1
+        for lo, lr in zip(ours.levels[:-1], ref.levels[:-1]):
+            _csr_close(lo.A_csr, lr.A_csr)
+            assert lo.presmoother.kind == lr.presmoother.kind == "zebra"
+            np.testing.assert_allclose(lo.presmoother.line_tri.numpy(),
+                                       np.asarray(lr.presmoother.line_tri),
+                                       rtol=1e-12)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pyamg_tpu_torch.smoothed_aggregation_solver(A, device="cpu", **kw)

@@ -7,10 +7,16 @@ What is ported:
 * ``smoothed_aggregation_solver(A)`` with its default arguments and most of
   its options, for symmetric problems, scalar (CSR) or blocked (BSR), with
   any number of near-nullspace candidates: the setup runs on the host in
-  numpy/scipy (on a 2-D grid matrix the structured path of grid-block
-  aggregates, otherwise strength, aggregation, tentative and Jacobi- or
+  numpy/scipy (on a 2-D grid matrix, or a grid of any dimension with
+  ``aggregate=("grid", ...)``, the structured path of grid-block
+  aggregates, semicoarsened under anisotropy with line smoothers;
+  otherwise strength, aggregation, tentative and Jacobi- or
   energy-smoothed prolongators and Galerkin products; blocked levels in
-  BSR blocks),
+  BSR blocks); the other symmetric SA front doors ``rootnode_solver``
+  (root-node energy minimization, root-embedded transfers) and
+  ``adaptive_sa_solver`` (candidates found by relaxation); the black-box
+  ``solve``, ``solver`` and ``solver_configuration`` for a Hermitian
+  matrix; the work models ``setup_complexity`` and ``cycle_complexity``;
   and every DIA sparse matvec of the solve -- DIA levels, the DIA
   smoothers of grid transfers, root-embedded DIA transfers -- runs a
   hand-written CUDA kernel (``csrc/dia_matvec.cu``); multicolor
@@ -48,9 +54,12 @@ What is ported:
   (``benchmarks.dia_spmv_bench``).
 """
 
-from . import classical, gallery, krylov, parallel
-from .aggregation import smoothed_aggregation_solver
+from . import classical, complexity, gallery, krylov, parallel
+from .aggregation import (adaptive_sa_solver, rootnode_solver,
+                          smoothed_aggregation_solver)
+from .blackbox import solve, solver, solver_configuration
 from .classical import ruge_stuben_solver
+from .complexity import cycle_complexity, setup_complexity
 from .multilevel import (MultilevelSolver, MultilevelSolverSet,
                          coarse_grid_solver, multilevel_solver,
                          multilevel_solver_set)
@@ -58,8 +67,10 @@ from .sparse import BlockELL, SparseBDIA, SparseDIA, SparseELL
 
 __version__ = "0.1.0"
 
-__all__ = ["classical", "gallery", "krylov", "parallel",
-           "smoothed_aggregation_solver", "ruge_stuben_solver",
+__all__ = ["classical", "complexity", "gallery", "krylov", "parallel",
+           "smoothed_aggregation_solver", "rootnode_solver",
+           "adaptive_sa_solver", "solve", "solver", "solver_configuration",
+           "setup_complexity", "cycle_complexity", "ruge_stuben_solver",
            "MultilevelSolver", "MultilevelSolverSet", "multilevel_solver",
            "multilevel_solver_set", "coarse_grid_solver", "SparseDIA",
            "SparseELL", "SparseBDIA", "BlockELL", "__version__"]

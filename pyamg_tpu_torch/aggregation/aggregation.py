@@ -6,11 +6,15 @@ with any number K of near-nullspace candidates (default: the constant per
 dof of a node, ``kron(ones, eye(bs))``).  Per level, on the host in
 numpy/scipy: relax the candidates (``improve_candidates``), then
 
-* on a 2-D grid (a matrix carrying ``A.grid``, as the gallery builds it)
-  with Jacobi, Richardson or no prolongation smoothing: grid-block
-  aggregation -> tentative prolongator -> ``P = S T`` with ``S = I -
-  omega/rho(D^-1 A) D^-1 A`` -> ``R = P^H`` -> Galerkin product; coarse
-  levels carry K dofs per grid node.  The device operators are A as
+* on a grid (a matrix carrying ``A.grid``, as the gallery builds it: a
+  2-D grid with ``aggregate="standard"``, a grid of any dimension with
+  ``aggregate=("grid", {"block": ...})``) with Jacobi, Richardson or no
+  prolongation smoothing: grid-block aggregation -> tentative prolongator
+  -> ``P = S T`` with ``S = I - omega/rho(D^-1 A) D^-1 A`` -> ``R = P^H``
+  -> Galerkin product; coarse levels carry K dofs per grid node.  Under
+  strong grid-aligned anisotropy with a line smoother, only the weak axes
+  coarsen and S is ``jacobi_weak`` (Jacobi without the strong-axis
+  couplings).  The device operators are A as
   ``SparseDIA`` (a blocked level flattened to scalar diagonals, else
   ``SparseBDIA``) and P, R as gather-free ``ComposedOp`` chains of the
   smoother S (``SparseDIA``, or ``SparseBDIA`` on a blocked level) and a
@@ -36,7 +40,8 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from ..amg_core import have_native, identity_minus_rowscaled_native
+from ..amg_core import (have_native, identity_minus_rowscaled_native,
+                        weak_axis_filter_native)
 from ..multilevel import Level, MultilevelSolver
 from ..relaxation.smoothing import change_smoothers, rho_D_inv_A
 from ..sparse import (ComposedOp, DenseOp, GridPoolOp, GridRepeatOp,
@@ -163,9 +168,9 @@ def smoothed_aggregation_solver(A, B=None, BH=None, symmetry="hermitian",
     levels hold only the host matrices.
 
     Ported: hermitian or symmetric problems, CSR or BSR, with any number
-    of near-nullspace candidates ``B`` (n, K), on a 2-D grid (``A.grid``)
-    or without grid metadata; other setups (nonsymmetric, 3-D grid
-    metadata) raise ``NotImplementedError``.
+    of near-nullspace candidates ``B`` (n, K), with grid metadata
+    (``A.grid``, any dimension) or without; the nonsymmetric setup raises
+    ``NotImplementedError``.
 
     Examples
     --------
@@ -357,10 +362,17 @@ def _add_identity_inplace(S_data, A, n):
     return (sp.eye(n, format="csr") + S).tocsr()
 
 
-def structured_smoother_S(A, sfn, skw, symmetry):
+def structured_smoother_S(A, sfn, skw, symmetry, grid=None, block=None,
+                          q_lvl=1):
     """Prolongation-smoother matrix of the structured path, ``P = S^degree
-    @ T``, for Jacobi and Richardson smoothing.  Returns
-    ``(S_csr_or_None, degree)``."""
+    @ T``, for Jacobi, Richardson and ``jacobi_weak`` smoothing.  Returns
+    ``(S_csr_or_None, degree)``.
+
+    ``jacobi_weak`` (the semicoarsening levels of line smoothers) is Jacobi
+    on ``A_w``, A without the couplings along the uncoarsened axes of
+    ``block`` on ``grid`` (``q_lvl`` dofs per node): ``S = I - c D^{-1}
+    A_w`` with D the diagonal of A, so that S P keeps width 1 along the
+    strong axes."""
     degree = int(skw.get("degree", 1)) if sfn else 0
     if degree == 0 or sfn is None:
         return None, degree
@@ -371,11 +383,12 @@ def structured_smoother_S(A, sfn, skw, symmetry):
         c = omega / approximate_spectral_radius(A, symmetric=sym_hint or None)
         return _add_identity_inplace((-c) * A.data.copy(), A,
                                      A.shape[0]), degree
-    if sfn != "jacobi":
-        # jacobi_weak: the semicoarsening branch of line smoothers
-        raise not_ported(f"prolongation smoother {sfn!r}", _UNSTRUCTURED)
-    c = omega / rho_D_inv_A(A, symmetric=sym_hint)
     Dinv = get_diagonal(A, inv=True)
+    if sfn == "jacobi_weak":
+        A = weak_axis_filter(A, q_lvl, grid, block)
+    elif sfn != "jacobi":
+        raise ValueError(f"unrecognized prolongation smoother {sfn!r}")
+    c = omega / rho_D_inv_A(A, symmetric=sym_hint)
     # S = I - c D^{-1} A in place on A's sparsity: ((-c) * Dinv_i) * A_ij;
     # the compiled one-pass form equals the numpy expression bit for bit
     Sx = identity_minus_rowscaled_native(A, Dinv, c)
@@ -384,6 +397,34 @@ def structured_smoother_S(A, sfn, skw, symmetry):
                              shape=A.shape), degree
     S_data = (-c) * np.repeat(Dinv, np.diff(A.indptr)) * A.data
     return _add_identity_inplace(S_data, A, A.shape[0]), degree
+
+
+def weak_axis_filter(A, q, grid, block):
+    """A without the couplings whose node offset moves along an
+    uncoarsened axis (``block[k] == 1``) of ``grid`` (``q`` dofs per node),
+    stored zeros dropped.  The node offset is split over the axes by
+    descending stride, ``d_k = rint(rem / stride_k)`` (half to even); the
+    compiled pass and this numpy form keep the same entries."""
+    strides = [int(np.prod(grid[kk + 1:])) for kk in range(len(grid))]
+    Aw = weak_axis_filter_native(A, q, strides, block)
+    if Aw is not None:
+        if Aw.nnz and not Aw.data.all():
+            Aw.eliminate_zeros()
+        return Aw
+    n = A.shape[0]
+    rows = np.repeat(np.arange(n, dtype=np.int64), np.diff(A.indptr))
+    rem = A.indices.astype(np.int64) // q - rows // q
+    keep = np.ones(A.nnz, dtype=bool)
+    for k in np.argsort(strides)[::-1]:
+        dk = np.rint(rem / strides[k]).astype(np.int64)
+        rem = rem - dk * strides[k]
+        if block[k] == 1:
+            keep &= dk == 0
+    # fresh index arrays: eliminate_zeros compacts them in place
+    Aw = sp.csr_matrix((np.where(keep, A.data, 0), A.indices.copy(),
+                        A.indptr.copy()), shape=A.shape)
+    Aw.eliminate_zeros()
+    return Aw
 
 
 def _extend_structured(levels, lvl, A, B, grid, sfn, skw, akw, keep,
@@ -431,7 +472,8 @@ def _extend_structured(levels, lvl, A, B, grid, sfn, skw, akw, keep,
         wmap = np.zeros((n, K), dtype=A.dtype)
         wmap[rows_w, T.indices % K] = T.data
 
-    S_csr, degree = structured_smoother_S(A, sfn, skw, symmetry)
+    S_csr, degree = structured_smoother_S(A, sfn, skw, symmetry, grid=grid,
+                                          block=block, q_lvl=q_lvl)
     P = T
     for _ in range(degree):
         P = (S_csr @ P).tocsr()
@@ -523,12 +565,13 @@ def _extend_sa_hierarchy(levels, strength, aggregate, smooth,
     grid = getattr(lvl, "grid", None)
     sfn, skw = unpack_arg(smooth[i]) if smooth[i] is not None else (None, {})
     afn, akw = unpack_arg(aggregate[i])
-    if grid is not None and len(grid) > 2:
-        raise not_ported(f"SA on a matrix with {len(grid)}-D grid metadata",
-                         _UNSTRUCTURED)
     # structured-grid path: grid-block aggregation keeps every level a
     # stencil matrix (q = max(bs, 1) dofs per grid node), so the device
-    # operators are DIA (or BDIA) and grid transfers
+    # operators are DIA (or BDIA) and grid transfers.  "standard" takes it
+    # on a 2-D grid only: 3^3 blocks coarsen a 3-D grid too fast (17 against
+    # 13 iterations on the 64^3 Poisson problem in the JAX package), so a
+    # 3-D grid goes down the unstructured chain unless the caller asks for
+    # ("grid", {"block": ...})
     if (grid is not None
             and (afn == "grid" or (afn == "standard" and len(grid) == 2))
             and sfn in (None, "jacobi", "richardson")

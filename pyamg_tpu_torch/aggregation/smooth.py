@@ -7,9 +7,9 @@ optional strength filter; energy minimization by pattern-constrained CG
 (``krylov="cg"``) on one of three routes with the JAX package's conditions
 -- the block route on a float64 BSR operator (every iterate dense (R, K)
 blocks on the block pattern), the flat route over a fixed CSR pattern with
-the compiled products (real float64), and the generic scipy route.  CGNR,
-GMRES, root-node (``Cpt_params``) and the pre- and post-filters are not
-ported yet.
+the compiled products (real float64), and the generic scipy route; the
+root-node form (``Cpt_params``) and the pre- and post-filters.  CGNR and
+GMRES (the nonsymmetric forms) are not ported yet.
 """
 
 from __future__ import annotations
@@ -18,8 +18,9 @@ import numpy as np
 import scipy.sparse as sp
 
 from ..util.linalg import approximate_spectral_radius, pinv_array
-from ..util.utils import (compute_BtBinv, get_block_diag, get_diagonal,
-                          not_ported, scale_rows, to_csr, unamal)
+from ..util.utils import (compute_BtBinv, filter_matrix_rows,
+                          get_block_diag, get_diagonal, not_ported,
+                          scale_rows, to_csr, truncate_rows, unamal)
 
 __all__ = ["jacobi_prolongation_smoother",
            "richardson_prolongation_smoother",
@@ -200,6 +201,13 @@ def energy_prolongation_smoother(A, T, Atilde, B, Bf=None, Cpt_params=None,
     node-level strength graph of a blocked A (expanded to dofs here).
     ``weighting`` ("local", "diagonal" or "block") preconditions the CG.
 
+    ``Cpt_params = (True, params)`` (``get_Cpt_params``'s dict) is the
+    root-node form: the root rows of the pattern are those of ``P_I``, the
+    CG updates only the other rows (``I_F``), and the result is ``I_F P +
+    P_I``.  ``prefilter`` / ``postfilter`` (``{"theta": ..}`` and/or
+    ``{"k": ..}``) thin T before the pattern grows, or P after the CG (then
+    the constraint is restored on the thinned pattern).
+
     Examples
     --------
     >>> import numpy as np
@@ -218,18 +226,15 @@ def energy_prolongation_smoother(A, T, Atilde, B, Bf=None, Cpt_params=None,
                          _UNSTRUCTURED)
     if krylov != "cg":
         raise ValueError(f"unknown krylov method {krylov!r}")
-    if Cpt_params is not None and Cpt_params[0]:
-        raise not_ported("root-node energy smoothing (Cpt_params)",
-                         _UNSTRUCTURED)
-    if prefilter or postfilter:
-        raise not_ported("the pre- and post-filters of energy smoothing",
-                         _UNSTRUCTURED)
     if weighting not in ("local", "diagonal", "block"):
         raise ValueError("incorrect weighting option")
+    rootnode = Cpt_params is not None and Cpt_params[0]
     bs_A = A.blocksize[0] if sp.issparse(A) and A.format == "bsr" else 1
 
-    # a node-blocked operator: the whole CG in BSR block form
+    # a node-blocked operator: the whole CG in BSR block form (not for the
+    # root-node form or the filters, as in the JAX package)
     if (bs_A > 1 and weighting in ("local", "diagonal")
+            and not prefilter and not postfilter and not rootnode
             and (degree == 0
                  or (Atilde is not None and sp.issparse(Atilde)
                      and Atilde.shape[0] * bs_A == T.shape[0]))):
@@ -248,8 +253,27 @@ def energy_prolongation_smoother(A, T, Atilde, B, Bf=None, Cpt_params=None,
             and Atilde.shape[0] != T.shape[0]:
         bs_row = T.shape[0] // Atilde.shape[0]
         Atilde = unamal(Atilde, bs_row, bs_row)
+    if prefilter:
+        if "theta" in prefilter:
+            T = filter_matrix_rows(T, prefilter["theta"])
+        if "k" in prefilter:
+            T = truncate_rows(T, prefilter["k"])
     pattern = _grow_pattern(Atilde, T, degree)
+    I_F = fmask = None
+    if rootnode:
+        # the root rows of the pattern are exactly P_I's
+        I_F, P_I = to_csr(Cpt_params[1]["I_F"]), to_csr(Cpt_params[1]["P_I"])
+        PIpat = P_I.copy()
+        PIpat.data = np.ones_like(PIpat.data)
+        pattern = ((I_F @ pattern).tocsr() + PIpat).tocsr()
+        pattern.data = np.ones_like(pattern.data)
+        fmask = np.asarray(I_F.diagonal()).real != 0
     BtBinv = compute_BtBinv(B, pattern)
+
+    def project(U):
+        if I_F is not None:
+            U = (I_F @ U).tocsr()
+        return satisfy_constraints(U, B, BtBinv)
 
     Tout = None
     if weighting == "block":
@@ -273,13 +297,36 @@ def energy_prolongation_smoother(A, T, Atilde, B, Bf=None, Cpt_params=None,
             return scale_rows(R, Dinv, copy=True)
 
         Tout = _cg_prolongation_flat(A, T, pattern, B, BtBinv, Dinv,
-                                     maxiter, tol)
+                                     maxiter, tol, fmask=fmask)
     if Tout is None:
-        Tout = _cg_prolongation(
-            A, T, pattern, lambda U: satisfy_constraints(U, B, BtBinv),
-            apply_Dinv, maxiter, tol)
+        Tout = _cg_prolongation(A, T, pattern, project, apply_Dinv, maxiter,
+                                tol)
+    if rootnode:
+        Tout = (I_F @ Tout + P_I).tocsr()
+    if postfilter:
+        if "theta" in postfilter:
+            Tout = _restore_constraint(
+                Tout, filter_matrix_rows(Tout, postfilter["theta"]), B)
+        if "k" in postfilter:
+            Tout = _restore_constraint(
+                Tout, truncate_rows(Tout, postfilter["k"]), B)
     Tout.eliminate_zeros()
     return Tout
+
+
+def _restore_constraint(Tout, Tnew, B):
+    """``Tnew`` (a thinned ``Tout``) plus the least-norm correction on its
+    own pattern, row by row, that gives back ``Tnew @ B == Tout @ B``."""
+    defect = np.asarray((Tout - Tnew) @ B)            # (n, k)
+    BtBinv = compute_BtBinv(B, Tnew)
+    coef = np.einsum("nk,nkl->nl", defect, BtBinv)    # (n, k)
+    U = Tnew.copy()
+    rows = np.repeat(np.arange(Tnew.shape[0]), np.diff(U.indptr))
+    U.data = np.einsum("ek,ek->e", coef[rows],
+                       np.conj(np.asarray(B)[U.indices]))
+    out = (Tnew + U).tocsr()
+    out.eliminate_zeros()
+    return out
 
 
 def _frob_inner(X, Y):
@@ -397,12 +444,15 @@ def _cg_prolongation_bsr(A, T, AtildeN, B, maxiter, tol, degree, weighting):
     return out
 
 
-def _cg_prolongation_flat(A, T, pattern, B, BtBinv, Dinv, maxiter, tol):
+def _cg_prolongation_flat(A, T, pattern, B, BtBinv, Dinv, maxiter, tol,
+                          fmask=None):
     """The energy CG with every iterate a flat value array over
     ``pattern``'s CSR structure: sparse adds and masks become axpys, the
-    products and projections the compiled ones.  None (the caller then
-    takes the generic route) for data that is not real float64, without
-    the compiled library, or where T's pattern escapes ``pattern``."""
+    products and projections the compiled ones.  ``fmask`` (a bool per row,
+    or None) keeps the root rows of the root-node form at zero in every
+    update.  None (the caller then takes the generic route) for data that
+    is not real float64, without the compiled library, or where T's
+    pattern escapes ``pattern``."""
     from ..amg_core import constraint_project_native, masked_spgemm_native
 
     if np.iscomplexobj(A.data) or A.dtype != np.float64 \
@@ -436,11 +486,16 @@ def _cg_prolongation_flat(A, T, pattern, B, BtBinv, Dinv, maxiter, tol):
     Bd = np.ascontiguousarray(np.asarray(B), dtype=np.float64)
     Gd = np.ascontiguousarray(np.asarray(BtBinv), dtype=np.float64)
     dinv_e = np.asarray(Dinv)[rows]
+    fmask_u8 = (None if fmask is None
+                else np.ascontiguousarray(fmask, dtype=np.uint8))
 
     def project(vals):
-        if constraint_project_native(vals, indptr, indices, Bd, Gd):
+        if constraint_project_native(vals, indptr, indices, Bd, Gd,
+                                     fmask_u8):
             return vals
         # more than 16 candidates: the same projection in numpy
+        if fmask is not None:
+            vals = vals * fmask[rows]
         coef = np.einsum("nk,nkl->nl", np.asarray(view(vals) @ Bd), Gd)
         return vals - np.einsum("ek,ek->e", coef[rows], Bd[indices])
 

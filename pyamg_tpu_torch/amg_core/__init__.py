@@ -2,7 +2,8 @@
 
 Port of the bindings of ``pyamg_tpu/amg_core/__init__.py`` that the ported
 setup calls: the greedy aggregations, first-fit coloring, the Gauss-Seidel
-sweeps (scalar and block), ``S = I - c D^-1 A``, classical strength, the
+sweeps (scalar and block), ``S = I - c D^-1 A`` and the weak-axis filter
+of its ``jacobi_weak`` form, classical strength, the
 CSR-to-DIA conversion, and the pattern-restricted products, constraint
 projections and Gram matrices of the energy-minimization CG in scalar (CSR)
 and block (BSR) form; for classical AMG the Ruge-Stuben splitting, direct
@@ -28,7 +29,8 @@ import numpy as np
 __all__ = ["have_native", "standard_aggregation_native",
            "naive_aggregation_native", "first_fit_coloring_native",
            "gauss_seidel_sweeps_native", "gauss_seidel_indexed_native",
-           "identity_minus_rowscaled_native", "classical_strength_native",
+           "identity_minus_rowscaled_native", "weak_axis_filter_native",
+           "classical_strength_native",
            "dia_offsets_native", "csr_to_dia_fill_native",
            "csr_to_dia_native", "bsr_gauss_seidel_native",
            "masked_spgemm_native", "constraint_project_native",
@@ -100,6 +102,10 @@ def _declare(lib):
                                              _D, _f64p]
     lib.identity_minus_rowscaled_i32.argtypes = [_I, _i32p, _i32p, _f64p,
                                                  _f64p, _D, _f64p]
+    lib.weak_axis_filter.argtypes = [_I, _i64p, _i64p, _f64p, _I, _I,
+                                     _i64p, _i64p, _i64p, _i64p, _f64p]
+    lib.weak_axis_filter_i32.argtypes = [_I, _i32p, _i32p, _f64p, _I, _I,
+                                         _i64p, _i64p, _i32p, _i32p, _f64p]
     lib.classical_strength.argtypes = [_I, _i64p, _i64p, _f64p, _D, _i64p,
                                        _i64p, _f64p]
     lib.classical_strength_i32.argtypes = [_I, _i32p, _i32p, _f64p, _D,
@@ -160,6 +166,7 @@ def _declare(lib):
     lib.thomas_lines.restype = None
     for name in ("dia_offsets", "dia_offsets_i32",
                  "identity_minus_rowscaled", "identity_minus_rowscaled_i32",
+                 "weak_axis_filter", "weak_axis_filter_i32",
                  "classical_strength", "classical_strength_i32"):
         getattr(lib, name).restype = _I
     for name in ("standard_aggregation", "standard_aggregation_i32",
@@ -287,6 +294,36 @@ def identity_minus_rowscaled_native(A, Dinv, c):
     got = getattr(lib, "identity_minus_rowscaled" + sfx)(
         n, Ap, Aj, Ax, Dc, float(c), Sx)
     return Sx if got == n else None
+
+
+def weak_axis_filter_native(A, q, strides, block):
+    """Compacted CSR of A without the couplings along the uncoarsened axes
+    (``block[k] == 1``) of a grid of ``strides`` (natural axis order,
+    ``q`` dofs per node), or None without the library or for data that is
+    not real float64.  The same entries as
+    ``aggregation.aggregation.weak_axis_filter``'s numpy form."""
+    lib = _load()
+    if not lib or not _real_f64(A) or np.iscomplexobj(A.data):
+        return None
+    import scipy.sparse as sp
+
+    n = A.shape[0]
+    order = np.argsort(strides)[::-1]
+    strides_desc = np.ascontiguousarray(
+        np.asarray(strides, dtype=np.int64)[order])
+    coarsened_desc = np.ascontiguousarray(
+        (np.asarray(block, dtype=np.int64)[order] != 1).astype(np.int64))
+    Ax = np.ascontiguousarray(A.data, dtype=np.float64)
+    Ap, Aj, sfx = _csr_ix(A)
+    Bp = np.empty(n + 1, dtype=Ap.dtype)
+    Bj = np.empty(A.nnz, dtype=Aj.dtype)
+    Bx = np.empty(A.nnz, dtype=np.float64)
+    out = getattr(lib, "weak_axis_filter" + sfx)(
+        n, Ap, Aj, Ax, int(q), len(strides_desc), strides_desc,
+        coarsened_desc, Bp, Bj, Bx)
+    Aw = sp.csr_matrix((Bx[:out], Bj[:out], Bp), shape=A.shape)
+    Aw.has_sorted_indices = A.has_sorted_indices
+    return Aw
 
 
 def classical_strength_native(A, theta):

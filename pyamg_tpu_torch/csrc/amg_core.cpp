@@ -12,6 +12,8 @@
 //   * first_fit_coloring       -- greedy first-fit vertex coloring
 //   * dia_offsets, csr_to_dia  -- CSR to diagonal storage in two passes
 //   * identity_minus_rowscaled -- S = I - c D^-1 A on A's own pattern
+//   * weak_axis_filter         -- A without its strong-axis couplings
+//                                 (jacobi_weak prolongation smoothing)
 //   * classical_strength       -- classical strength of connection, one pass
 //   * bsr_gauss_seidel         -- block Gauss-Seidel sweep over BSR storage
 //   * masked_spgemm_rr         -- (A B) on a given CSR pattern only
@@ -323,6 +325,44 @@ static I identity_minus_rowscaled_impl(I n, const Ix* Ap, const Ix* Aj,
 }
 
 // ---------------------------------------------------------------------------
+// Weak-axis stencil filter of the structured path's jacobi_weak smoother:
+// keep only the entries whose NODE offset moves along no uncoarsened
+// (coarsened_desc[k] == 0) grid axis, written as compacted CSR.  The node
+// offset is split over the axes in descending-stride order with
+// dk = rint(rem / stride) (round half to even, as np.rint) and
+// rem -= dk * stride, as the numpy form does.  Returns the output nnz.
+// ---------------------------------------------------------------------------
+template <typename Ix>
+static I weak_axis_filter_impl(I n, const Ix* Ap, const Ix* Aj,
+                               const double* Ax, I q, I naxes,
+                               const int64_t* strides_desc,
+                               const int64_t* coarsened_desc,
+                               Ix* Bp, Ix* Bj, double* Bx) {
+    I out = 0;
+    Bp[0] = 0;
+    for (I i = 0; i < n; i++) {
+        const int64_t node_i = i / q;
+        for (Ix jj = Ap[i]; jj < Ap[i + 1]; jj++) {
+            int64_t rem = (int64_t)Aj[jj] / q - node_i;
+            bool keep = true;
+            for (I k = 0; k < naxes; k++) {
+                const double s = (double)strides_desc[k];
+                const int64_t dk = (int64_t)std::nearbyint((double)rem / s);
+                rem -= dk * strides_desc[k];
+                if (!coarsened_desc[k] && dk != 0) { keep = false; break; }
+            }
+            if (keep) {
+                Bj[out] = Aj[jj];
+                Bx[out] = Ax[jj];
+                out++;
+            }
+        }
+        Bp[i + 1] = (Ix)out;
+    }
+    return out;
+}
+
+// ---------------------------------------------------------------------------
 // classical strength of connection with the magnitude, the filter and the
 // row scaling in ONE pass: keep j == i or |a_ij| >= theta * max_{k != i}
 // |a_ik|, store |a_ij|, scale each row so its largest kept entry is 1.
@@ -371,6 +411,24 @@ I identity_minus_rowscaled_i32(I n, const int32_t* Ap, const int32_t* Aj,
                                double c, double* Sx) {
     return identity_minus_rowscaled_impl<int32_t>(n, Ap, Aj, Ax, Dinv, c,
                                                   Sx);
+}
+
+I weak_axis_filter(I n, const I* Ap, const I* Aj, const double* Ax,
+                   I q, I naxes, const int64_t* strides_desc,
+                   const int64_t* coarsened_desc,
+                   I* Bp, I* Bj, double* Bx) {
+    return weak_axis_filter_impl<I>(n, Ap, Aj, Ax, q, naxes, strides_desc,
+                                    coarsened_desc, Bp, Bj, Bx);
+}
+
+I weak_axis_filter_i32(I n, const int32_t* Ap, const int32_t* Aj,
+                       const double* Ax, I q, I naxes,
+                       const int64_t* strides_desc,
+                       const int64_t* coarsened_desc,
+                       int32_t* Bp, int32_t* Bj, double* Bx) {
+    return weak_axis_filter_impl<int32_t>(n, Ap, Aj, Ax, q, naxes,
+                                          strides_desc, coarsened_desc,
+                                          Bp, Bj, Bx);
 }
 
 I classical_strength(I n, const I* Ap, const I* Aj, const double* Ax,

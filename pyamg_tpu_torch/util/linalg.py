@@ -1,24 +1,46 @@
 """Host linear algebra for setup: vector norm, spectral-radius estimates and
 the batched pseudo-inverse of small blocks.
 
-Port of ``pyamg_tpu/util/linalg.py`` (``norm``,
-``approximate_spectral_radius``, ``_rho_lanczos``, ``pinv_array``),
-unchanged numpy: the same
-``default_rng(seed)`` start vectors give the same estimates, hence the same
-smoother coefficients and prolongation damping.
+Port of ``pyamg_tpu/util/linalg.py`` (``norm``, ``infinity_norm``,
+``residual_norm``, ``approximate_spectral_radius``, ``_rho_lanczos``,
+``condest``, ``cond``, ``ishermitian``, ``pinv_array``), unchanged numpy:
+the same ``default_rng(seed)`` start vectors give the same estimates, hence
+the same smoother coefficients and prolongation damping, and the same
+random probes give ``ishermitian`` the same answer (it picks the black-box
+solver's route).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["norm", "approximate_spectral_radius", "pinv_array"]
+__all__ = ["norm", "infinity_norm", "residual_norm",
+           "approximate_spectral_radius", "condest", "cond", "ishermitian",
+           "pinv_array"]
 
 
-def norm(x):
-    """2-norm in a dot-product formulation."""
+def norm(x, pnorm="2"):
+    """Vector norm: ``"2"`` in a dot-product formulation, or ``"inf"``."""
     x = np.asarray(x).ravel()
-    return float(np.sqrt(np.inner(x.conjugate(), x).real))
+    if pnorm == "2":
+        return float(np.sqrt(np.inner(x.conjugate(), x).real))
+    if pnorm == "inf":
+        return float(np.abs(x).max()) if x.size else 0.0
+    raise ValueError(f"unknown norm {pnorm!r}")
+
+
+def infinity_norm(A):
+    """``||A||_inf``: the largest row sum of ``|A|``."""
+    import scipy.sparse as sp
+
+    if sp.issparse(A):
+        return float(abs(A).sum(axis=1).max())
+    return float(np.abs(np.asarray(A)).sum(axis=1).max())
+
+
+def residual_norm(A, x, b):
+    """``||b - A x||_2``."""
+    return norm(np.ravel(b) - A @ np.ravel(x))
 
 
 def _matvec(A):
@@ -135,6 +157,62 @@ def _rho_lanczos(A, maxiter=15, seed=0):
         T = T + np.diag(off, 1) + np.diag(off, -1)
     evals = np.linalg.eigvalsh(T)
     return float(np.abs(evals).max())
+
+
+def condest(A, maxiter=25, symmetric=False):
+    """Estimate of ``cond_2(A)``: exact from the singular values of a dense
+    or small sparse matrix (up to 2000 rows), else the spectral radius
+    estimate (a bound, as in the JAX package)."""
+    import scipy.sparse as sp
+
+    if sp.issparse(A) and A.shape[0] <= 2000:
+        A = A.toarray()
+    if isinstance(A, np.ndarray):
+        return cond(A)
+    return float(approximate_spectral_radius(A, maxiter=maxiter))
+
+
+def cond(A):
+    """Exact 2-norm condition number, from the singular values of the
+    dense form."""
+    A = A.toarray() if hasattr(A, "toarray") else np.asarray(A)
+    s = np.linalg.svd(A, compute_uv=False)
+    smin = s[s > 0].min() if (s > 0).any() else 0.0
+    return float(s.max() / smin) if smin else np.inf
+
+
+def ishermitian(A, fast_check=True, tol=1e-6, seed=0):
+    """Whether ``A`` equals ``A^H``: with ``fast_check`` by comparing
+    ``<A x, y>`` with ``<x, A y>`` on two random probes of
+    ``default_rng(seed)``, else entry by entry to ``tol``.
+
+    Examples
+    --------
+    >>> import numpy as np
+    >>> bool(ishermitian(np.array([[1.0, 2.0], [2.0, 1.0]])))
+    True
+    >>> bool(ishermitian(np.array([[1.0, 2.0], [0.0, 1.0]])))
+    False
+    """
+    import scipy.sparse as sp
+
+    if fast_check:
+        rng = np.random.default_rng(seed)
+        x = rng.random(A.shape[0])
+        y = rng.random(A.shape[0])
+        if np.iscomplexobj(getattr(A, "dtype", np.float64).type(0)):
+            x = x + 1j * rng.random(A.shape[0])
+            y = y + 1j * rng.random(A.shape[0])
+        diff = abs(np.vdot(A @ x, y) - np.vdot(x, A @ y))
+        scale = max(abs(np.vdot(A @ x, y)), 1e-300)
+        return bool(diff / scale < tol)
+    if sp.issparse(A):
+        diff = abs(A - A.conjugate().T)
+        if diff.nnz == 0:
+            return True
+        return bool(diff.max() < tol)
+    A = np.asarray(A)
+    return bool(np.abs(A - A.conjugate().T).max() < tol)
 
 
 def _pinv_svd(a, rcond):

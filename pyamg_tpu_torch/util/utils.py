@@ -2,8 +2,9 @@
 extraction, row filters and the relaxation-as-operator wrapper.
 
 Port of the parts of ``pyamg_tpu/util/utils.py`` that the smoothed
-aggregation setups use, plus the numpy/torch dtype conversions the port
-needs.
+aggregation, root-node and adaptive setups use (among them the root-node
+bookkeeping ``get_Cpt_params`` and ``scale_T``, and the filters of energy
+smoothing), plus the numpy/torch dtype conversions the port needs.
 """
 
 from __future__ import annotations
@@ -14,9 +15,12 @@ import torch
 
 __all__ = ["unpack_arg", "to_csr", "get_diagonal", "get_block_diag",
            "amalgamate", "unamal", "blocksize", "compute_BtBinv",
-           "scale_rows", "row_reduce",
-           "scale_rows_by_largest_entry", "filter_matrix_rows", "coord2rbm",
-           "eliminate_diag_dom_nodes", "relaxation_as_linear_operator",
+           "scale_rows", "scale_columns", "symmetric_rescaling",
+           "row_reduce", "scale_rows_by_largest_entry", "filter_matrix_rows",
+           "filter_matrix_columns", "truncate_rows", "filter_operator",
+           "scale_T", "get_Cpt_params", "coord2rbm",
+           "eliminate_diag_dom_nodes", "host_relaxation",
+           "relaxation_as_linear_operator",
            "levelize_strength_or_aggregation",
            "levelize_smooth_or_improve_candidates", "numpy_dtype",
            "torch_dtype", "not_ported"]
@@ -169,6 +173,29 @@ def scale_rows(A, v, copy=True):
     return A
 
 
+def scale_columns(A, v, copy=True):
+    """A diag(v) as CSR."""
+    A = A.tocsr() if sp.issparse(A) else sp.csr_matrix(A)
+    if copy:
+        A = A.copy()
+    A.data *= np.asarray(v).ravel()[A.indices]
+    return A
+
+
+def symmetric_rescaling(A, copy=True):
+    """``(D_sqrt, D_sqrt_inv, D^-1/2 A D^-1/2)`` with ``D = |diag(A)|``;
+    the row and column of a zero diagonal entry become zero (its
+    ``D_sqrt_inv`` entry is 0)."""
+    d = np.asarray(A.diagonal()).ravel()
+    mask = d != 0
+    d_sqrt = np.sqrt(np.abs(d))
+    d_sqrt_inv = np.zeros_like(d_sqrt)
+    d_sqrt_inv[mask] = 1.0 / d_sqrt[mask]
+    DAD = scale_rows(scale_columns(A, d_sqrt_inv, copy=copy), d_sqrt_inv,
+                     copy=False)
+    return d_sqrt, d_sqrt_inv, DAD
+
+
 def row_reduce(vals, indptr, ufunc, empty=0.0):
     """Per-CSR-row reduction of ``vals`` (length nnz) with ``ufunc``
     (e.g. ``np.maximum``); rows with no entries get ``empty``."""
@@ -277,6 +304,119 @@ def filter_matrix_rows(A, theta, diagonal=False, lump=False):
     return A
 
 
+def filter_matrix_columns(A, theta):
+    """The column form of :func:`filter_matrix_rows`."""
+    return filter_matrix_rows(to_csr(A).T.tocsr(), theta).T.tocsr()
+
+
+def truncate_rows(A, nz_per_row):
+    """Keep the ``nz_per_row`` entries of largest magnitude in each row."""
+    A = to_csr(A).copy()
+    indptr = A.indptr
+    keep = np.zeros(A.nnz, dtype=bool)
+    for i in range(A.shape[0]):
+        s, e = indptr[i], indptr[i + 1]
+        if e - s <= nz_per_row:
+            keep[s:e] = True
+        else:
+            # the same partition as the JAX package's, so that ties fall
+            # the same way
+            idx = np.argpartition(np.abs(A.data[s:e]), e - s - nz_per_row)
+            keep[s + idx[e - s - nz_per_row:]] = True
+    A.data = np.where(keep, A.data, 0)
+    A.eliminate_zeros()
+    return A
+
+
+def filter_operator(A, C, B, Bf, BtBinv=None):
+    """A restricted to the pattern of C, then corrected row by row (the
+    least-norm correction on the row's kept entries) so that ``A @ B ==
+    Bf`` still holds.  A, C sparse (n, m); B (m, k); Bf (n, k)."""
+    A = to_csr(A)
+    C = to_csr(C)
+    B = np.asarray(B)
+    Bf = np.asarray(Bf)
+    pattern = C.copy()
+    pattern.data = np.ones_like(pattern.data)
+    Anew = A.multiply(pattern).tocsr()
+    Anew.sort_indices()
+    defect = Bf - Anew @ B
+    rows_out, cols_out, vals_out = [], [], []
+    for i in range(A.shape[0]):
+        cols = Anew.indices[Anew.indptr[i]:Anew.indptr[i + 1]]
+        if cols.size == 0:
+            continue
+        u = np.linalg.lstsq(B[cols].conj().T, defect[i], rcond=None)[0]
+        rows_out.append(np.full(cols.size, i))
+        cols_out.append(cols)
+        vals_out.append(u)
+    if rows_out:
+        U = sp.coo_matrix(
+            (np.concatenate(vals_out),
+             (np.concatenate(rows_out), np.concatenate(cols_out))),
+            shape=Anew.shape).tocsr()
+        Anew = (Anew + U).tocsr()
+    Anew.eliminate_zeros()
+    return Anew
+
+
+def scale_T(T, P_I, I_F, blocksize=1):
+    """Root-node scaling of the tentative prolongator: ``T <- I_F T S +
+    P_I`` with ``S`` the block-by-block pseudo-inverse of ``P_I^T T``
+    (block diagonal in (blocksize, blocksize) blocks), so that every root
+    row of T is a row of the identity."""
+    T = to_csr(T)
+    P_I = to_csr(P_I)
+    I_F = to_csr(I_F)
+    root_block = (P_I.T @ T).tocsr()
+    nc = root_block.shape[0]
+    bs = int(blocksize) if nc % max(int(blocksize), 1) == 0 else 1
+    blocks = np.ascontiguousarray(get_block_diag(root_block, bs,
+                                                 inv_flag=True))
+    S = sp.bsr_matrix((blocks, np.arange(nc // bs),
+                       np.arange(nc // bs + 1)), shape=(nc, nc)).tocsr()
+    return (I_F @ T @ S + P_I).tocsr()
+
+
+def get_Cpt_params(A, Cnodes, AggOp, T):
+    """The root-node bookkeeping of an aggregation: ``Cpts`` and ``Fpts``
+    (the root dofs and the rest), ``P_I`` (coarse dof j to its fine root
+    dof) and the 0/1 diagonal masks ``I_F`` and ``I_C``."""
+    A = to_csr(A)
+    T = to_csr(T)
+    Cnodes = np.asarray(Cnodes, dtype=np.int64)
+    bs = A.shape[0] // AggOp.shape[0]
+    Cpts = (bs * Cnodes[:, None] + np.arange(bs)[None, :]).ravel()
+    mask = np.zeros(A.shape[0], dtype=bool)
+    mask[Cpts] = True
+    Fpts = np.flatnonzero(~mask)
+    n_fine, n_coarse = T.shape
+    if Cpts.size == n_coarse:
+        # coarse dof j is fine root dof Cpts[j]: the dofs of aggregate a's
+        # root pair with its coarse columns a*bs .. a*bs+bs-1 in order
+        P_I = sp.coo_matrix(
+            (np.ones(n_coarse), (Cpts, np.arange(n_coarse))),
+            shape=(n_fine, n_coarse)).tocsr()
+    else:
+        # an aggregation that dropped empty aggregates: each root dof maps
+        # to the first coarse column its row of T stores
+        has_entry = np.diff(T.indptr) > 0
+        first_col = np.zeros(n_fine, dtype=np.int64)
+        first_col[has_entry] = T.indices[T.indptr[:-1][has_entry]]
+        sel = Cpts[has_entry[Cpts]]
+        P_I = sp.coo_matrix((np.ones(sel.size), (sel, first_col[sel])),
+                            shape=(n_fine, n_coarse)).tocsr()
+
+    def diag_mask(idx):
+        d = np.zeros(n_fine)
+        d[idx] = 1.0
+        return sp.dia_matrix((d[None, :], [0]),
+                             shape=(n_fine, n_fine)).tocsr()
+
+    return {"Cpts": Cpts, "Fpts": Fpts, "P_I": P_I,
+            "I_F": diag_mask(Fpts), "I_C": diag_mask(Cpts)}
+
+
 def eliminate_diag_dom_nodes(A, C, theta=1.02):
     """Isolate strongly diagonally dominant rows in the strength graph C
     (they need no coarse representation): their rows and columns are
@@ -297,20 +437,40 @@ def eliminate_diag_dom_nodes(A, C, theta=1.02):
     return C
 
 
-def relaxation_as_linear_operator(method, A, b):
-    """A scipy ``LinearOperator`` that applies one pass of a host
-    relaxation method (``relaxation.relaxation``) on ``A x = b`` from the
-    given x.  ``improve_candidates`` applies it to B, which relaxes each
-    candidate against ``A x = 0``.  A name the host module does not have
-    (a device-only smoother) means symmetric Gauss-Seidel."""
-    from scipy.sparse.linalg import LinearOperator
+# the host relaxations of the JAX package's relaxation.relaxation module;
+# a smoother name outside it (a device-only one) relaxes on the host as
+# symmetric Gauss-Seidel, in both packages
+_HOST_RELAXATIONS = frozenset([
+    "gauss_seidel", "zebra", "line_gauss_seidel", "line_jacobi", "sor",
+    "jacobi", "polynomial", "block_jacobi", "block_gauss_seidel",
+    "gauss_seidel_indexed", "jacobi_ne", "gauss_seidel_ne",
+    "gauss_seidel_nr", "schwarz"])
 
+
+def host_relaxation(method):
+    """``(function, kwargs)`` of a smoother option on the host
+    (``relaxation.relaxation``): a name the JAX package has no host
+    relaxation for means symmetric Gauss-Seidel, as there; a host
+    relaxation the port lacks raises ``NotImplementedError``."""
     from ..relaxation import relaxation as rel
 
     fn_name, kwargs = unpack_arg(method)
-    if not hasattr(rel, fn_name):
+    if fn_name not in _HOST_RELAXATIONS:
         fn_name, kwargs = "gauss_seidel", {"sweep": "symmetric"}
-    fn = getattr(rel, fn_name)
+    if not hasattr(rel, fn_name):
+        raise not_ported(f"host relaxation {fn_name!r}",
+                         "multicolor GS/SOR/block smoothers")
+    return getattr(rel, fn_name), dict(kwargs)
+
+
+def relaxation_as_linear_operator(method, A, b):
+    """A scipy ``LinearOperator`` that applies one pass of a host
+    relaxation method (:func:`host_relaxation`) on ``A x = b`` from the
+    given x.  ``improve_candidates`` applies it to B, which relaxes each
+    candidate against ``A x = 0``."""
+    from scipy.sparse.linalg import LinearOperator
+
+    fn, kwargs = host_relaxation(method)
     b = np.asarray(b)
 
     def matvec(x):

@@ -302,9 +302,10 @@ def test_keep_holds_the_setup_byproducts():
 # JAX package's hierarchy (the blocked options: test_torch_blocked.py and
 # test_torch_energy.py compare them level by level; the evolution and
 # energy-based strength and the zebra smoother, of the classical slice:
-# test_torch_strength.py and test_torch_classical.py)
+# test_torch_strength.py and test_torch_classical.py; 3-D grid metadata:
+# test_torch_grid3d.py)
 PORTED_SINCE = ("two-candidates", "filtered-jacobi", "bsr", "evolution",
-                "energy_based", "zebra")
+                "energy_based", "zebra", "grid3d")
 
 
 @pytest.mark.parametrize("kw", [

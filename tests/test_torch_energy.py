@@ -332,8 +332,27 @@ def test_energy_smoother_without_host_libraries(monkeypatch):
     (dict(weighting="other"), ValueError),
 ], ids=["cgnr", "gmres", "Cpt_params", "prefilter", "postfilter", "krylov",
         "weighting"])
-def test_energy_options_outside_the_port_raise(kw, err):
+def test_energy_options_outside_the_port_raise(kw, err, request):
+    """(The root-node form and the filters raised until the root-node slice
+    ported them: they now give the JAX package's P; test_torch_rootnode.py
+    holds the root-node hierarchies level by level.)"""
     A, C, T, Bc = _pieces(grid=(6, 6))
+    if request.node.callspec.id in ("Cpt_params", "prefilter", "postfilter"):
+        if "Cpt_params" in kw:
+            # the root-node pieces of rootnode_solver's first level
+            _, B = linear_elasticity((6, 6))
+            AggOp, roots = standard_aggregation(C)
+            T, _ = fit_candidates(AggOp, B[:, :2])
+            params = utils.get_Cpt_params(A, roots, AggOp, T)
+            T = utils.scale_T(T, params["P_I"], params["I_F"], blocksize=2)
+            Bc = np.asarray(params["P_I"].T @ B)
+            kw = dict(Bf=B, Cpt_params=(True, params))
+        P = smooth.energy_prolongation_smoother(A, T, C, Bc, **kw)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(jax_core, "have_native", lambda: True)
+            J = jax_smooth.energy_prolongation_smoother(A, T, C, Bc, **kw)
+        assert P.nnz == J.nnz and _rel(P, J) <= 1e-12
+        return
     with pytest.raises(err, match="ROADMAP" if err is NotImplementedError
                        else "krylov|weighting"):
         smooth.energy_prolongation_smoother(A, T, C, Bc, **kw)

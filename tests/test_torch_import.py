@@ -39,19 +39,24 @@ def test_public_surface():
     import pyamg_tpu_torch
 
     assert sorted(pyamg_tpu_torch.__all__) == sorted(
-        ["classical", "gallery", "krylov", "parallel",
-         "smoothed_aggregation_solver", "ruge_stuben_solver",
+        ["classical", "complexity", "gallery", "krylov", "parallel",
+         "smoothed_aggregation_solver", "rootnode_solver",
+         "adaptive_sa_solver", "solve", "solver", "solver_configuration",
+         "setup_complexity", "cycle_complexity", "ruge_stuben_solver",
          "MultilevelSolver", "MultilevelSolverSet", "multilevel_solver",
          "multilevel_solver_set", "coarse_grid_solver", "SparseDIA",
          "SparseELL", "SparseBDIA", "BlockELL", "__version__"])
-    from pyamg_tpu_torch import (aggregation, amg_core, classical, gallery,
-                                 krylov, parallel, relaxation, sparse,
-                                 strength)
+    from pyamg_tpu_torch import (aggregation, amg_core, blackbox, classical,
+                                 complexity, gallery, krylov, parallel,
+                                 relaxation, sparse, strength)
+    from pyamg_tpu_torch.aggregation import adaptive
+    from pyamg_tpu_torch.util import linalg, utils
     from pyamg_tpu_torch.classical import split
     from pyamg_tpu_torch.relaxation import device
 
     for module, names in (
-            (aggregation, ["parallel_aggregation", "standard_aggregation",
+            (aggregation, ["rootnode_solver", "adaptive_sa_solver",
+                           "parallel_aggregation", "standard_aggregation",
                            "jacobi_prolongation_smoother",
                            "richardson_prolongation_smoother",
                            "energy_prolongation_smoother",
@@ -90,6 +95,7 @@ def test_public_surface():
                         "gauss_seidel_sweeps_native",
                         "gauss_seidel_indexed_native",
                         "identity_minus_rowscaled_native",
+                        "weak_axis_filter_native",
                         "classical_strength_native", "csr_to_dia_native",
                         "bsr_gauss_seidel_native", "masked_spgemm_native",
                         "constraint_project_native", "pattern_gram_native",
@@ -107,7 +113,17 @@ def test_public_surface():
             (krylov, KRYLOV),
             (gallery, ["gauge_laplacian", "diffusion_stencil_2d",
                        "linear_elasticity", "regular_triangle_mesh",
-                       "sprand", "load_example", "demo"])):
+                       "sprand", "load_example", "demo"]),
+            (blackbox, ["solve", "solver", "solver_configuration",
+                        "make_csr"]),
+            (complexity, ["setup_complexity", "cycle_complexity"]),
+            (adaptive, ["adaptive_sa_solver", "eliminate_local_candidates",
+                        "initial_setup_stage"]),
+            (linalg, ["norm", "infinity_norm", "residual_norm", "condest",
+                      "cond", "ishermitian"]),
+            (utils, ["scale_T", "get_Cpt_params", "filter_operator",
+                     "truncate_rows", "filter_matrix_columns",
+                     "symmetric_rescaling"])):
         assert set(names) <= set(module.__all__), module.__name__
 
 
@@ -142,7 +158,11 @@ def _entry_points():
                 pyamg_tpu_torch.smoothed_aggregation_solver,
             "general_sa_setup_sharded": general_sa_setup_sharded,
             "ruge_stuben_solver": pyamg_tpu_torch.ruge_stuben_solver,
-            "classical_setup_sharded": classical_setup_sharded}
+            "classical_setup_sharded": classical_setup_sharded,
+            "rootnode_solver": pyamg_tpu_torch.rootnode_solver,
+            "adaptive_sa_solver": pyamg_tpu_torch.adaptive_sa_solver,
+            "solve": pyamg_tpu_torch.solve,
+            "solver": pyamg_tpu_torch.solver}
 
 
 @pytest.mark.parametrize("name", ["MultilevelSolver", "SparseDIA.from_scipy",
@@ -154,6 +174,8 @@ def _entry_points():
                                   "general_sa_setup_sharded",
                                   "ruge_stuben_solver",
                                   "classical_setup_sharded",
+                                  "rootnode_solver", "adaptive_sa_solver",
+                                  "solve", "solver",
                                   "krylov.prepare", "krylov.make_matvec",
                                   "gallery.demo"]
                          + [f"krylov.{name}" for name in KRYLOV])

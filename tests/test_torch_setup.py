@@ -133,7 +133,10 @@ def test_setups_off_the_ported_path_raise(change):
     ``test_torch_default_sa.py`` now compares them with the JAX package.
     Zebra smoothing and candidate relaxation raised until the classical
     slice ported the scalar line smoothers: they now build the JAX
-    package's structured hierarchy, zebra smoothers included.)"""
+    package's structured hierarchy, zebra smoothers included.  3-D grid
+    metadata raised until the SA front-door slice: it now takes the JAX
+    package's unstructured chain; ``test_torch_grid3d.py`` compares it
+    level by level.)"""
     kw = dict(KW)
     kw.update({k: v for k, v in change.items()
                if k not in ("grid3d", "unstructured")})
@@ -153,6 +156,15 @@ def test_setups_off_the_ported_path_raise(change):
             np.testing.assert_allclose(lo.presmoother.line_tri.numpy(),
                                        np.asarray(lr.presmoother.line_tri),
                                        rtol=1e-12)
+        return
+    if change.get("grid3d"):
+        ours = pyamg_tpu_torch.smoothed_aggregation_solver(A, device="cpu",
+                                                           **kw)
+        ref = pyamg_tpu.smoothed_aggregation_solver(
+            jax_poisson((6, 6, 6), format="csr"), **kw)
+        assert len(ours.levels) == len(ref.levels) > 1
+        for lo, lr in zip(ours.levels, ref.levels):
+            _csr_close(lo.A_csr, lr.A_csr)
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pyamg_tpu_torch.smoothed_aggregation_solver(A, device="cpu", **kw)

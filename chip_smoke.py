@@ -66,7 +66,15 @@ computes the same function:
   as plain CSR (root-embedded DIA transfers); the black box
   ``pyamg_tpu_torch.solve(A, b)``; and the work models of those
   hierarchies (kernel: dia_matvec on every DIA level and transfer, timed
-  at the 3-D level-0 and widest coarse shapes).
+  at the 3-D level-0 and widest coarse shapes);
+* dia_matvec at every DIA shape that the phases' hierarchies hold or
+  their paths launched, with its launches there: both of the kernel's
+  routes (a thread a row; threads over (row, offset) pairs for short,
+  wide operators) held bitwise against the plain version and timed
+  beside cuSPARSE and the bound, the launcher's route named; the widest
+  shape's numbers join dia_matvec's record on the kernels line.  Every
+  hierarchy's levels and operator complexity are held to their record
+  (``HIERARCHY_PINS``).
 
     python3 chip_smoke.py          # from the repository root, one GPU
 
@@ -185,6 +193,38 @@ DEFAULT_SA = {
     "unstructured": dict(rows=[1048576, 175104, 19537, 2154, 219], opc=1.338,
                          cg=8, cycles=7),
 }
+# levels and operator complexity (to 6 places) of every hierarchy the
+# phases build, as PERF.md section 2 records them (measured on an NVIDIA
+# H100 80GB HBM3 by this script): the setups are host code, which no
+# kernel of the solve can move
+HIERARCHY_PINS = {
+    "structured path": (5, 1.224878),
+    "default call, A.grid": (5, 1.224878),
+    "default call, plain CSR": (5, 1.338144),
+    "elasticity_1m_energy_sa": (5, 1.281555),
+    "elasticity 100^2, energy": (4, 1.285393),
+    "elasticity 100^2, default (Jacobi P, structured)": (3, 1.282527),
+    "elasticity 100^2, CSR with B": (3, 1.438578),
+    "classical_poisson_500, gauss_seidel": (6, 2.197930),
+    "classical_poisson_500, zebra": (6, 2.197930),
+    "anisotropic_1024_classical": (9, 1.972363),
+    "poisson3d_64_sa_chebyshev": (5, 1.962051),
+    "64^3 default call": (4, 1.550486),
+    "adaptive_sa_anisotropy_1024": (9, 1.890048),
+    "rootnode_solver, grid": (5, 1.338143),
+    "rootnode_solver, plain CSR": (5, 1.338143),
+    "black box": (4, 1.883869),
+}
+# short, wide random operators held on both routes of dia_matvec in phase
+# 3: the widest DIA level of poisson3d_64_sa_chebyshev, level 3 of the
+# plain-CSR default hierarchy, and a 603-offset smoother's width
+WIDE_CASES = ((4096, 179), (2154, 285), (4096, 603))
+# dia_matvec launches on the paths by (rows, cols, offsets, dtype), the
+# offsets tensor each shape was first launched with, and the hierarchies
+# (with the offsets of each of their DIA operators) that hold each shape
+SHAPE_LAUNCHES = {}
+SHAPE_OFFSETS = {}
+SHAPE_SOURCES = {}
 
 
 def phase(name):
@@ -238,8 +278,11 @@ def build_kernels():
 
 
 def check_kernel(torch, rng):
-    """DIA kernel vs plain version on the card; returns the largest
-    absolute difference seen."""
+    """DIA kernel vs plain version on the card: random operators (tall
+    and short, wide ones, rectangular ones) on both of the kernel's routes
+    in float32, float64 and on bfloat16 diagonals, then the structured
+    probe hierarchy's operators on the route the launcher chooses; returns
+    the largest absolute difference seen."""
     phase("3. dia_matvec vs plain")
     import pyamg_tpu_torch
     from pyamg_tpu_torch.gallery import poisson
@@ -259,11 +302,21 @@ def check_kernel(torch, rng):
         ("tiny n=169, 9-point", random_dia(
             (-14, -13, -12, -1, 0, 1, 12, 13, 14), (169, 169))),
     ]
+    for n, k in WIDE_CASES:
+        offsets = tuple(int(o) for o in np.sort(rng.choice(
+            np.arange(-(n - 1), n), size=k, replace=False)))
+        cases.append((f"wide {n}x{n}, {k} offsets",
+                      random_dia(offsets, (n, n))))
+    # both routes of the kernel on every case, bfloat16 diagonals too
+    worst = hold_dia_cases(torch, rng, cases, (torch.float32, torch.float64,
+                                               torch.bfloat16),
+                           routes=("tall", "wide"))
     t0 = time.perf_counter()
     probe = pyamg_tpu_torch.smoothed_aggregation_solver(
         poisson(GRID, format="csr"), device="cuda", **SETUP_KW)
     print(f"float64 probe hierarchy of {GRID}: {len(probe.levels)} levels "
           f"in {time.perf_counter() - t0:.1f} s")
+    cases = []
     for i, lvl in enumerate(probe.levels):
         cases.append((f"level {i} A {lvl.A.shape} offsets "
                       f"{len(lvl.A.offsets)}", lvl.A))
@@ -271,37 +324,49 @@ def check_kernel(torch, rng):
             cases.append((f"level {i} S {lvl.P.ops[0].shape}", lvl.P.ops[0]))
             cases.append((f"level {i} S^H {lvl.R.ops[-1].shape}",
                           lvl.R.ops[-1]))
-    return hold_dia_cases(torch, rng, cases)
+    return max(worst, hold_dia_cases(torch, rng, cases))
 
 
-def hold_dia_cases(torch, rng, cases, dtypes=None):
-    """``op.matvec`` (the kernel) against ``op.matvec_plain`` on the card
-    for every ``(label, SparseDIA)`` of ``cases``, in each of ``dtypes``
-    (float32 and float64 by default) on a random x; raises beyond REL_TOL,
-    returns the largest absolute difference.  The kernel launches made here
-    are taken off the counts."""
+def hold_dia_cases(torch, rng, cases, dtypes=None, routes=("auto",)):
+    """dia_matvec on each of ``routes`` of the kernel ("auto": the one its
+    launcher chooses) against ``op.matvec_plain`` on the card for every
+    ``(label, SparseDIA)`` of ``cases``, in each of ``dtypes`` (float32
+    and float64 by default; bfloat16 diagonals take a float32 x) on a
+    random x; raises beyond REL_TOL, and on any difference at all from a
+    wide-route launch in a real dtype (it adds as the twin does); returns
+    the largest absolute difference.  The kernel launches made here are
+    taken off the counts."""
     from pyamg_tpu_torch.sparse import SparseDIA, dia_kernel
 
     before = dia_kernel.launches, dict(dia_kernel.entry_launches)
     worst = 0.0
     for dtype in dtypes or (torch.float32, torch.float64):
         name = str(dtype).split(".")[-1]
+        x_dtype = torch.float32 if dtype == torch.bfloat16 else dtype
         for label, op in cases:
             op = SparseDIA(op.diags.to("cuda", dtype), op.offsets, op.shape)
             x = rng.standard_normal(op.shape[1])
             if dtype.is_complex:
                 x = x + 1j * rng.standard_normal(op.shape[1])
-            x = torch.as_tensor(x, device="cuda", dtype=dtype)
-            y = op.matvec(x)
+            x = torch.as_tensor(x, device="cuda", dtype=x_dtype)
             y_ref = op.matvec_plain(x)
-            torch.cuda.synchronize()
-            err = float((y - y_ref).abs().max())
-            rel = err / max(float(y_ref.abs().max()), 1e-300)
-            if not (bool(torch.isfinite(y).all()) and rel <= REL_TOL[name]):
-                raise AssertionError(f"dia_matvec {name} {label}: max rel "
-                                     f"error {rel:.3e} > {REL_TOL[name]}")
-            worst = max(worst, err)
-            print(f"{name:10s} {label:42s} max abs {err:.3e} rel {rel:.3e}")
+            for route in routes:
+                y = dia_kernel._dia_matvec_route(op.diags, op.offsets_dev, x,
+                                                 op.shape[1], route)
+                torch.cuda.synchronize()
+                taken = route if route != "auto" else dia_kernel.route(
+                    op.shape[0], op.n_offsets)
+                err = float((y - y_ref).abs().max())
+                rel = err / max(float(y_ref.abs().max()), 1e-300)
+                if not (bool(torch.isfinite(y).all()) and rel <= REL_TOL[name]
+                        and (err == 0.0 or dtype.is_complex
+                             or taken != "wide")):
+                    raise AssertionError(f"dia_matvec {name} {label} route "
+                                         f"{taken}: max abs error {err:.3e},"
+                                         f" rel {rel:.3e}")
+                worst = max(worst, err)
+                print(f"{name:10s} {label:42s} {taken:4s}  max abs {err:.3e} "
+                      f"rel {rel:.3e}")
     dia_kernel.launches = before[0]
     dia_kernel.entry_launches.update(before[1])
     return worst
@@ -329,6 +394,26 @@ def dia_operators(ml):
     return cases
 
 
+def record_hierarchy(name, ml):
+    """Hold a hierarchy's levels and operator complexity to
+    ``HIERARCHY_PINS[name]`` and enter the shapes of its DIA operators
+    (rows, cols, offsets, dtype) in ``SHAPE_SOURCES`` for phase 28;
+    returns its ``dia_operators``."""
+    cases = dia_operators(ml)
+    for _, op in cases:
+        key = (op.shape[0], op.shape[1], op.n_offsets,
+               str(op.dtype).split(".")[-1])
+        SHAPE_SOURCES.setdefault(key, (op.offsets, set()))[1].add(name)
+    levels, opc = len(ml.levels), f"{ml.operator_complexity():.6f}"
+    want = HIERARCHY_PINS[name]
+    print(f"{name}: levels {levels}, operator complexity {opc} (recorded "
+          f"{want[0]}, {want[1]:.6f}); {len(cases)} DIA operators")
+    if (levels, opc) != (want[0], f"{want[1]:.6f}"):
+        raise AssertionError(f"{name}: {levels} levels, operator complexity "
+                             f"{opc}; PERF.md records {want}")
+    return cases
+
+
 def main_path(torch):
     """The structured 1024^2 solve through the package's entry points;
     returns the hierarchy and the DIA kernel's launch count over it."""
@@ -343,53 +428,58 @@ def main_path(torch):
     normb = np.linalg.norm(b)
 
     dia_kernel.launches = 0
-    t0 = time.perf_counter()
-    ml = pyamg_tpu_torch.smoothed_aggregation_solver(
-        A, op_dtype=torch.float32, device="cuda", **SETUP_KW)
-    torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
-    opc = ml.operator_complexity()
-    print(ml)
-    print(f"setup_s {setup_s:.3f}  levels {len(ml.levels)}  "
-          f"operator_complexity {opc:.6f}")
-
-    def solve():
-        return ml.solve_mp(b, tol=TOL, method="defect", inner_maxiter=40,
-                           max_rounds=4, inner_tol_factor=1e-6,
-                           return_info=True)
-
-    x, info = solve()
-    torch.cuda.synchronize()
-    launches_first = dia_kernel.launches
-    x_np = x.cpu().numpy()
-    relres = np.linalg.norm(b - A @ x_np) / normb
-    # the JAX bench counts the inner CG iterations of each round; solve_mp's
-    # count adds one per round (the residual of the round's start)
-    cg_iters = info["inner_iterations"] - info["rounds"]
-    runs = []
-    for _ in range(3):
-        torch.cuda.synchronize()
+    twin = [0]
+    with counting_twin_calls(torch, twin):
         t0 = time.perf_counter()
-        solve()
+        ml = pyamg_tpu_torch.smoothed_aggregation_solver(
+            A, op_dtype=torch.float32, device="cuda", **SETUP_KW)
         torch.cuda.synchronize()
-        runs.append(time.perf_counter() - t0)
-    print(f"solve_mp(defect): rounds {info['rounds']}  inner CG iterations "
-          f"{cg_iters} (solve_mp count {info['inner_iterations']})  "
-          f"true f64 relres {relres:.3e}  finite "
-          f"{bool(np.isfinite(x_np).all())}")
-    print(f"solve_s best of 3 {min(runs):.4f}  runs "
-          f"{[round(r, 4) for r in runs]} (after the first solve, which "
-          f"also builds the float64 operator)  dia_matvec launches in the "
-          f"first solve {launches_first}")
+        setup_s = time.perf_counter() - t0
+        opc = ml.operator_complexity()
+        print(ml)
+        print(f"setup_s {setup_s:.3f}  levels {len(ml.levels)}  "
+              f"operator_complexity {opc:.6f}")
 
-    res = []
-    x_cg, it_info = ml.solve(b, tol=1e-8, accel="cg", residuals=res,
-                             return_info=True)
-    torch.cuda.synchronize()
-    relres_cg = (np.linalg.norm(b - A @ x_cg.double().cpu().numpy())
-                 / normb)
-    print(f"solve(accel='cg', tol=1e-8) float32: iterations {len(res) - 1}  "
-          f"info {it_info}  true f64 relres {relres_cg:.3e}")
+        def solve():
+            return ml.solve_mp(b, tol=TOL, method="defect", inner_maxiter=40,
+                               max_rounds=4, inner_tol_factor=1e-6,
+                               return_info=True)
+
+        x, info = solve()
+        torch.cuda.synchronize()
+        launches_first = dia_kernel.launches
+        x_np = x.cpu().numpy()
+        relres = np.linalg.norm(b - A @ x_np) / normb
+        # the JAX bench counts the inner CG iterations of each round;
+        # solve_mp's count adds one per round (the residual of its start)
+        cg_iters = info["inner_iterations"] - info["rounds"]
+        runs = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            solve()
+            torch.cuda.synchronize()
+            runs.append(time.perf_counter() - t0)
+        print(f"solve_mp(defect): rounds {info['rounds']}  inner CG "
+              f"iterations {cg_iters} (solve_mp count "
+              f"{info['inner_iterations']})  true f64 relres {relres:.3e}  "
+              f"finite {bool(np.isfinite(x_np).all())}")
+        print(f"solve_s best of 3 {min(runs):.4f}  runs "
+              f"{[round(r, 4) for r in runs]} (after the first solve, which "
+              f"also builds the float64 operator)  dia_matvec launches in the "
+              f"first solve {launches_first}")
+
+        res = []
+        x_cg, it_info = ml.solve(b, tol=1e-8, accel="cg", residuals=res,
+                                 return_info=True)
+        torch.cuda.synchronize()
+        relres_cg = (np.linalg.norm(b - A @ x_cg.double().cpu().numpy())
+                     / normb)
+        print(f"solve(accel='cg', tol=1e-8) float32: iterations "
+              f"{len(res) - 1}  info {it_info}  true f64 relres "
+              f"{relres_cg:.3e}")
+    launches = dia_kernel.launches
+    record_hierarchy("structured path", ml)
 
     if len(ml.levels) != 5:
         raise AssertionError(f"expected 5 levels, got {len(ml.levels)}")
@@ -403,7 +493,8 @@ def main_path(torch):
         raise AssertionError("the solve launched no dia_matvec kernel")
     if not np.isfinite(relres_cg):
         raise AssertionError("float32 PCG returned a non-finite solution")
-    launches = dia_kernel.launches
+    if twin[0]:
+        raise AssertionError(f"the plain twin ran on CUDA {twin[0]} times")
 
     # the same path at a size a direct solver checks: 64^2 against spsolve
     from scipy.sparse.linalg import spsolve
@@ -975,20 +1066,32 @@ def dia_bench(torch, bench):
 @contextlib.contextmanager
 def counting_twin_calls(torch, count):
     """Count in ``count[0]`` the calls of the DIA kernel's plain twin on a
-    CUDA tensor (the path must make none)."""
+    CUDA tensor (the path must make none), and in ``SHAPE_LAUNCHES`` the
+    kernel's launches by shape (rows, cols, offsets, dtype)."""
     from pyamg_tpu_torch.sparse import dia_kernel
 
-    real = dia_kernel.dia_matvec_plain
+    real, real_kernel = dia_kernel.dia_matvec_plain, dia_kernel.dia_matvec
 
     def counted(diags, offsets, x, m):
         count[0] += x.is_cuda
         return real(diags, offsets, x, m)
 
+    def counted_kernel(diags, offsets, x, m):
+        if diags.shape[1]:
+            key = (diags.shape[1], m, diags.shape[0],
+                   str(diags.dtype if diags.dtype == torch.bfloat16
+                       else x.dtype).split(".")[-1])
+            SHAPE_LAUNCHES[key] = SHAPE_LAUNCHES.get(key, 0) + 1
+            SHAPE_OFFSETS.setdefault(key, offsets)
+        return real_kernel(diags, offsets, x, m)
+
     dia_kernel.dia_matvec_plain = counted
+    dia_kernel.dia_matvec = counted_kernel
     try:
         yield
     finally:
         dia_kernel.dia_matvec_plain = real
+        dia_kernel.dia_matvec = real_kernel
 
 
 def _launches_of(fn):
@@ -1120,7 +1223,9 @@ def default_sa(torch, which):
     per_cycle = describe_levels(torch, ml)
     dia_kernel.launches = launches          # the description is no path
     print("dia_matvec vs plain on this hierarchy's own DIA operators:")
-    worst = hold_dia_cases(torch, np.random.default_rng(4), dia_operators(ml))
+    worst = hold_dia_cases(torch, np.random.default_rng(4), record_hierarchy(
+        {"structured": "default call, A.grid",
+         "unstructured": "default call, plain CSR"}[which], ml))
     relres = {}
     for name, x in (("cg", x_cg), ("cycles", x_sa)):
         x = x.double().cpu().numpy()
@@ -1719,7 +1824,7 @@ def elasticity_1m(torch):
 
     print("dia_matvec vs plain on this hierarchy's DIA operators:")
     worst = hold_dia_cases(torch, np.random.default_rng(19),
-                           dia_operators(ml))
+                           record_hierarchy("elasticity_1m_energy_sa", ml))
     # the kernel at the level-0 shape (21 diagonals over 1,048,352 rows,
     # float32: 96.4 MB, beyond the 50 MB L2) beside its twin and cuSPARSE
     A0 = ml.levels[0].A
@@ -1812,8 +1917,9 @@ def elasticity_rbm(torch):
                 and len(res) - 1 <= 30):
             raise AssertionError(f"{name}: CG {len(res) - 1} iterations, "
                                  f"relres {relres}, solve_mp {relres64}")
-        worst = max(worst, hold_dia_cases(torch, np.random.default_rng(20),
-                                          dia_operators(ml)))
+        worst = max(worst, hold_dia_cases(
+            torch, np.random.default_rng(20),
+            record_hierarchy(f"elasticity 100^2, {name}", ml)))
         for lvl in ml.levels:
             for op in getattr(getattr(lvl, "P", None), "ops", ()):
                 if isinstance(op, SparseBDIA) and bdia is None:
@@ -1991,8 +2097,9 @@ def classical_poisson(torch):
         print(f"reference fingerprint (poisson_500): "
               f"{'held' if not bad else bad}")
         launches = dia_kernel.launches
-        worst = max(worst, hold_dia_cases(torch, np.random.default_rng(21),
-                                          dia_operators(ml)))
+        worst = max(worst, hold_dia_cases(
+            torch, np.random.default_rng(21),
+            record_hierarchy(f"classical_poisson_500, {smoother}", ml)))
         if bad:
             raise AssertionError(f"the hierarchy left the reference's "
                                  f"fingerprint: {bad}")
@@ -2040,7 +2147,7 @@ def anisotropic_classical(torch):
                                              inner_maxiter=60)
     launches = dia_kernel.launches
     worst = hold_dia_cases(torch, np.random.default_rng(22),
-                           dia_operators(ml))
+                           record_hierarchy("anisotropic_1024_classical", ml))
     time_level0_dia(torch, ml)
     print(f"dia_matvec launches over the phase {launches};  plain twin "
           f"calls on CUDA {twin[0]} (DIA) {spgemm_kernel.plain_cuda_calls} "
@@ -2363,7 +2470,7 @@ def poisson3d(torch):
         info, relres, _, _ = classical_solve(torch, ml, A, b)
     launches = dia_kernel.launches
     worst = hold_dia_cases(torch, np.random.default_rng(24),
-                           dia_operators(ml))
+                           record_hierarchy("poisson3d_64_sa_chebyshev", ml))
     widest = max(range(len(ml.levels)),
                  key=lambda i: ml.levels[i].A.n_offsets
                  if isinstance(ml.levels[i].A, SparseDIA) else -1)
@@ -2382,6 +2489,7 @@ def poisson3d(torch):
                              f"{POISSON3D['iters']}+-1 and <= 5e-10")
     print("-- the default call on the same matrix (3-D grid metadata: the "
           "unstructured chain)")
+    dia_kernel.launches = 0
     with counting_twin_calls(torch, twin):
         ml_d, _ = timed_setup(torch, lambda: (
             pyamg_tpu_torch.smoothed_aggregation_solver(
@@ -2390,7 +2498,8 @@ def poisson3d(torch):
         _, relres_cg, _ = cg_solve(torch, ml_d, A, b)
     launches += dia_kernel.launches
     worst = max(worst, hold_dia_cases(torch, np.random.default_rng(240),
-                                      dia_operators(ml_d)))
+                                      record_hierarchy("64^3 default call",
+                                                       ml_d)))
     _check_front_door(torch, "phase 24", launches, worst, twin)
     if hasattr(ml_d.levels[0], "struct_meta") or not relres_cg <= 5e-7:
         raise AssertionError(f"default call on 64^3: relres {relres_cg} "
@@ -2471,7 +2580,8 @@ def adaptive_aniso(torch):
     print(f"zebra line solves a V-cycle {pcr['solves']}, PCR rounds "
           f"{pcr['rounds']}")
     worst = hold_dia_cases(torch, np.random.default_rng(25),
-                           dia_operators(ml))
+                           record_hierarchy("adaptive_sa_anisotropy_1024",
+                                            ml))
     _check_front_door(torch, "phase 25", launches, worst, twin)
     if ml.levels[0].struct_meta["sfn"] != "jacobi_weak" \
             or 1 not in ml.levels[0].struct_meta["block"]:
@@ -2518,8 +2628,9 @@ def rootnode_phase(torch):
             _, relres_cg, _ = cg_solve(torch, ml, A, b)
             info, relres, _, _ = classical_solve(torch, ml, A, b)
         launches += dia_kernel.launches
-        worst = max(worst, hold_dia_cases(torch, np.random.default_rng(26),
-                                          dia_operators(ml)))
+        worst = max(worst, hold_dia_cases(
+            torch, np.random.default_rng(26),
+            record_hierarchy(f"rootnode_solver, {which}", ml)))
         if not (relres_cg <= 5e-7 and relres <= 5e-10):
             raise AssertionError(f"rootnode {which}: CG relres {relres_cg}"
                                  f" (<= 5e-7), solve_mp {relres} (<= 5e-10)")
@@ -2569,7 +2680,7 @@ def blackbox_phase(torch, records):
           f"{relres:.3e}, solve_s best of 3 {min(runs):.4f}  runs "
           f"{[round(r, 4) for r in runs]}")
     worst = hold_dia_cases(torch, np.random.default_rng(27),
-                           dia_operators(ml))
+                           record_hierarchy("black box", ml))
     _check_front_door(torch, "phase 27", launches, worst, twin)
     if not relres <= 5e-5:
         raise AssertionError(f"the black box's relres {relres} > 5e-5")
@@ -2583,6 +2694,124 @@ def blackbox_phase(torch, records):
               f"cycle_complexity V {cycle_complexity(h, 'V'):.4f} W "
               f"{cycle_complexity(h, 'W'):.4f}  (fine-level nnz units)")
     return launches, worst
+
+
+def dia_shapes(torch, launches):
+    """dia_matvec at every DIA shape the smoke ran: the shapes (rows,
+    cols, offsets, dtype) of every hierarchy's DIA operators and of every
+    launch on the paths, each with its launches there.  At each shape, on
+    random diagonals with the shape's offsets: both routes held against
+    the twin (bitwise in the real dtypes), the tall route's, the wide
+    route's, the twin's, cuSPARSE's SpMV (``torch.mv`` of the same
+    operator as CSR with int32 indices) and the bound's times, the route
+    the launcher takes and launches x (its time - bound).  ``launches``: the kernels line's counts
+    by entry, which the per-shape launches must sum to.  Returns the
+    widest launched float32 shape's record for the kernels line."""
+    phase("28. dia_matvec at every DIA shape of the paths")
+    from pyamg_tpu_torch.benchmarks.dia_route_sweep import csr_of
+    from pyamg_tpu_torch.sparse import SparseDIA, dia_kernel
+
+    entry = {"float32": "dia_matvec", "float64": "dia_matvec",
+             "bfloat16": "dia_matvec", "complex64": "dia_matvec_c64",
+             "complex128": "dia_matvec_c128"}
+    by_entry = dict.fromkeys(set(entry.values()), 0)
+    for key, count in SHAPE_LAUNCHES.items():
+        by_entry[entry[key[3]]] += count
+    print(f"launches by shape sum to {by_entry}; the paths' counts "
+          f"{ {name: launches[name] for name in by_entry} }")
+    if any(by_entry[name] != launches[name] for name in by_entry):
+        raise AssertionError("the launches by shape do not add up to the "
+                             "paths' launch counts")
+    keys = sorted(set(SHAPE_LAUNCHES) | set(SHAPE_SOURCES),
+                  key=lambda key: (key[3], -key[2], -key[0], key[1]))
+    rng = np.random.default_rng(28)
+    before = dia_kernel.launches, dict(dia_kernel.entry_launches)
+    records = []
+    for key in keys:
+        n, m, k, name = key
+        if key in SHAPE_SOURCES:
+            offsets, sources = SHAPE_SOURCES[key]
+        else:
+            offsets, sources = tuple(SHAPE_OFFSETS[key].tolist()), set()
+        dtype = getattr(torch, name)
+        x_dtype = torch.float32 if dtype == torch.bfloat16 else dtype
+
+        def rand(*size):
+            t = torch.as_tensor(rng.standard_normal(size), device="cuda")
+            if dtype.is_complex:
+                t = torch.complex(t, torch.as_tensor(
+                    rng.standard_normal(size), device="cuda"))
+            return t
+
+        op = SparseDIA(rand(k, n).to(dtype), offsets, (n, m))
+        x = rand(m).to(x_dtype)
+        y_ref = op.matvec_plain(x)
+        scale = max(float(y_ref.abs().max()), 1e-300)
+        run = {r: functools.partial(dia_kernel._dia_matvec_route, op.diags,
+                                    op.offsets_dev, x, m, r)
+               for r in ("tall", "wide")}
+        errs = {r: float((fn() - y_ref).abs().max()) for r, fn in run.items()}
+        if any(err / scale > REL_TOL[name] or (err and not dtype.is_complex)
+               for err in errs.values()):
+            raise AssertionError(f"dia_matvec {key}: a route differs from "
+                                 f"the twin: {errs}")
+        fns = [run["tall"], run["wide"], lambda: op.matvec_plain(x)]
+        if dtype != torch.bfloat16:
+            csr = csr_of(op)
+            try:
+                torch.mv(csr, x)
+                fns.append(lambda: torch.mv(csr, x))
+            except RuntimeError as e:       # no such SpMV in the library
+                print(f"torch.mv on a {name} CSR tensor: {e}")
+        times = _medians(torch, *fns, samples=10)
+        chosen = dia_kernel.route(n, k)
+        nbytes, flops = dia_work(op, x)
+        b_ms, b_by = bound(nbytes, flops, F64_FLOP_PER_S
+                           if x_dtype in (torch.float64, torch.complex128)
+                           else F32_FLOP_PER_S)
+        rec = dict(shape=f"{n}x{m} k={k} {name}", n=n, m=m, k=k, dtype=name,
+                   launches=SHAPE_LAUNCHES.get(key, 0), route=chosen,
+                   tall_ms=times[0], wide_ms=times[1],
+                   ms=times[chosen == "wide"], plain_ms=times[2],
+                   library_ms=times[3] if len(times) == 4 else None,
+                   bound_ms=b_ms, bound_by=b_by, max_abs_err=max(
+                       errs.values()), sources=sorted(sources))
+        rec["loss_ms"] = rec["launches"] * (rec["ms"] - b_ms)
+        records.append(rec)
+        lib = ("-" if rec["library_ms"] is None
+               else f"{rec['library_ms'] * 1e3:.2f}")
+        print(f"SHAPE {rec['shape']:28s} launches {rec['launches']:6d}  "
+              f"route {chosen:4s}  tall {times[0] * 1e3:8.2f} us  wide "
+              f"{times[1] * 1e3:8.2f} us  plain {times[2] * 1e3:9.2f} us  "
+              f"cuSPARSE {lib:>8s} us  bound {b_ms * 1e3:7.2f} us  err "
+              f"{rec['max_abs_err']:.1e}  "
+              f"{', '.join(rec['sources']) or 'launched only'}")
+        del op, x, y_ref
+    dia_kernel.launches = before[0]
+    dia_kernel.entry_launches.update(before[1])
+    ranked = sorted(records, key=lambda r: -r["loss_ms"])
+    print("launches x (time - bound) on the chosen route, largest first:")
+    for r in ranked[:12]:
+        print(f"  {r['shape']:28s} {r['launches']:6d} x ("
+              f"{r['ms'] * 1e3:.2f} - {r['bound_ms'] * 1e3:.2f}) us = "
+              f"{r['loss_ms']:.2f} ms")
+    slower = [r["shape"] for r in records if r["library_ms"] is not None
+              and r["ms"] > r["library_ms"]]
+    other = [r["shape"] for r in records
+             if min(r["tall_ms"], r["wide_ms"]) < 0.9 * r["ms"]]
+    print(f"{len(records)} shapes; the chosen route slower than cuSPARSE at "
+          f"{slower or 'none'}; more than 10% slower than the other route at "
+          f"{other or 'none'}")
+    print(json.dumps({"dia_shapes": records}))
+    widest = max((r for r in records
+                  if r["launches"] and r["dtype"] == "float32"),
+                 key=lambda r: (r["k"], r["launches"]))
+    return dict(widest_shape=widest["shape"], widest_route=widest["route"],
+                widest_ms=widest["ms"], widest_tall_ms=widest["tall_ms"],
+                widest_plain_ms=widest["plain_ms"],
+                widest_bound_ms=widest["bound_ms"],
+                widest_library_ms=widest["library_ms"],
+                widest_launches=widest["launches"])
 
 
 def main():
@@ -2621,13 +2850,16 @@ def main():
     from pyamg_tpu_torch.sparse import dia_kernel
 
     dia_kernel.launches = 0
-    krylov_accels(torch, ml_default)
-    krylov_standalone(torch)
-    solver_set(torch, ml_default, ml_plain)
+    twin = [0]
+    with counting_twin_calls(torch, twin):
+        krylov_accels(torch, ml_default)
+        krylov_standalone(torch)
+        solver_set(torch, ml_default, ml_plain)
     print(f"dia_matvec launches over the Krylov phases 15-17: "
-          f"{dia_kernel.launches}")
-    if dia_kernel.launches <= 0:
-        raise AssertionError("the Krylov phases launched no dia_matvec")
+          f"{dia_kernel.launches};  plain twin calls on CUDA {twin[0]}")
+    if dia_kernel.launches <= 0 or twin[0]:
+        raise AssertionError("the Krylov phases launched no dia_matvec, or "
+                             "ran its twin on CUDA")
     launches["dia_matvec"] += dia_kernel.launches
     complex_launches, complex_worst = complex_path(torch)
     launches.update({name: complex_launches[name]
@@ -2662,6 +2894,7 @@ def main():
     print(f"dia_matvec launches by the SA front-door phases 24-27: 3-D "
           f"{n_3d}, adaptive {n_asa}, root-node {n_root}, black box "
           f"{n_bb}")
+    times["dia_matvec"].update(dia_shapes(torch, launches))
     print(f"chip_smoke seconds: {time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": [dict(
         name=name, **KERNELS[name], launches=launches[name],

@@ -54,7 +54,8 @@ What is ported:
   (``benchmarks.dia_spmv_bench``).
 """
 
-from . import classical, complexity, gallery, krylov, parallel
+from . import (aggregation, amg_core, classical, complexity, gallery, graph,
+               krylov, parallel, relaxation, sparse, strength, util)
 from .aggregation import (adaptive_sa_solver, rootnode_solver,
                           smoothed_aggregation_solver)
 from .blackbox import solve, solver, solver_configuration
@@ -64,13 +65,20 @@ from .multilevel import (MultilevelSolver, MultilevelSolverSet,
                          coarse_grid_solver, multilevel_solver,
                          multilevel_solver_set)
 from .sparse import BlockELL, SparseBDIA, SparseDIA, SparseELL
+from .strength import (classical_strength_of_connection,
+                       evolution_strength_of_connection,
+                       symmetric_strength_of_connection)
 
 __version__ = "0.1.0"
 
-__all__ = ["classical", "complexity", "gallery", "krylov", "parallel",
-           "smoothed_aggregation_solver", "rootnode_solver",
+__all__ = ["aggregation", "amg_core", "classical", "complexity", "gallery",
+           "graph", "krylov", "parallel", "relaxation", "sparse", "strength",
+           "util", "smoothed_aggregation_solver", "rootnode_solver",
            "adaptive_sa_solver", "solve", "solver", "solver_configuration",
            "setup_complexity", "cycle_complexity", "ruge_stuben_solver",
            "MultilevelSolver", "MultilevelSolverSet", "multilevel_solver",
-           "multilevel_solver_set", "coarse_grid_solver", "SparseDIA",
-           "SparseELL", "SparseBDIA", "BlockELL", "__version__"]
+           "multilevel_solver_set", "coarse_grid_solver",
+           "classical_strength_of_connection",
+           "symmetric_strength_of_connection",
+           "evolution_strength_of_connection", "SparseDIA", "SparseELL",
+           "SparseBDIA", "BlockELL", "__version__"]

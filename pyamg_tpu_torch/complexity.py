@@ -32,6 +32,29 @@ from .util.utils import unpack_arg
 
 __all__ = ["setup_complexity", "cycle_complexity"]
 
+# the JAX package's earlier keyword names, superseded by costs read off the
+# hierarchy itself: accepted and ignored with a DeprecationWarning, as
+# there, rather than refused
+_LEGACY_COST_KWARGS = frozenset({
+    "strength_cost", "aggregation_cost", "presmoother_cost",
+    "postsmoother_cost", "smooth_cost", "improve_candidates_cost",
+})
+
+
+def _warn_legacy_cost_kwargs(fn_name, kwargs):
+    if not kwargs:
+        return
+    unknown = set(kwargs) - _LEGACY_COST_KWARGS
+    if unknown:
+        raise TypeError(f"{fn_name}() got unexpected keyword arguments "
+                        f"{sorted(unknown)}")
+    import warnings
+
+    warnings.warn(
+        f"{fn_name}(): the {sorted(kwargs)} keyword(s) are deprecated and "
+        "ignored — per-component costs are now read from the hierarchy's "
+        "actual per-level options", DeprecationWarning, stacklevel=3)
+
 
 def _nnz(lvl):
     return lvl.A_csr.nnz if hasattr(lvl, "A_csr") else lvl.A.nnz
@@ -114,7 +137,8 @@ def setup_complexity(ml, strength="symmetric",
                      presmoother=("gauss_seidel", {"sweep": "symmetric"}),
                      postsmoother=("gauss_seidel", {"sweep": "symmetric"}),
                      keep=False, max_levels=10, max_coarse=500,
-                     coarse_solver="pinv", symmetry="hermitian"):
+                     coarse_solver="pinv", symmetry="hermitian",
+                     **legacy_kwargs):
     """Setup-phase work in units of fine-grid nnz, reading the actual
     options per level.
 
@@ -122,8 +146,10 @@ def setup_complexity(ml, strength="symmetric",
     additions per energy-minimization iteration + the A·P product),
     the evolution strength-of-connection product chain, the Galerkin
     triple product, Schwarz subdomain factorizations, and candidate
-    improvement relaxation on B.
+    improvement relaxation on B.  The legacy cost keywords are accepted
+    and ignored with a ``DeprecationWarning``; any other keyword raises.
     """
+    _warn_legacy_cost_kwargs("setup_complexity", legacy_kwargs)
     nlevels = len(ml.levels)
     strength = _levelize(strength, nlevels)
     smooth = _levelize(smooth, nlevels)
@@ -181,7 +207,8 @@ def setup_complexity(ml, strength="symmetric",
     return work / float(_nnz(ml.levels[0]))
 
 
-def cycle_complexity(ml, cycle="V", presmoothing=None, postsmoothing=None):
+def cycle_complexity(ml, cycle="V", presmoothing=None, postsmoothing=None,
+                     **legacy_kwargs):
     """Work of one cycle in units of fine-grid nnz.
 
     ``presmoothing``/``postsmoothing`` may pass explicit option specs
@@ -191,7 +218,10 @@ def cycle_complexity(ml, cycle="V", presmoothing=None, postsmoothing=None):
     normal-equation doubling are all reflected.  ``AMLI`` is modeled from
     this package's compiled cycle: a W-shaped recursion plus three extra
     coarse-operator matvecs per visit (the A-conjugate direction setup).
+    The legacy cost keywords warn and are ignored, as in
+    :func:`setup_complexity`.
     """
+    _warn_legacy_cost_kwargs("cycle_complexity", legacy_kwargs)
     cycle = str(cycle).upper()
     nlevels = len(ml.levels)
     nnz = [float(_nnz(lvl)) for lvl in ml.levels]

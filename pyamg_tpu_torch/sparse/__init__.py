@@ -10,12 +10,13 @@ chooser."""
 from .bdia import SparseBDIA
 from .bell import BlockELL
 from .dia import SparseDIA
-from .ell import SparseELL
+from .ell import SparseELL, ell_matvec
 from .linop import (ComposedOp, CptProlongOp, CptRestrictOp, DenseOp,
                     GridPoolOp, GridRepeatOp)
 from .device_op import device_operator
 from .embed import embedded_dia_transfers, root_embedded_transfers
 
-__all__ = ["SparseDIA", "SparseELL", "SparseBDIA", "BlockELL", "ComposedOp", "GridRepeatOp", "GridPoolOp",
-           "DenseOp", "CptProlongOp", "CptRestrictOp", "device_operator",
+__all__ = ["SparseDIA", "SparseELL", "SparseBDIA", "BlockELL", "ComposedOp",
+           "GridRepeatOp", "GridPoolOp", "DenseOp", "CptProlongOp",
+           "CptRestrictOp", "device_operator", "ell_matvec",
            "embedded_dia_transfers", "root_embedded_transfers"]

@@ -41,3 +41,34 @@ ALL = {
     "margin": lambda: with_diagonals(poisson((1000,), format="csr"),
                                      [(-999, 0.5), (999, 0.25)], 5),
 }
+
+
+def random_dia(n, m, k, seed, edges=False):
+    """An n x m operator with k distinct diagonals drawn from every offset
+    that meets it, random values; ``edges``: the two outermost offsets
+    ``-(n - 1)`` and ``m - 1`` among them (one entry each)."""
+    rng = np.random.default_rng(seed)
+    offsets = rng.choice(np.arange(-(n - 1), m), size=k, replace=False)
+    if edges:
+        rest = offsets[(offsets != -(n - 1)) & (offsets != m - 1)]
+        offsets = np.concatenate([[-(n - 1), m - 1], rest[:k - 2]])
+    data = rng.random((k, max(n, m))) + 0.5
+    return sp.csr_matrix(sp.dia_matrix((data, offsets), shape=(n, m)))
+
+
+# short, wide operators: few rows, many offsets -- the shapes on which
+# dia_matvec's launcher takes its wide route (chip_smoke's per-shape sweep
+# has the real ones: 4,096 x 179 and 2,154 x 285 levels, 603-offset
+# smoothers)
+WIDE = {
+    "wide512x200": lambda: random_dia(512, 512, 200, 11),
+    # the plain-CSR default hierarchy's level of 219 rows and 111 offsets
+    "wide219x111": lambda: random_dia(219, 219, 111, 12),
+    # more offsets than a float32 chunk of the wide route (512) holds
+    "wide700x603": lambda: random_dia(700, 700, 603, 13),
+    # rectangular, offsets past both edges
+    "rect300x700": lambda: random_dia(300, 700, 150, 14, edges=True),
+    "rect700x300": lambda: random_dia(700, 300, 150, 15, edges=True),
+    "k1": lambda: sp.csr_matrix(sp.diags(
+        np.random.default_rng(16).random(998) + 0.5, -2, shape=(1000, 1000))),
+}

@@ -12,11 +12,14 @@ through the twins of the port's kernels on the CPU:
   reference is the oracle;
 * bfloat16 diagonals with a float32 x through ``dia_kernel`` against
   ``dia_matvec_pallas(..., interpret=True)`` on the same pair, 1e-6
-  relative (both take each product and sum in float32, in offset order).
+  relative (both take each product and sum in float32, in offset order);
+* ``dia_kernel`` on the short, wide operators of ``dia_cases.WIDE`` (the
+  shapes of the kernel's wide route), every route, against
+  ``matvec_xla`` bit for bit and the Pallas K1 in interpret mode.
 
-Then the wrappers' refusals, and the DIA benchmark's problem and byte
-counts at a small grid.  The CUDA kernels themselves are held against
-their twins in test_torch_kernel.py.
+Then the wrappers' refusals, the DIA benchmark's problem and byte counts
+at a small grid, and the route sweep's operators.  The CUDA kernels
+themselves are held against their twins in test_torch_kernel.py.
 """
 
 import numpy as np
@@ -29,7 +32,7 @@ from pyamg_tpu.sparse import SparseDIA as JaxDIA
 from pyamg_tpu.sparse.pallas_kernels import _plan as jax_plan
 from pyamg_tpu.sparse.pallas_kernels import (dia_matvec_pallas,
                                              dia_matvec_pallas_v2)
-from pyamg_tpu_torch.benchmarks import dia_spmv_bench
+from pyamg_tpu_torch.benchmarks import dia_route_sweep, dia_spmv_bench
 from pyamg_tpu_torch.gallery import poisson
 from pyamg_tpu_torch.sparse import SparseDIA, dia_kernel, dia_variants
 
@@ -226,3 +229,61 @@ def test_bench_rows_compute_one_function():
 def test_bench_run_needs_the_card():
     with pytest.raises(ValueError, match="CUDA"):
         dia_spmv_bench.run(64, device="cpu")
+
+
+# the Pallas K1's cases: square, and few enough offsets for its VMEM plan
+# (603 offsets have none)
+WIDE_PALLAS = ["wide512x200", "wide219x111", "k1"]
+
+
+@pytest.mark.parametrize("case", sorted(dia_cases.WIDE))
+def test_wide_operators_match_the_jax_kernels(case):
+    """dia_matvec's short, wide cases (the shapes of its wide route), in
+    float32: the port's twin, which both routes of the CUDA kernel equal
+    bit for bit, against the JAX package's plain ``matvec_xla`` bit for bit
+    (each product rounded, then added in offset order, in both), and
+    against its Pallas K1 in interpret mode where that kernel takes the
+    operator (square, and its VMEM plan holds the offsets) to 1e-6
+    relative (its halo tiles sum the same terms under XLA's fusion)."""
+    A = dia_cases.WIDE[case]()
+    x = np.random.default_rng(7).standard_normal(A.shape[1]) \
+        .astype(np.float32)
+    J = JaxDIA.from_scipy(A, max_offsets=1024).astype(jnp.float32)
+    y_xla = np.asarray(J.matvec_xla(jnp.asarray(x)))
+    D = SparseDIA.from_scipy(A, max_offsets=1024, dtype=np.float32,
+                             device="cpu")
+    assert D.offsets == J.offsets and D.shape == A.shape
+    for route in ("auto", "tall", "wide"):
+        y = dia_kernel._dia_matvec_route(D.diags, D.offsets_dev,
+                                         torch.from_numpy(x), D.shape[1],
+                                         route)
+        assert y.dtype == torch.float32 and y.shape == (A.shape[0],)
+        np.testing.assert_array_equal(y.numpy(), y_xla)
+    if case in WIDE_PALLAS:
+        y_ref = np.asarray(dia_matvec_pallas(J.diags, J.offsets,
+                                             jnp.asarray(x), interpret=True))
+        assert np.abs(y.numpy() - y_ref).max() <= \
+            1e-6 * np.abs(y_ref).max()
+    assert dia_kernel.route(A.shape[0], D.n_offsets) == \
+        ("tall" if case == "k1" else "wide")
+
+
+@pytest.mark.parametrize("n,k", [(256, 1), (219, 111), (4096, 179),
+                                 (1000, 603)])
+def test_route_sweep_operators(n, k):
+    D, x = dia_route_sweep.operator(n, k, torch.float64, "cpu", seed=3)
+    assert D.shape == (n, n) and x.shape == (n,) and 0 in D.offsets
+    assert D.n_offsets == min(k, 2 * n - 1)
+    assert len(set(D.offsets)) == D.n_offsets
+    assert list(D.offsets) == sorted(D.offsets)
+    assert max(abs(o) for o in D.offsets) < n
+    C = dia_route_sweep.csr_of(D)
+    assert C.crow_indices().dtype == torch.int32
+    assert C.col_indices().dtype == torch.int32
+    np.testing.assert_array_equal(C.to_dense().numpy(),
+                                  D.to_scipy().toarray())
+
+
+def test_route_sweep_needs_the_card():
+    with pytest.raises(ValueError, match="CUDA"):
+        dia_route_sweep.run(device="cpu")

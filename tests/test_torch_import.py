@@ -39,7 +39,11 @@ def test_public_surface():
     import pyamg_tpu_torch
 
     assert sorted(pyamg_tpu_torch.__all__) == sorted(
-        ["classical", "complexity", "gallery", "krylov", "parallel",
+        ["aggregation", "amg_core", "classical", "complexity", "gallery",
+         "graph", "krylov", "parallel", "relaxation", "sparse", "strength",
+         "util", "classical_strength_of_connection",
+         "symmetric_strength_of_connection",
+         "evolution_strength_of_connection",
          "smoothed_aggregation_solver", "rootnode_solver",
          "adaptive_sa_solver", "solve", "solver", "solver_configuration",
          "setup_complexity", "cycle_complexity", "ruge_stuben_solver",

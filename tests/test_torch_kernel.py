@@ -128,6 +128,34 @@ def test_other_devices_raise():
                                 device="meta"))
 
 
+@pytest.mark.parametrize("itemsize", [4, 8, 16])
+def test_every_shape_gets_a_route_whose_tile_fits(itemsize):
+    """The launcher's choice as the wrapper mirrors it: tall or wide for
+    every (n, k), wide only up to the row limit and from the offset limit
+    on; the wide route's tile: 512 threads, no idle lane, a grid within
+    4 blocks an SM where 512 rows allow it, and its staged products and
+    offsets inside the 48 KB a block has without opting in (227 KB with
+    it)."""
+    for n in (1, 2, 219, 2154, 4096, 8192, 16384, 32768, 65536, 65537,
+              131072, 1 << 20, 1 << 22):
+        for k in (1, 2, 4, 6, 7, 15, 16, 17, 20, 21, 32, 33, 110, 111, 179,
+                  285, 603, 4096):
+            r = dia_kernel.route(n, k)
+            want = next((k >= least for most, least in
+                         ((8192, 7), (16384, 16), (32768, 21), (65536, 111))
+                         if n <= most), False)
+            assert r == ("wide" if want else "tall"), (n, k)
+            rows, chunk = dia_kernel.wide_geometry(n, k, itemsize)
+            lanes = dia_kernel.WIDE_THREADS // rows
+            assert lanes * rows == dia_kernel.WIDE_THREADS
+            assert 4 <= rows <= 512 and lanes <= max(1, k) * 2 - 1
+            assert -(-n // rows) <= dia_kernel.WIDE_BLOCKS or rows == 512
+            shared = rows * chunk * itemsize + 4 * (32 * 1024 // 16)
+            assert chunk >= 1 and shared <= 48 * 1024 < 227 * 1024
+    assert dia_kernel.route(4096, 179) == "wide"
+    assert dia_kernel.route(1 << 20, 5) == "tall"
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -145,7 +173,9 @@ def _ops(rng):
             rand((-1999, -1, 0, 64, 2999), (2000, 3000)),
             rand((-14, -13, -12, -1, 0, 1, 12, 13, 14), (169, 169)),
             SparseDIA.from_scipy(poisson((37, 29), format="csr"),
-                                 device="cpu")]
+                                 device="cpu")] + [
+        SparseDIA.from_scipy(case(), max_offsets=1024, device="cpu")
+        for case in dia_cases.WIDE.values()]
 
 
 def _as_dtype(real, dtype, rng):
@@ -158,23 +188,60 @@ def _as_dtype(real, dtype, rng):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("route", ["auto", "tall", "wide"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
-                                   torch.complex64, torch.complex128])
-def test_cuda_kernel_matches_plain_version(cuda_device, dtype):
-    tol = 1e-5 if dtype in (torch.float32, torch.complex64) else 1e-12
+                                   torch.complex64, torch.complex128,
+                                   torch.bfloat16])
+def test_cuda_kernel_matches_plain_version(cuda_device, dtype, route):
+    # each route rounds every product before adding it, in offset order, as
+    # the twin does: the real types agree bit for bit (bfloat16 diagonals
+    # with a float32 x); torch's complex product fuses multiply-adds
+    tol = 1e-5 if dtype == torch.complex64 else 1e-12
+    x_dtype = torch.float32 if dtype == torch.bfloat16 else dtype
     rng = np.random.default_rng(0)
     for op in _ops(rng):
         op = SparseDIA(_as_dtype(op.diags, dtype, rng).to(cuda_device),
                        op.offsets, op.shape)
         x = _as_dtype(torch.as_tensor(rng.standard_normal(op.shape[1])),
-                      dtype, rng).to(cuda_device)
+                      x_dtype, rng).to(cuda_device)
         before = dia_kernel.launches
-        y = op.matvec(x)
+        y = dia_kernel._dia_matvec_route(op.diags, op.offsets_dev, x,
+                                         op.shape[1], route)
         torch.cuda.synchronize()
         assert dia_kernel.launches == before + 1
         y_ref = op.matvec_plain(x)
-        assert float((y - y_ref).abs().max()) <= \
-            tol * float(y_ref.abs().max())
+        if dtype.is_complex:
+            assert float((y - y_ref).abs().max()) <= \
+                tol * float(y_ref.abs().max()), op.shape
+        else:
+            assert torch.equal(y, y_ref), (op.shape, op.n_offsets)
+
+
+@pytest.mark.cuda
+def test_cuda_route_choice_agrees_with_the_launcher(cuda_device):
+    lib = dia_kernel.load()
+    for n in (1, 219, 2154, 4096, 8192, 16384, 32768, 65536, 65537,
+              1 << 20):
+        for k in (1, 6, 7, 15, 16, 20, 21, 110, 111, 179, 603):
+            assert lib.dia_matvec_route(n, k) == dia_kernel.ROUTES[
+                dia_kernel.route(n, k)], (n, k)
+            for itemsize in (4, 8, 16):
+                rows, chunk = dia_kernel.wide_geometry(n, k, itemsize)
+                assert lib.dia_matvec_wide_rows(n, k, itemsize) == rows
+                assert lib.dia_matvec_wide_chunk(n, k, itemsize) == chunk
+
+
+@pytest.mark.cuda
+def test_cuda_refused_route_raises(cuda_device, monkeypatch):
+    D = SparseDIA.from_scipy(poisson((8, 8), format="csr"),
+                             device=cuda_device)
+    x = torch.ones(D.shape[1], dtype=D.dtype, device=cuda_device)
+    monkeypatch.setitem(dia_kernel.ROUTES, "bogus", 7)
+    before = dia_kernel.launches
+    with pytest.raises(RuntimeError, match="launch failed"):
+        dia_kernel._dia_matvec_route(D.diags, D.offsets_dev, x, D.shape[1],
+                                     "bogus")
+    assert dia_kernel.launches == before
 
 
 @pytest.mark.cuda

@@ -67,6 +67,14 @@ computes the same function:
   ``pyamg_tpu_torch.solve(A, b)``; and the work models of those
   hierarchies (kernel: dia_matvec on every DIA level and transfer, timed
   at the 3-D level-0 and widest coarse shapes);
+* the nonsymmetric chain on recirculating convection-diffusion
+  (``recirc_flow``, generated here at 1024^2): nonsymmetric smoothed
+  aggregation with energy-GMRES P, R smoothed on A^H and Jacobi on the
+  normal equations as smoother (float32 operators; ``solve_mp`` with
+  GMRES to 1e-10, GMRES to 1e-8, cgnr and cgne), then at 256^2
+  nonsymmetric root-node SA, the black box and the NE/NR and Krylov
+  smoothers (kernel: dia_matvec on every DIA level, the explicit-R
+  root-embedded transfers and A^H);
 * dia_matvec at every DIA shape that the phases' hierarchies hold or
   their paths launched, with its launches there: both of the kernel's
   routes (a thread a row; threads over (row, offset) pairs for short,
@@ -187,6 +195,20 @@ ASA = dict(grid=(1024, 1024), iters=12, iters_tol=3,
                    prepostsmoother="zebra"))
 ROOTNODE_GRID = (1024, 1024)
 BLACKBOX_GRID = (1024, 1024)
+# the nonsymmetric chain (phase 29): recirculating convection-diffusion at
+# 1024^2 through nonsymmetric SA with the configuration of the JAX
+# package's tests/test_aggregation.py::test_nonsymmetric_mode; root-node
+# SA, the black box and the smoothers on the normal equations and the
+# Krylov smoothers at 256^2.  The JAX package's own tests pin no count:
+# every count here is the card's
+NONSYM = dict(grid=1024, small=256, kw=dict(
+    symmetry="nonsymmetric",
+    smooth=("energy", {"krylov": "gmres", "maxiter": 2}),
+    presmoother=("gauss_seidel_nr", {"sweep": "symmetric"}),
+    postsmoother=("gauss_seidel_nr", {"sweep": "symmetric"}),
+    max_coarse=500))
+NONSYM_SMOOTHERS = ("jacobi_ne", "gauss_seidel_ne", "cgnr", "cgne", "cg",
+                    "gmres")
 DEFAULT_SA = {
     "structured": dict(rows=[1048576, 116964, 12996, 1444, 169], opc=1.225,
                        cg=9, cycles=10),
@@ -214,6 +236,9 @@ HIERARCHY_PINS = {
     "rootnode_solver, grid": (5, 1.338143),
     "rootnode_solver, plain CSR": (5, 1.338143),
     "black box": (4, 1.883869),
+    "recirc_flow 1024^2, nonsymmetric SA": (5, 1.338143),
+    "recirc_flow 256^2, nonsymmetric root-node": (4, 1.341215),
+    "recirc_flow 256^2, black box": (4, 1.364530),
 }
 # short, wide random operators held on both routes of dia_matvec in phase
 # 3: the widest DIA level of poisson3d_64_sa_chebyshev, level 3 of the
@@ -2405,22 +2430,24 @@ def print_levels(ml):
           f"{ml.operator_complexity():.6f}")
 
 
-def cg_solve(torch, ml, A, b):
-    """``solve(b, tol=1e-8, accel="cg")`` best of 3; returns
-    ``(iterations, true f64 relres, best_s)``."""
+def timed_solve(torch, ml, A, b, accel="cg", tol=1e-8, maxiter=100):
+    """``solve(b, tol, accel, maxiter)`` best of 3; returns ``(residual
+    history, true f64 relres, best_s)``.  The history is what the method
+    tracks: ||M r|| for left-preconditioned GMRES."""
     runs = []
     for _ in range(3):
         res = []
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        x = ml.solve(b, tol=1e-8, accel="cg", residuals=res)
+        x = ml.solve(b, tol=tol, accel=accel, maxiter=maxiter, residuals=res)
         torch.cuda.synchronize()
         runs.append(time.perf_counter() - t0)
     relres = _true_relres(A, b, x)
-    print(f"solve(tol=1e-8, accel='cg'): iterations {len(res) - 1}  true "
+    print(f"solve(tol={tol:g}, accel={accel!r}, maxiter={maxiter}): "
+          f"iterations {len(res) - 1}  tracked {res[-1] / res[0]:.3e}  true "
           f"f64 relres {relres:.3e}  solve_s best of 3 {min(runs):.4f}  "
           f"runs {[round(r, 4) for r in runs]}")
-    return len(res) - 1, relres, min(runs)
+    return res, relres, min(runs)
 
 
 def _check_front_door(torch, name, launches, worst, twin):
@@ -2495,7 +2522,7 @@ def poisson3d(torch):
             pyamg_tpu_torch.smoothed_aggregation_solver(
                 A, op_dtype=torch.float32, device="cuda")), _sa_stages())
         print_levels(ml_d)
-        _, relres_cg, _ = cg_solve(torch, ml_d, A, b)
+        _, relres_cg, _ = timed_solve(torch, ml_d, A, b)
     launches += dia_kernel.launches
     worst = max(worst, hold_dia_cases(torch, np.random.default_rng(240),
                                       record_hierarchy("64^3 default call",
@@ -2625,7 +2652,7 @@ def rootnode_phase(torch):
             print_levels(ml)
             print(f"level-0 transfers: P {_form(ml.levels[0].P)}, R "
                   f"{_form(ml.levels[0].R)}")
-            _, relres_cg, _ = cg_solve(torch, ml, A, b)
+            _, relres_cg, _ = timed_solve(torch, ml, A, b)
             info, relres, _, _ = classical_solve(torch, ml, A, b)
         launches += dia_kernel.launches
         worst = max(worst, hold_dia_cases(
@@ -2693,6 +2720,144 @@ def blackbox_phase(torch, records):
         print(f"{name}: setup_complexity {setup_complexity(h, **kw):.4f}  "
               f"cycle_complexity V {cycle_complexity(h, 'V'):.4f} W "
               f"{cycle_complexity(h, 'W'):.4f}  (fine-level nnz units)")
+    return launches, worst
+
+
+def recirc_flow(n, eps=1e-2):
+    """The JAX package's ``recirc_flow`` example at any size: -eps Laplacian
+    plus b.grad on an n x n grid of the unit square (h = 1/(n + 1)), the
+    rotating wind b = (y - 1/2, 1/2 - x), first-order upwinding (|b|/h
+    joins the diagonal); 5 diagonals, not symmetric.  At n = 40 it is the
+    gallery's matrix entry for entry."""
+    import scipy.sparse as sp
+
+    h = 1.0 / (n + 1)
+    xs = (np.arange(n) + 1) * h
+    X, Y = np.meshgrid(xs, xs, indexing="ij")
+    b1 = (Y - 0.5).reshape(-1)
+    b2 = (0.5 - X).reshape(-1)
+    N = n * n
+    idx = np.arange(N)
+    ix, iy = idx // n, idx % n
+    rows, cols = [idx, idx], [idx, idx]
+    vals = [np.full(N, 4.0 * eps / h**2), (np.abs(b1) + np.abs(b2)) / h]
+    for mask, shift, v in (
+            (ix + 1 < n, n, -eps / h**2 + np.minimum(b1, 0) / h),
+            (ix >= 1, -n, -eps / h**2 - np.maximum(b1, 0) / h),
+            (iy + 1 < n, 1, -eps / h**2 + np.minimum(b2, 0) / h),
+            (iy >= 1, -1, -eps / h**2 - np.maximum(b2, 0) / h)):
+        rows.append(idx[mask])
+        cols.append(idx[mask] + shift)
+        vals.append(v[mask])
+    return sp.coo_matrix((np.concatenate(vals), (np.concatenate(rows),
+                                                 np.concatenate(cols))),
+                         shape=(N, N)).tocsr()
+
+
+def nonsymmetric_phase(torch):
+    """The nonsymmetric chain on ``recirc_flow`` (``NONSYM``): at 1024^2
+    nonsymmetric SA (energy-GMRES P, R smoothed on A^H, Jacobi on the
+    normal equations A^H A as smoother; float32 operators) setup stage by
+    stage, ``solve_mp(accel="gmres")`` to 1e-10, ``solve(accel="gmres")``
+    to 1e-8, and the normal-equation accelerators cgnr and cgne; at 256^2
+    nonsymmetric root-node SA (``solve_mp``), the black box ``solve(A,
+    b)`` and five V-cycles with each of ``NONSYM_SMOOTHERS``.  K1' against
+    its twin on every DIA operator of the three hierarchies, and timed on
+    the 1024^2 level 0.  Returns ``(launches, worst)``."""
+    phase("29. nonsymmetric SA: recirc_flow, 1024^2; root-node, the black "
+          "box and the NE/NR and Krylov smoothers at 256^2")
+    import pyamg_tpu_torch
+    from pyamg_tpu_torch.relaxation.smoothing import change_smoothers
+    from pyamg_tpu_torch.sparse import CptProlongOp, dia_kernel, spgemm_kernel
+
+    t_phase = time.perf_counter()
+    n = NONSYM["grid"]
+    A = recirc_flow(n)
+    b = np.random.default_rng(0).standard_normal(A.shape[0])
+    asym = abs(A - A.T).max() / abs(A).max()
+    print(f"recirc_flow {n}^2: {A.shape[0]} rows, nnz {A.nnz}, "
+          f"|A - A^T|/|A| {asym:.3e}")
+    if asym <= 1e-3:
+        raise AssertionError("recirc_flow came out symmetric")
+    spgemm_kernel.plain_cuda_calls = 0
+    twin = [0]
+    shapes_before = dict(SHAPE_LAUNCHES)
+    with counting_twin_calls(torch, twin):
+        dia_kernel.launches = 0
+        ml, _ = timed_setup(
+            torch, lambda: pyamg_tpu_torch.smoothed_aggregation_solver(
+                A, op_dtype=torch.float32, device="cuda", **NONSYM["kw"]),
+            _sa_stages())
+        print_levels(ml)
+        embedded = [i for i, lvl in enumerate(ml.levels[:-1])
+                    if isinstance(lvl.P, CptProlongOp)]
+        print(f"levels whose transfers embed at the roots (R its own "
+              f"rows): {embedded}")
+        _, relres, _, _ = classical_solve(torch, ml, A, b, accel="gmres")
+        res, relres8, _ = timed_solve(torch, ml, A, b, accel="gmres",
+                                      maxiter=400)
+        normal = {accel: timed_solve(torch, ml, A, b, accel=accel, tol=1e-3,
+                                     maxiter=400)[1]
+                  for accel in ("cgnr", "cgne")}
+        n_large = dia_kernel.launches
+        print(f"dia_matvec launches at {n}^2: {n_large}")
+        if not (relres <= 5e-10 and n_large > 0
+                and res[-1] <= 1e-8 * res[0] and len(res) - 1 < 400
+                and relres8 <= 1e-2 and normal["cgnr"] < 0.1
+                and all(np.isfinite(v) for v in normal.values())):
+            raise AssertionError(
+                f"nonsymmetric SA at {n}^2: solve_mp relres {relres} "
+                f"(<= 5e-10), {n_large} launches, GMRES tracked "
+                f"{res[-1] / res[0]} (<= 1e-8) true {relres8} (<= 1e-2), "
+                f"{normal} (cgnr < 0.1)")
+
+        small = NONSYM["small"]
+        A = recirc_flow(small)
+        b = np.random.default_rng(1).standard_normal(A.shape[0])
+        mr = pyamg_tpu_torch.rootnode_solver(
+            A, symmetry="nonsymmetric",
+            smooth=("energy", {"krylov": "gmres"}), op_dtype=torch.float32,
+            device="cuda")
+        print_levels(mr)
+        _, relres_r, _, _ = classical_solve(torch, mr, A, b, accel="gmres")
+        res_b = []
+        x, mb = pyamg_tpu_torch.solve(A, b, residuals=res_b, verb=False,
+                                      return_solver=True, device="cuda")
+        relres_b = _true_relres(A, b, x)
+        print_levels(mb)
+        print(f"the black box solve(A, b): GMRES iterations "
+              f"{len(res_b) - 1}  tracked {res_b[-1] / res_b[0]:.3e} "
+              f"(tol 1e-5)  true f64 relres {relres_b:.3e}")
+        held = [(f"recirc_flow {n}^2, nonsymmetric SA", ml),
+                (f"recirc_flow {small}^2, nonsymmetric root-node", mr),
+                (f"recirc_flow {small}^2, black box", mb)]
+        cases = [record_hierarchy(name, h) for name, h in held]
+        reduced = {}
+        for name in NONSYM_SMOOTHERS:
+            change_smoothers(mr, (name, {}), (name, {}))
+            res_s = []
+            mr.solve(b, tol=1e-12, maxiter=5, residuals=res_s)
+            reduced[name] = res_s[-1] / res_s[0]
+        print("five V-cycles on the root-node hierarchy, residual "
+              "reduction by smoother: " + ", ".join(
+                  f"{k} {v:.3e}" for k, v in reduced.items()))
+    launches = dia_kernel.launches
+    worst = max(hold_dia_cases(torch, np.random.default_rng(290 + i), c)
+                for i, c in enumerate(cases))
+    time_level0_dia(torch, ml)
+    if not (relres_r <= 5e-10 and res_b[-1] <= 1e-5 * res_b[0]
+            and all(v < 1 for v in reduced.values())):
+        raise AssertionError(
+            f"{small}^2: root-node solve_mp relres {relres_r} (<= 5e-10), the "
+            f"black box tracked {res_b[-1] / res_b[0]} (<= 1e-5), smoother "
+            f"reductions {reduced} (< 1)")
+    _check_front_door(torch, "phase 29", launches, worst, twin)
+    for key in sorted(SHAPE_LAUNCHES, key=lambda key: -key[0]):
+        count = SHAPE_LAUNCHES[key] - shapes_before.get(key, 0)
+        if count:
+            print(f"phase 29 launches at {key[0]}x{key[1]} k={key[2]} "
+                  f"{key[3]}: {count}")
+    print(f"phase 29 seconds {time.perf_counter() - t_phase:.1f}")
     return launches, worst
 
 
@@ -2894,6 +3059,10 @@ def main():
     print(f"dia_matvec launches by the SA front-door phases 24-27: 3-D "
           f"{n_3d}, adaptive {n_asa}, root-node {n_root}, black box "
           f"{n_bb}")
+    n_ns, err_ns = nonsymmetric_phase(torch)
+    launches["dia_matvec"] += n_ns
+    worst["dia_matvec"] = max(worst["dia_matvec"], err_ns)
+    print(f"dia_matvec launches by the nonsymmetric phase 29: {n_ns}")
     times["dia_matvec"].update(dia_shapes(torch, launches))
     print(f"chip_smoke seconds: {time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": [dict(

@@ -43,7 +43,8 @@ __all__ = ["adaptive_sa_solver", "eliminate_local_candidates",
 
 # host smoothers that take a ``sweep`` argument
 _SWEEP_SMOOTHERS = frozenset(["gauss_seidel", "sor", "block_gauss_seidel",
-                              "gauss_seidel_indexed"])
+                              "gauss_seidel_indexed", "gauss_seidel_ne",
+                              "gauss_seidel_nr"])
 
 
 def _relax(A, x, b, method, iterations):

@@ -1,20 +1,21 @@
 """Smoothed aggregation (SA) solver constructor.
 
-Port of ``pyamg_tpu/aggregation/aggregation.py`` for hermitian or
-symmetric problems, scalar (CSR) or blocked (BSR, ``bs`` dofs per node),
-with any number K of near-nullspace candidates (default: the constant per
-dof of a node, ``kron(ones, eye(bs))``).  Per level, on the host in
-numpy/scipy: relax the candidates (``improve_candidates``), then
+Port of ``pyamg_tpu/aggregation/aggregation.py`` for hermitian,
+symmetric and nonsymmetric problems, scalar (CSR) or blocked (BSR, ``bs``
+dofs per node), with any number K of near-nullspace candidates (default:
+the constant per dof of a node, ``kron(ones, eye(bs))``).  Per level, on
+the host in numpy/scipy: relax the candidates (``improve_candidates``),
+then
 
-* on a grid (a matrix carrying ``A.grid``, as the gallery builds it: a
-  2-D grid with ``aggregate="standard"``, a grid of any dimension with
-  ``aggregate=("grid", {"block": ...})``) with Jacobi, Richardson or no
-  prolongation smoothing: grid-block aggregation -> tentative prolongator
-  -> ``P = S T`` with ``S = I - omega/rho(D^-1 A) D^-1 A`` -> ``R = P^H``
-  -> Galerkin product; coarse levels carry K dofs per grid node.  Under
-  strong grid-aligned anisotropy with a line smoother, only the weak axes
-  coarsen and S is ``jacobi_weak`` (Jacobi without the strong-axis
-  couplings).  The device operators are A as
+* on a grid (a hermitian or symmetric matrix carrying ``A.grid``, as the
+  gallery builds it: a 2-D grid with ``aggregate="standard"``, a grid of
+  any dimension with ``aggregate=("grid", {"block": ...})``) with Jacobi,
+  Richardson or no prolongation smoothing: grid-block aggregation ->
+  tentative prolongator -> ``P = S T`` with ``S = I - omega/rho(D^-1 A)
+  D^-1 A`` -> ``R = P^H`` -> Galerkin product; coarse levels carry K dofs
+  per grid node.  Under strong grid-aligned anisotropy with a line
+  smoother, only the weak axes coarsen and S is ``jacobi_weak`` (Jacobi
+  without the strong-axis couplings).  The device operators are A as
   ``SparseDIA`` (a blocked level flattened to scalar diagonals, else
   ``SparseBDIA``) and P, R as gather-free ``ComposedOp`` chains of the
   smoother S (``SparseDIA``, or ``SparseBDIA`` on a blocked level) and a
@@ -22,9 +23,10 @@ numpy/scipy: relax the candidates (``improve_candidates``), then
 * otherwise: strength of connection (of the block graph for BSR) ->
   (diagonal-dominance filter) -> aggregation -> tentative prolongator ->
   prolongation smoothing (Jacobi, Richardson, energy minimization) -> R by
-  symmetry -> Galerkin product, in BSR blocks on a blocked level (->
-  coarse filter); the device operators are whatever ``device_operator``
-  chooses for A (DIA, dense or padded ELL) and, for P and R, the
+  symmetry (nonsymmetric: R^H smoothed the same way on A^H, from the left
+  candidates BH and A^H's strength) -> Galerkin product, in BSR blocks on
+  a blocked level (-> coarse filter); the device operators are whatever
+  ``device_operator`` chooses for A (DIA, dense or padded ELL) and, for P and R, the
   aggregate-root embedding as DIA where it exists and is banded (K equal
   to the fine dofs per node), else ``device_operator``'s form.
 
@@ -167,10 +169,11 @@ def smoothed_aggregation_solver(A, B=None, BH=None, symmetry="hermitian",
     and there is no fallback to the CPU.  With ``finalize_device=False`` the
     levels hold only the host matrices.
 
-    Ported: hermitian or symmetric problems, CSR or BSR, with any number
-    of near-nullspace candidates ``B`` (n, K), with grid metadata
-    (``A.grid``, any dimension) or without; the nonsymmetric setup raises
-    ``NotImplementedError``.
+    Ported: hermitian, symmetric and nonsymmetric problems (the last with
+    left candidates ``BH``, B by default, and R smoothed on A^H), CSR or
+    BSR, with any number of near-nullspace candidates ``B`` (n, K), with
+    grid metadata (``A.grid``, any dimension; a nonsymmetric matrix takes
+    the unstructured chain) or without.
 
     Examples
     --------
@@ -187,9 +190,6 @@ def smoothed_aggregation_solver(A, B=None, BH=None, symmetry="hermitian",
     if symmetry not in ("hermitian", "symmetric", "nonsymmetric"):
         raise ValueError("expected 'symmetric', 'nonsymmetric' or "
                          "'hermitian' for the symmetry parameter")
-    if symmetry == "nonsymmetric":
-        raise not_ported("nonsymmetric SA", _UNSTRUCTURED)
-
     A_in = A
     blocksize = 1
     if sp.issparse(A_in) and A_in.format == "bsr":
@@ -207,6 +207,11 @@ def smoothed_aggregation_solver(A, B=None, BH=None, symmetry="hermitian",
             raise ValueError("near nullspace has incorrect dimensions")
         if B.shape[1] > 5:
             warnings.warn("Having more than 5 candidates per level is costly")
+    if symmetry == "nonsymmetric":
+        # the left near-nullspace candidates, for the restriction
+        BH = B.copy() if BH is None else np.asarray(BH, dtype=A.dtype)
+        if BH.ndim == 1:
+            BH = BH[:, None]
 
     max_levels, max_coarse, strength = levelize_strength_or_aggregation(
         strength, max_levels, max_coarse)
@@ -221,6 +226,8 @@ def smoothed_aggregation_solver(A, B=None, BH=None, symmetry="hermitian",
     levels[0].A_bsr = sp.bsr_matrix(A_in) if blocksize > 1 else None
     levels[0].B = B
     levels[0].blocksize = blocksize
+    if symmetry == "nonsymmetric":
+        levels[0].BH = BH
     levels[0].symmetry = symmetry
     levels[0].grid = getattr(A_in, "grid", None)
     # anisotropy-aware semicoarsening is only contractive together with
@@ -515,8 +522,12 @@ def galerkin_product(lvl, A, bs, K_c, symmetry):
             and lvl.P_csr.shape[1] % K_c == 0):
         try:
             Pb = lvl.P_csr.tobsr(blocksize=(bs, K_c))
-            Rb = Pb.conjugate().transpose() if symmetry == "hermitian" \
-                else Pb.transpose()
+            if symmetry == "hermitian":
+                Rb = Pb.conjugate().transpose()
+            elif symmetry == "symmetric":
+                Rb = Pb.transpose()
+            else:           # the nonsymmetric level's own R
+                Rb = lvl.R_csr.tobsr(blocksize=(K_c, bs))
             A_coarse_bsr = Rb @ lvl.A_bsr @ Pb
             A_coarse = A_coarse_bsr.tocsr()
         except ValueError:
@@ -561,6 +572,11 @@ def _extend_sa_hierarchy(levels, strength, aggregate, smooth,
         op = relaxation_as_linear_operator(ic, A, b0)
         B = np.column_stack([op @ B[:, k] for k in range(B.shape[1])])
         lvl.B = B
+        if symmetry == "nonsymmetric":
+            opH = relaxation_as_linear_operator(
+                ic, A.conjugate().T.tocsr(), b0)
+            lvl.BH = np.column_stack([opH @ lvl.BH[:, k]
+                                      for k in range(lvl.BH.shape[1])])
 
     grid = getattr(lvl, "grid", None)
     sfn, skw = unpack_arg(smooth[i]) if smooth[i] is not None else (None, {})
@@ -571,8 +587,9 @@ def _extend_sa_hierarchy(levels, strength, aggregate, smooth,
     # on a 2-D grid only: 3^3 blocks coarsen a 3-D grid too fast (17 against
     # 13 iterations on the 64^3 Poisson problem in the JAX package), so a
     # 3-D grid goes down the unstructured chain unless the caller asks for
-    # ("grid", {"block": ...})
+    # ("grid", {"block": ...}); a nonsymmetric level always does
     if (grid is not None
+            and symmetry in ("hermitian", "symmetric")
             and (afn == "grid" or (afn == "standard" and len(grid) == 2))
             and sfn in (None, "jacobi", "richardson")
             and np.prod(grid) * max(bs, 1) == A.shape[0]):
@@ -592,8 +609,20 @@ def _extend_sa_hierarchy(levels, strength, aggregate, smooth,
         return
 
     T, B_coarse = fit_candidates(AggOp, B)
-    P = _smooth_P(T, A_for_strength, C, B_coarse, smooth[i], sym_hint=True)
-    R = P.conjugate().T.tocsr() if symmetry == "hermitian" else P.T.tocsr()
+    P = _smooth_P(T, A_for_strength, C, B_coarse, smooth[i],
+                  sym_hint=symmetry != "nonsymmetric")
+    if symmetry == "hermitian":
+        R = P.conjugate().T.tocsr()
+    elif symmetry == "symmetric":
+        R = P.T.tocsr()
+    else:
+        # R^H is the prolongation of A^H from the left candidates, on the
+        # same aggregates with A^H's own strength
+        TH, BH_coarse = fit_candidates(AggOp, lvl.BH)
+        AH = (A_bsr.conjugate().T.tobsr() if (bs > 1 and A_bsr is not None)
+              else A.conjugate().T.tocsr())
+        CH = _strength(AH, lvl.BH, strength[i])
+        R = _smooth_P(TH, AH, CH, BH_coarse, smooth[i]).conjugate().T.tocsr()
 
     lvl.C = C if keep else None
     if keep:
@@ -630,6 +659,8 @@ def _extend_sa_hierarchy(levels, strength, aggregate, smooth,
     new.B = B_coarse
     new.blocksize = B.shape[1] if B.shape[1] > 1 else 1
     new.symmetry = symmetry
+    if symmetry == "nonsymmetric":
+        new.BH = BH_coarse
     new.A_bsr = coarse_bsr_twin(A_coarse, A_coarse_bsr, new.blocksize,
                                 filtered=bool(coarse_filter))
     levels.append(new)

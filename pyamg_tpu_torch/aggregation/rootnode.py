@@ -1,9 +1,9 @@
 """Root-node smoothed aggregation solver constructor.
 
-Port of ``pyamg_tpu/aggregation/rootnode.py`` for hermitian or symmetric
-problems, scalar (CSR) or blocked (BSR).  It is SA with four differences:
-each aggregate keeps its root node, whose rows of P are rows of the
-identity (``get_Cpt_params``, ``scale_T``); T fits only the first
+Port of ``pyamg_tpu/aggregation/rootnode.py`` for hermitian, symmetric and
+nonsymmetric problems, scalar (CSR) or blocked (BSR).  It is SA with four
+differences: each aggregate keeps its root node, whose rows of P are rows
+of the identity (``get_Cpt_params``, ``scale_T``); T fits only the first
 ``blocksize`` candidates, so that the root blocks are square; the coarse
 candidates come by injection at the roots, ``P_I^T B``; and prolongation
 smoothing is energy minimization with that root-node constraint.  The dofs
@@ -21,10 +21,10 @@ from ..multilevel import Level, MultilevelSolver
 from ..relaxation.smoothing import change_smoothers
 from ..util.utils import (get_Cpt_params,
                           levelize_smooth_or_improve_candidates,
-                          levelize_strength_or_aggregation, not_ported,
+                          levelize_strength_or_aggregation,
                           relaxation_as_linear_operator, scale_T, to_csr,
                           torch_dtype, unpack_arg)
-from .aggregation import (_UNSTRUCTURED, _aggregate,
+from .aggregation import (_aggregate,
                           _finalize_device_operators, _strength,
                           coarse_bsr_twin, galerkin_product)
 from .smooth import energy_prolongation_smoother
@@ -52,8 +52,8 @@ def rootnode_solver(A, B=None, BH=None, symmetry="hermitian",
     The signature and defaults are the JAX package's; ``op_dtype`` builds
     every device operator and smoother in that dtype, and ``device`` is
     where the hierarchy lives ("cuda" by default, no fallback to the CPU).
-    ``symmetry="nonsymmetric"`` is not ported yet and raises
-    ``NotImplementedError``.
+    ``symmetry="nonsymmetric"`` smooths R on A^H from the left candidates
+    ``BH`` (B by default).
 
     Examples
     --------
@@ -69,8 +69,6 @@ def rootnode_solver(A, B=None, BH=None, symmetry="hermitian",
     """
     if symmetry not in ("hermitian", "symmetric", "nonsymmetric"):
         raise ValueError("invalid symmetry")
-    if symmetry == "nonsymmetric":
-        raise not_ported("nonsymmetric root-node SA", _UNSTRUCTURED)
 
     A_in = A
     blocksize = 1
@@ -85,6 +83,8 @@ def rootnode_solver(A, B=None, BH=None, symmetry="hermitian",
         B = np.asarray(B, dtype=A.dtype)
         if B.ndim == 1:
             B = B[:, None]
+    if symmetry == "nonsymmetric":
+        BH = B.copy() if BH is None else np.asarray(BH, dtype=A.dtype)
 
     max_levels, max_coarse, strength = levelize_strength_or_aggregation(
         strength, max_levels, max_coarse)
@@ -100,6 +100,8 @@ def rootnode_solver(A, B=None, BH=None, symmetry="hermitian",
     levels[0].B = B
     levels[0].blocksize = blocksize
     levels[0].symmetry = symmetry
+    if symmetry == "nonsymmetric":
+        levels[0].BH = BH
 
     while (len(levels) < max_levels
            and levels[-1].A_csr.shape[0] // max(levels[-1].blocksize, 1)
@@ -171,7 +173,25 @@ def _extend_rootnode(levels, strength, aggregate, smooth, improve_candidates,
     else:
         raise ValueError("rootnode_solver requires the 'energy' prolongation "
                          f"smoother (got {fn!r})")
-    R = P.conjugate().T.tocsr() if symmetry == "hermitian" else P.T.tocsr()
+    if symmetry == "hermitian":
+        R = P.conjugate().T.tocsr()
+    elif symmetry == "symmetric":
+        R = P.T.tocsr()
+    else:
+        # R^H is the root-node prolongation of A^H from the left candidates,
+        # on the same aggregates and roots, with A^H's own strength
+        AH = A.conjugate().T.tocsr()
+        CH = _strength(AH, lvl.BH, strength[i])
+        TH, _ = fit_candidates(AggOp, lvl.BH)
+        TH = scale_T(TH, Cpt_params["P_I"], Cpt_params["I_F"],
+                     blocksize=max(bs, 1))
+        if fn == "energy":
+            BH_coarse = np.asarray(Cpt_params["P_I"].T @ lvl.BH)
+            RH = energy_prolongation_smoother(AH, TH, CH, BH_coarse, lvl.BH,
+                                              (True, Cpt_params), **kwargs)
+        else:
+            RH = to_csr(TH)
+        R = RH.conjugate().T.tocsr()
 
     if keep:
         lvl.C = C
@@ -199,5 +219,7 @@ def _extend_rootnode(levels, strength, aggregate, smooth, improve_candidates,
     # however many candidates B holds
     new.blocksize = max(bs, 1)
     new.symmetry = symmetry
+    if symmetry == "nonsymmetric":
+        new.BH = np.asarray(Cpt_params["P_I"].T @ lvl.BH)
     new.A_bsr = coarse_bsr_twin(A_coarse, A_coarse_bsr, new.blocksize)
     levels.append(new)

@@ -7,9 +7,9 @@ optional strength filter; energy minimization by pattern-constrained CG
 (``krylov="cg"``) on one of three routes with the JAX package's conditions
 -- the block route on a float64 BSR operator (every iterate dense (R, K)
 blocks on the block pattern), the flat route over a fixed CSR pattern with
-the compiled products (real float64), and the generic scipy route; the
-root-node form (``Cpt_params``) and the pre- and post-filters.  CGNR and
-GMRES (the nonsymmetric forms) are not ported yet.
+the compiled products (real float64), and the generic scipy route -- or,
+for a nonsymmetric operator, by CGNR or GMRES on the generic route; the
+root-node form (``Cpt_params``) and the pre- and post-filters.
 """
 
 from __future__ import annotations
@@ -19,14 +19,12 @@ import scipy.sparse as sp
 
 from ..util.linalg import approximate_spectral_radius, pinv_array
 from ..util.utils import (compute_BtBinv, filter_matrix_rows,
-                          get_block_diag, get_diagonal, not_ported,
+                          get_block_diag, get_diagonal,
                           scale_rows, to_csr, truncate_rows, unamal)
 
 __all__ = ["jacobi_prolongation_smoother",
            "richardson_prolongation_smoother",
            "energy_prolongation_smoother", "satisfy_constraints"]
-
-_UNSTRUCTURED = "the unstructured SA chain"
 
 
 def _jacobi_weight(S, omega, weighting, sym_hint):
@@ -197,9 +195,11 @@ def energy_prolongation_smoother(A, T, Atilde, B, Bf=None, Cpt_params=None,
     """Energy-minimizing prolongation smoothing: minimize ``trace(P^H A
     P)`` over P on the pattern ``|Atilde|^degree |T|`` under ``P B_c =
     B_f`` (every update U projected to ``U B_c = 0``), by ``maxiter``
-    iterations of pattern-constrained CG from T.  ``Atilde`` may be the
-    node-level strength graph of a blocked A (expanded to dofs here).
-    ``weighting`` ("local", "diagonal" or "block") preconditions the CG.
+    iterations of pattern-constrained CG from T; ``krylov="cgnr"`` or
+    ``"gmres"`` minimizes ``||A P||`` instead, for a nonsymmetric A.
+    ``Atilde`` may be the node-level strength graph of a blocked A
+    (expanded to dofs here).  ``weighting`` ("local", "diagonal" or
+    "block") preconditions the iteration.
 
     ``Cpt_params = (True, params)`` (``get_Cpt_params``'s dict) is the
     root-node form: the root rows of the pattern are those of ``P_I``, the
@@ -221,10 +221,7 @@ def energy_prolongation_smoother(A, T, Atilde, B, Bf=None, Cpt_params=None,
     >>> bool(np.allclose(P @ Bc, T @ Bc))
     True
     """
-    if krylov in ("cgnr", "gmres"):
-        raise not_ported(f"energy smoothing with krylov={krylov!r}",
-                         _UNSTRUCTURED)
-    if krylov != "cg":
+    if krylov not in ("cg", "cgnr", "gmres"):
         raise ValueError(f"unknown krylov method {krylov!r}")
     if weighting not in ("local", "diagonal", "block"):
         raise ValueError("incorrect weighting option")
@@ -233,7 +230,7 @@ def energy_prolongation_smoother(A, T, Atilde, B, Bf=None, Cpt_params=None,
 
     # a node-blocked operator: the whole CG in BSR block form (not for the
     # root-node form or the filters, as in the JAX package)
-    if (bs_A > 1 and weighting in ("local", "diagonal")
+    if (bs_A > 1 and krylov == "cg" and weighting in ("local", "diagonal")
             and not prefilter and not postfilter and not rootnode
             and (degree == 0
                  or (Atilde is not None and sp.issparse(Atilde)
@@ -296,11 +293,13 @@ def energy_prolongation_smoother(A, T, Atilde, B, Bf=None, Cpt_params=None,
         def apply_Dinv(R):
             return scale_rows(R, Dinv, copy=True)
 
-        Tout = _cg_prolongation_flat(A, T, pattern, B, BtBinv, Dinv,
-                                     maxiter, tol, fmask=fmask)
+        if krylov == "cg":
+            Tout = _cg_prolongation_flat(A, T, pattern, B, BtBinv, Dinv,
+                                         maxiter, tol, fmask=fmask)
     if Tout is None:
-        Tout = _cg_prolongation(A, T, pattern, project, apply_Dinv, maxiter,
-                                tol)
+        minimize = {"cg": _cg_prolongation, "cgnr": _cgnr_prolongation,
+                    "gmres": _gmres_prolongation}[krylov]
+        Tout = minimize(A, T, pattern, project, apply_Dinv, maxiter, tol)
     if rootnode:
         Tout = (I_F @ Tout + P_I).tocsr()
     if postfilter:
@@ -552,3 +551,71 @@ def _cg_prolongation(A, T, pattern, project, apply_Dinv, maxiter, tol):
         P = (P + alpha * P_temp).tocsr()
         R = (R - alpha * AP).tocsr()
     return P.tocsr()
+
+
+def _cgnr_prolongation(A, T, pattern, project, apply_Dinv, maxiter, tol):
+    """The energy minimization for a nonsymmetric A by CGNR: minimize
+    ``||A P||_F`` over the pattern (the normal equations ``A^H A``), the
+    gradient masked to the pattern and projected."""
+    AH = A.conjugate().T.tocsr()
+    R = (-(A @ T)).tocsr()                  # the unmasked residual of A P
+    P = T
+
+    def gradient(R):
+        return project((AH @ R).tocsr().multiply(pattern).tocsr())
+
+    G = gradient(R)
+    normr0 = max(abs(G).max() if G.nnz else 0.0, 1e-300)
+    oldsum = 0.0
+    P_temp = None
+    for _ in range(maxiter):
+        if G.nnz == 0 or abs(G).max() < tol * normr0:
+            break
+        Z = apply_Dinv(G)
+        newsum = _frob_inner(G, Z)
+        if newsum == 0:
+            break
+        P_temp = Z if oldsum == 0 else \
+            (Z + (newsum / oldsum) * P_temp).tocsr()
+        oldsum = newsum
+        AP = (A @ P_temp).tocsr()
+        d = _frob_inner(AP, AP)
+        if d == 0:
+            break
+        alpha = newsum / d
+        P = (P + alpha * P_temp).tocsr()
+        R = (R - alpha * AP).tocsr()
+        G = gradient(R)
+    return P.tocsr()
+
+
+def _gmres_prolongation(A, T, pattern, project, apply_Dinv, maxiter, tol):
+    """The energy minimization for a nonsymmetric A by ``maxiter`` steps of
+    GMRES in the Frobenius inner product, every Krylov matrix masked to the
+    pattern and projected; right-preconditioned by ``apply_Dinv``."""
+    R = project((-(A @ T)).tocsr().multiply(pattern).tocsr())
+    beta = np.sqrt(abs(_frob_inner(R, R)))
+    if beta == 0:
+        return T.tocsr()
+    m = int(maxiter)
+    V = [(1.0 / beta) * R]
+    H = np.zeros((m + 1, m), dtype=complex if np.iscomplexobj(R.data)
+                 else float)
+    for j in range(m):
+        W = project(_masked_product(A, apply_Dinv(V[j]), pattern))
+        for i in range(j + 1):
+            H[i, j] = _frob_inner(V[i], W)
+            W = (W - H[i, j] * V[i]).tocsr()
+        H[j + 1, j] = np.sqrt(abs(_frob_inner(W, W)))
+        if H[j + 1, j] < 1e-14:
+            m = j + 1
+            break
+        V.append((1.0 / H[j + 1, j]) * W)
+    k = min(m, len(V))
+    e1 = np.zeros(k + 1, dtype=H.dtype)
+    e1[0] = beta
+    y, *_ = np.linalg.lstsq(H[:k + 1, :k], e1, rcond=None)
+    P = T.tocsr()
+    for j in range(k):
+        P = (P + y[j] * apply_Dinv(V[j])).tocsr()
+    return P

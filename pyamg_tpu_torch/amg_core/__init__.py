@@ -2,8 +2,8 @@
 
 Port of the bindings of ``pyamg_tpu/amg_core/__init__.py`` that the ported
 setup calls: the greedy aggregations, first-fit coloring, the Gauss-Seidel
-sweeps (scalar and block), ``S = I - c D^-1 A`` and the weak-axis filter
-of its ``jacobi_weak`` form, classical strength, the
+sweeps (scalar and block), the Kaczmarz sweep, ``S = I - c D^-1 A`` and
+the weak-axis filter of its ``jacobi_weak`` form, classical strength, the
 CSR-to-DIA conversion, and the pattern-restricted products, constraint
 projections and Gram matrices of the energy-minimization CG in scalar (CSR)
 and block (BSR) form; for classical AMG the Ruge-Stuben splitting, direct
@@ -29,6 +29,7 @@ import numpy as np
 __all__ = ["have_native", "standard_aggregation_native",
            "naive_aggregation_native", "first_fit_coloring_native",
            "gauss_seidel_sweeps_native", "gauss_seidel_indexed_native",
+           "gauss_seidel_kaczmarz_native",
            "identity_minus_rowscaled_native", "weak_axis_filter_native",
            "classical_strength_native",
            "dia_offsets_native", "csr_to_dia_fill_native",
@@ -87,6 +88,10 @@ def _declare(lib):
                                         _f64p, _I, _I]
     lib.gauss_seidel_sweeps_i32.argtypes = [_I, _i32p, _i32p, _f64p, _f64p,
                                             _f64p, _I, _I]
+    lib.gauss_seidel_kaczmarz.argtypes = [_I, _i64p, _i64p, _f64p, _f64p,
+                                          _f64p, _D]
+    lib.gauss_seidel_kaczmarz_i32.argtypes = [_I, _i32p, _i32p, _f64p,
+                                              _f64p, _f64p, _D]
     lib.first_fit_coloring.argtypes = [_I, _i64p, _i64p, _i32p]
     lib.dia_offsets.argtypes = [_I, _I, _i64p, _i64p, _I, _i64p]
     lib.dia_offsets_i32.argtypes = [_I, _I, _i32p, _i32p, _I, _i64p]
@@ -277,6 +282,21 @@ def gauss_seidel_sweeps_native(A, x, b, iterations, sweep):
     getattr(lib, "gauss_seidel_sweeps" + sfx)(
         A.shape[0], Ap, Aj, Ax, x,
         np.ascontiguousarray(b, dtype=np.float64), int(iterations), mode)
+    return True
+
+
+def gauss_seidel_kaczmarz_native(A, x, b, omega=1.0):
+    """One forward Kaczmarz sweep (Gauss-Seidel on ``A A^H``), in place on
+    ``x`` (real float64 only); False when it did not run."""
+    lib = _load()
+    if (not lib or A.dtype != np.float64 or x.dtype != np.float64
+            or not x.flags.c_contiguous or not x.flags.writeable):
+        return False
+    Ap, Aj, sfx = _csr_ix(A)
+    Ax = np.ascontiguousarray(A.data, dtype=np.float64)
+    getattr(lib, "gauss_seidel_kaczmarz" + sfx)(
+        A.shape[0], Ap, Aj, Ax, x,
+        np.ascontiguousarray(b, dtype=np.float64), float(omega))
     return True
 
 

@@ -5,9 +5,10 @@ Port of ``pyamg_tpu/blackbox.py``.  A Hermitian matrix (by
 ``ishermitian``'s random probes, the JAX package's) gets smoothed
 aggregation with evolution strength (k 2, l2 projection, epsilon 3),
 energy-minimization P (CG, degree 2, local weighting), symmetric block
-Gauss-Seidel and CG as accelerator.  The nonsymmetric configuration is
-returned as the JAX package returns it, but building its solver is not
-ported yet.
+Gauss-Seidel and CG as accelerator; a nonsymmetric one gets
+energy-minimization P by GMRES (degree 1, 2 iterations) with R smoothed on
+A^H, symmetric Gauss-Seidel on the normal equations (``gauss_seidel_nr``,
+2 iterations) and GMRES as accelerator.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import numpy as np
 import scipy.sparse as sp
 
 from .util.linalg import ishermitian
-from .util.utils import not_ported, to_csr
+from .util.utils import to_csr
 
 __all__ = ["solve", "solver", "solver_configuration", "make_csr"]
 
@@ -88,13 +89,9 @@ def solver_configuration(A, B=None, verb=True):
 def solver(A, config, device="cuda"):
     """``smoothed_aggregation_solver`` on ``device`` with a configuration
     of :func:`solver_configuration`.  A failed build raises ``TypeError``,
-    as in the JAX package; a nonsymmetric configuration raises
-    ``NotImplementedError`` before any setup work."""
+    as in the JAX package."""
     from .aggregation import smoothed_aggregation_solver
 
-    if config["symmetry"] == "nonsymmetric":
-        raise not_ported("the black-box solver of a nonsymmetric matrix",
-                         "the unstructured SA chain")
     A = make_csr(A)
     try:
         return smoothed_aggregation_solver(
@@ -107,8 +104,6 @@ def solver(A, config, device="cuda"):
             presmoother=config["presmoother"],
             postsmoother=config["postsmoother"], keep=config["keep"],
             device=device)
-    except NotImplementedError:
-        raise
     except Exception as e:
         raise TypeError(f"failed to generate solver: {e}") from e
 
@@ -116,8 +111,9 @@ def solver(A, config, device="cuda"):
 def solve(A, b, x0=None, tol=1e-5, maxiter=400, return_solver=False,
           existing_solver=None, verb=True, residuals=None, device="cuda"):
     """Solve ``A x = b`` with an automatically configured SA-preconditioned
-    Krylov method (CG for a Hermitian matrix) on ``device``; returns x, a
-    tensor on the device (and the solver with ``return_solver``).
+    Krylov method (CG for a Hermitian matrix, else GMRES) on ``device``;
+    returns x, a tensor on the device (and the solver with
+    ``return_solver``).
 
     Examples
     --------

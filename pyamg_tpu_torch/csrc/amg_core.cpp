@@ -9,6 +9,8 @@
 //   * naive_aggregation        -- single-pass greedy aggregation
 //   * gauss_seidel_indexed     -- ordered in-place Gauss-Seidel sweep
 //   * gauss_seidel_sweeps      -- natural-order sweeps, iteration loop inside
+//   * gauss_seidel_kaczmarz    -- Kaczmarz row projections (Gauss-Seidel on
+//                                 A A^H), forward order
 //   * first_fit_coloring       -- greedy first-fit vertex coloring
 //   * dia_offsets, csr_to_dia  -- CSR to diagonal storage in two passes
 //   * identity_minus_rowscaled -- S = I - c D^-1 A on A's own pattern
@@ -187,7 +189,37 @@ static void gauss_seidel_sweeps_impl(I n, const Ix* Ap, const Ix* Aj,
     }
 }
 
+// Gauss-Seidel on the normal equations A A^H (Kaczmarz): each row in turn,
+// x += omega (b_i - a_i x) / |a_i|^2 a_i; a row of zeros is skipped.
+template <typename Ix>
+static void gauss_seidel_kaczmarz_impl(I n, const Ix* Ap, const Ix* Aj,
+                                       const double* Ax, double* x,
+                                       const double* b, double omega) {
+    for (I i = 0; i < n; i++) {
+        double rn = 0.0, ri = b[i];
+        for (I jj = Ap[i]; jj < Ap[i + 1]; jj++) {
+            rn += Ax[jj] * Ax[jj];
+            ri -= Ax[jj] * x[Aj[jj]];
+        }
+        if (rn == 0.0) continue;
+        double c = omega * ri / rn;
+        for (I jj = Ap[i]; jj < Ap[i + 1]; jj++)
+            x[Aj[jj]] += c * Ax[jj];
+    }
+}
+
 extern "C" {
+
+void gauss_seidel_kaczmarz(I n, const I* Ap, const I* Aj, const double* Ax,
+                           double* x, const double* b, double omega) {
+    gauss_seidel_kaczmarz_impl<I>(n, Ap, Aj, Ax, x, b, omega);
+}
+
+void gauss_seidel_kaczmarz_i32(I n, const int32_t* Ap, const int32_t* Aj,
+                               const double* Ax, double* x, const double* b,
+                               double omega) {
+    gauss_seidel_kaczmarz_impl<int32_t>(n, Ap, Aj, Ax, x, b, omega);
+}
 
 void gauss_seidel_sweeps(I n, const I* Ap, const I* Aj, const double* Ax,
                          double* x, const double* b, I iterations, I mode) {

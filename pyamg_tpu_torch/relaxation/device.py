@@ -7,9 +7,11 @@ DIA levels) and in gather form (each row of the matrix touched once per
 sweep: for padded-ELL levels), multicolor SOR, block Jacobi and multicolor
 block Gauss-Seidel, with forward, backward and symmetric sweeps, and the
 scalar line smoothers (line Jacobi and zebra line Gauss-Seidel: every line
-of a grid solved at once by parallel cyclic reduction).  Every step is a
-matvec, or a gather, plus vector updates.  The NE/NR, Schwarz, Krylov and
-node-blocked line smoothers are not ported yet and raise.
+of a grid solved at once by parallel cyclic reduction), Jacobi on the
+normal equations (NE and NR) and the Krylov smoothers (CG, GMRES, CGNR,
+CGNE at a fixed depth).  Every step is a matvec, or a gather, plus vector
+updates.  The Schwarz and node-blocked line smoothers are not ported yet
+and raise.
 """
 
 from __future__ import annotations
@@ -24,7 +26,9 @@ from ..util.utils import not_ported, torch_dtype
 __all__ = ["SmootherData", "jacobi_step", "richardson_step",
            "polynomial_step", "multicolor_gs_step",
            "multicolor_gs_gather_step", "block_jacobi_step",
-           "batched_tridiag_pcr", "line_relaxation_step", "apply_smoother"]
+           "batched_tridiag_pcr", "line_relaxation_step",
+           "krylov_smoother_step", "jacobi_ne_step", "jacobi_nr_step",
+           "cgnr_smoother_step", "cgne_smoother_step", "apply_smoother"]
 
 
 @dataclass(frozen=True)
@@ -49,6 +53,10 @@ class SmootherData:
     line_tri: Optional[torch.Tensor] = None
     grid: Optional[Tuple[int, ...]] = None
     line_axis: int = 0
+    # normal-equation and CGNE/CGNR smoothers: A^H as a device operator and
+    # the inverted squared row (NE) or column (NR) norms of A
+    AT: Optional[object] = None
+    dinv_ne: Optional[torch.Tensor] = None
 
     def astype(self, dtype):
         """This state with every floating-point array cast to ``dtype``
@@ -61,7 +69,9 @@ class SmootherData:
                        color_masks=cast(self.color_masks),
                        block_dinv=cast(self.block_dinv),
                        color_data=cast(self.color_data),
-                       line_tri=cast(self.line_tri))
+                       line_tri=cast(self.line_tri),
+                       AT=None if self.AT is None else self.AT.astype(dtype),
+                       dinv_ne=cast(self.dinv_ne))
 
 
 def jacobi_step(A, dinv, x, b, omega=1.0):
@@ -181,6 +191,99 @@ def line_relaxation_step(A, sm: SmootherData, x, b, zebra_phase=None):
     return x + sm.omega * dxg.reshape(-1)
 
 
+def _safe(d):
+    """``d``, or 1 where it is 0: a breakdown leaves the iterate as is."""
+    return torch.where(d == 0, torch.ones_like(d), d)
+
+
+def krylov_smoother_step(A, x, b, kind="cg", iterations=2):
+    """A fixed number of CG steps (GMRES steps for ``kind="gmres"``) from
+    x, with no convergence test."""
+    if kind in ("gmres", "gmres_smoother"):
+        return _gmres_smoother_step(A, x, b, k=max(iterations, 1))
+    r = b - A.matvec(x)
+    p = r
+    rz = torch.vdot(r, r)
+    for _ in range(iterations):
+        Ap = A.matvec(p)
+        alpha = rz / _safe(torch.vdot(p, Ap))
+        x = x + alpha * p
+        r = r - alpha * Ap
+        rz_new = torch.vdot(r, r)
+        p = r + (rz_new / _safe(rz)) * p
+        rz = rz_new
+    return x
+
+
+def _gmres_smoother_step(A, x, b, k=2):
+    """k steps of unrestarted GMRES from x: x plus the minimizer of the
+    residual over the k-dimensional Krylov space of the residual (least
+    squares by the pseudo-inverse of the small Hessenberg matrix)."""
+    r = b - A.matvec(x)
+    beta = torch.linalg.vector_norm(r)
+    V = [r / _safe(beta)]
+    H = torch.zeros((k + 1, k), dtype=r.dtype, device=r.device)
+    for j in range(k):
+        w = A.matvec(V[j])
+        for i in range(j + 1):
+            hij = torch.vdot(V[i], w)
+            H[i, j] = hij
+            w = w - hij * V[i]
+        hn = torch.linalg.vector_norm(w)
+        H[j + 1, j] = hn
+        V.append(w / _safe(hn))
+    e1 = torch.zeros(k + 1, dtype=r.dtype, device=r.device)
+    e1[0] = beta
+    y = torch.linalg.pinv(H) @ e1
+    return x + torch.stack(V[:k]).T @ y
+
+
+def jacobi_ne_step(A, AT, dinv_ne, x, b, omega=1.0):
+    """Jacobi on ``A A^H`` (Cimmino, parallel Kaczmarz):
+    ``x + omega A^H D^{-1} (b - A x)``, D the squared row norms of A."""
+    return x + omega * AT.matvec(dinv_ne * (b - A.matvec(x)))
+
+
+def jacobi_nr_step(A, AT, dinv_ne, x, b, omega=1.0):
+    """Jacobi on ``A^H A``: ``x + omega D^{-1} A^H (b - A x)``, D the
+    squared column norms of A."""
+    return x + omega * dinv_ne * AT.matvec(b - A.matvec(x))
+
+
+def cgnr_smoother_step(A, AT, x, b, iterations=2):
+    """A fixed number of CG steps on ``A^H A x = A^H b`` (CGNR)."""
+    r = b - A.matvec(x)
+    z = AT.matvec(r)
+    p = z
+    zz = torch.vdot(z, z)
+    for _ in range(max(iterations, 1)):
+        Ap = A.matvec(p)
+        alpha = zz / _safe(torch.vdot(Ap, Ap))
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = AT.matvec(r)
+        zz_new = torch.vdot(z, z)
+        p = z + (zz_new / _safe(zz)) * p
+        zz = zz_new
+    return x
+
+
+def cgne_smoother_step(A, AT, x, b, iterations=2):
+    """A fixed number of steps of CGNE (Craig's method): CG on
+    ``A A^H y = b`` with ``x = A^H y``."""
+    r = b - A.matvec(x)
+    p = AT.matvec(r)
+    rr = torch.vdot(r, r)
+    for _ in range(max(iterations, 1)):
+        alpha = rr / _safe(torch.vdot(p, p))
+        x = x + alpha * p
+        r = r - alpha * A.matvec(p)
+        rr_new = torch.vdot(r, r)
+        p = AT.matvec(r) + (rr_new / _safe(rr)) * p
+        rr = rr_new
+    return x
+
+
 def _sweeps(sweep):
     """The ``reverse`` flags of a sweep: forward, backward, or both."""
     flags = {"forward": (False,), "backward": (True,),
@@ -227,6 +330,17 @@ def apply_smoother(sm: SmootherData, A, x, b):
                 phases = (0, 1, 1, 0)
             for ph in phases:
                 x = line_relaxation_step(A, sm, x, b, zebra_phase=ph)
+        elif sm.kind == "jacobi_ne":
+            x = jacobi_ne_step(A, sm.AT, sm.dinv_ne, x, b, sm.omega)
+        elif sm.kind == "jacobi_nr":
+            x = jacobi_nr_step(A, sm.AT, sm.dinv_ne, x, b, sm.omega)
+        elif sm.kind in ("cg_smoother", "gmres_smoother"):
+            # a Krylov depth of 2 a sweep; iterations counts the sweeps
+            x = krylov_smoother_step(A, x, b, kind=sm.kind, iterations=2)
+        elif sm.kind == "cgnr_smoother":
+            x = cgnr_smoother_step(A, sm.AT, x, b, iterations=2)
+        elif sm.kind == "cgne_smoother":
+            x = cgne_smoother_step(A, sm.AT, x, b, iterations=2)
         else:
             raise not_ported(f"smoother kind {sm.kind!r}",
                              "multicolor GS/SOR/block smoothers")

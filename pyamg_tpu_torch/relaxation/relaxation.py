@@ -2,7 +2,9 @@
 
 Port of ``make_system``, ``gauss_seidel``, ``jacobi``, ``sor``,
 ``polynomial``, ``block_jacobi``, ``block_gauss_seidel``,
-``gauss_seidel_indexed`` and the scalar line relaxations ``zebra``,
+``gauss_seidel_indexed``, the normal-equation relaxations ``jacobi_ne``,
+``gauss_seidel_ne`` (Kaczmarz; compiled where ``amg_core`` loaded) and
+``gauss_seidel_nr``, and the scalar line relaxations ``zebra``,
 ``line_gauss_seidel`` and ``line_jacobi`` (exact tridiagonal solves along
 one grid axis; compiled Thomas solves where ``amg_core`` loaded) from
 ``pyamg_tpu/relaxation/relaxation.py``.  They
@@ -22,11 +24,13 @@ from scipy.sparse.linalg import spsolve_triangular
 
 from ..amg_core import (bsr_gauss_seidel_native,
                         gauss_seidel_indexed_native,
+                        gauss_seidel_kaczmarz_native,
                         gauss_seidel_sweeps_native, thomas_lines_native)
 from ..util.utils import get_block_diag, to_csr
 
 __all__ = ["make_system", "sor", "gauss_seidel", "jacobi", "polynomial",
            "block_jacobi", "block_gauss_seidel", "gauss_seidel_indexed",
+           "jacobi_ne", "gauss_seidel_ne", "gauss_seidel_nr",
            "zebra", "line_gauss_seidel", "line_jacobi"]
 
 _SWEEPS = ("forward", "backward", "symmetric")
@@ -141,6 +145,84 @@ def jacobi(A, x, b, iterations=1, omega=1.0):
     dinv[mask] = 1.0 / d[mask]
     for _ in range(iterations):
         x_v += omega * dinv * (b_v - A @ x_v)
+    return _store(x, x_v)
+
+
+def jacobi_ne(A, x, b, iterations=1, omega=1.0):
+    """Jacobi on the normal equations, in the normal-residual form of the
+    JAX package's host method: ``x += omega D^{-1} A^H (b - A x)`` with D
+    the squared column norms of A.  (The device smoother of the same name
+    scales the residual by the squared row norms before applying A^H.)"""
+    A, x_v, b_v = make_system(A, x, b)
+    A = A.tocsr()
+    d = np.asarray(A.multiply(A.conjugate()).sum(axis=0)).ravel().real
+    mask = d != 0
+    dinv = np.zeros(A.shape[1])
+    dinv[mask] = 1.0 / d[mask]
+    for _ in range(iterations):
+        x_v += omega * dinv * (A.conjugate().T @ (b_v - A @ x_v))
+    return _store(x, x_v)
+
+
+def _ordered_passes(one_pass, n, iterations, sweep):
+    for _ in range(iterations):
+        if sweep in ("forward", "symmetric"):
+            one_pass(range(n))
+        if sweep in ("backward", "symmetric"):
+            one_pass(range(n - 1, -1, -1))
+
+
+def gauss_seidel_ne(A, x, b, iterations=1, sweep="forward", omega=1.0):
+    """Gauss-Seidel on ``A A^H`` (Kaczmarz): row projections in turn,
+    ``x += omega (b_i - a_i x) / |a_i|^2 a_i^H``.  A real float64 forward
+    sweep runs the compiled one where the library loaded."""
+    A, x_v, b_v = make_system(A, x, b)
+    A = A.tocsr()
+    _check_sweep(sweep)
+    if A.dtype == np.float64 and x_v.dtype == np.float64 \
+            and sweep == "forward":
+        ok = True
+        for _ in range(iterations):
+            ok &= gauss_seidel_kaczmarz_native(A, x_v, b_v, omega)
+        if ok:
+            return _store(x, x_v)
+    indptr, cols, data = A.indptr, A.indices, A.data
+    row_norms = np.asarray(A.multiply(A.conjugate()).sum(axis=1)).ravel().real
+
+    def one_pass(order):
+        for i in order:
+            if row_norms[i] == 0:
+                continue
+            s, e = indptr[i], indptr[i + 1]
+            ri = b_v[i] - data[s:e] @ x_v[cols[s:e]]
+            x_v[cols[s:e]] += omega * (ri / row_norms[i]) \
+                * data[s:e].conjugate()
+
+    _ordered_passes(one_pass, A.shape[0], iterations, sweep)
+    return _store(x, x_v)
+
+
+def gauss_seidel_nr(A, x, b, iterations=1, sweep="forward", omega=1.0):
+    """Gauss-Seidel on ``A^H A``: column updates in turn, each minimizing
+    the residual along its column, ``x_j += omega a_j^H r / |a_j|^2``."""
+    A, x_v, b_v = make_system(A, x, b)
+    _check_sweep(sweep)
+    Ac = A.tocsc()
+    indptr, rows, data = Ac.indptr, Ac.indices, Ac.data
+    col_norms = np.asarray(A.multiply(A.conjugate()).sum(axis=0)).ravel().real
+    r = b_v - A @ x_v
+
+    def one_pass(order):
+        for j in order:
+            if col_norms[j] == 0:
+                continue
+            s, e = indptr[j], indptr[j + 1]
+            delta = omega * (data[s:e].conjugate() @ r[rows[s:e]]) \
+                / col_norms[j]
+            x_v[j] += delta
+            r[rows[s:e]] -= delta * data[s:e]
+
+    _ordered_passes(one_pass, A.shape[1], iterations, sweep)
     return _store(x, x_v)
 
 

@@ -2,8 +2,10 @@
 
 Port of ``pyamg_tpu/relaxation/smoothing.py`` for jacobi, richardson,
 chebyshev and polynomial smoothing, multicolor Gauss-Seidel and SOR, block
-Jacobi and block Gauss-Seidel, and the scalar line smoothers (line Jacobi,
-zebra; on a level without a grid, multicolor Gauss-Seidel).  Sequential
+Jacobi and block Gauss-Seidel, the scalar line smoothers (line Jacobi,
+zebra; on a level without a grid, multicolor Gauss-Seidel), Jacobi on the
+normal equations (``jacobi_ne``, ``gauss_seidel_ne``, ``gauss_seidel_nr``)
+and the Krylov smoothers (``cg``, ``gmres``, ``cgne``, ``cgnr``).  Sequential
 methods run as their multicolor form: the colors are geometric on a
 structured grid (2, or 2^d for a full 3^d stencil) and greedy first-fit
 otherwise; a level whose operator is padded ELL gets the gather arrays of
@@ -205,6 +207,15 @@ def _dinv(A_csr, dtype=None):
     return out
 
 
+def _adjoint_operator(A_csr, npdt, device):
+    """A^H in ``device_operator``'s form: a banded A^H rides the DIA
+    kernel."""
+    from ..sparse.device_op import device_operator
+
+    return device_operator(A_csr.conjugate().T.tocsr(), dtype=npdt,
+                           device=device)
+
+
 def make_smoother_data(lvl, fn_name, kwargs, dtype=None, *,
                        device) -> SmootherData:
     """The precomputed SmootherData of one option on one level.
@@ -368,9 +379,35 @@ def _make_smoother_data(lvl, fn_name, kwargs, dtype, device):
                             omega=omega, line_tri=dev(tri), grid=grid,
                             line_axis=axis)
 
-    if fn_name in ("jacobi_ne", "gauss_seidel_ne", "gauss_seidel_nr",
-                   "schwarz", "strength_based_schwarz", "gmres", "cg",
-                   "cgne", "cgnr"):
+    if fn_name in ("jacobi_ne", "gauss_seidel_ne", "gauss_seidel_nr"):
+        # on the device all three are Jacobi on the normal equations (the
+        # parallel member of the Kaczmarz family): NE on A A^H with the
+        # squared row norms, NR on A^H A with the squared column norms
+        omega = float(kwargs.get("omega", 1.0))
+        if kwargs.get("withrho", True):
+            # the normal equations' spectrum is the square of A's
+            omega = omega / rho_D_inv_A(A_csr) ** 2
+        axis = 1 if fn_name in ("jacobi_ne", "gauss_seidel_ne") else 0
+        d = np.asarray(
+            A_csr.multiply(A_csr.conjugate()).sum(axis=axis)).ravel().real
+        mask = d != 0
+        dinv_ne = np.zeros(d.shape, dtype=A_csr.dtype)
+        dinv_ne[mask] = 1.0 / d[mask]
+        return SmootherData(kind="jacobi_ne" if axis == 1 else "jacobi_nr",
+                            iterations=iterations, omega=omega,
+                            AT=_adjoint_operator(A_csr, npdt, device),
+                            dinv_ne=dev(dinv_ne))
+
+    if fn_name in ("gmres", "cg", "cgne", "cgnr"):
+        # a fixed number of Krylov steps a sweep; cgne and cgnr carry A^H,
+        # so that they are the normal-equation iterations on any A
+        AT = None
+        if fn_name in ("cgne", "cgnr"):
+            AT = _adjoint_operator(A_csr, npdt, device)
+        return SmootherData(kind=f"{fn_name}_smoother",
+                            iterations=max(iterations, 1), AT=AT)
+
+    if fn_name in ("schwarz", "strength_based_schwarz"):
         raise not_ported(f"smoother {fn_name!r}",
                          "multicolor GS/SOR/block smoothers")
     raise ValueError(f"unknown smoother {fn_name!r}")

@@ -159,9 +159,16 @@ def test_bridge_rows_and_host_relaxation_match_jax():
         ref = _jax(jax_adaptive._relax_zero, J, x0.copy(), method, 3)
         np.testing.assert_allclose(ours, ref, rtol=1e-12, atol=1e-14)
         assert abs(np.abs(ours).max() - 1.0) < 1e-14
+    # gauss_seidel_nr raised here until the nonsymmetric slice ported it:
+    # it now relaxes as the JAX package's host method
+    ours = adaptive._relax_zero(A, x0.copy(), "gauss_seidel_nr", 1)
+    J = A.copy()
+    J.grid = A.grid
+    ref = _jax(jax_adaptive._relax_zero, J, x0.copy(), "gauss_seidel_nr", 1)
+    np.testing.assert_allclose(ours, ref, rtol=1e-12, atol=1e-14)
     # a host relaxation of the JAX package that the port lacks raises
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        adaptive._relax_zero(A, x0.copy(), "gauss_seidel_nr", 1)
+        adaptive._relax_zero(A, x0.copy(), "schwarz", 1)
 
 
 def test_intermediate_hierarchies_stay_on_the_host(monkeypatch):

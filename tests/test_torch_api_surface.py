@@ -56,8 +56,8 @@ TO_PORT = {
     ("pyamg_tpu.aggregation.tentative", "ben_ideal_interpolation"):
         CONSTRUCTORS,
     **{("pyamg_tpu.amg_core", n): CHAIN
-       for n in ("gauss_seidel_kaczmarz_native", "bellman_ford_native",
-                 "bfs_levels_native", "drake_matching_native")},
+       for n in ("bellman_ford_native", "bfs_levels_native",
+                 "drake_matching_native")},
     **{("pyamg_tpu.graph", n): CHAIN
        for n in ("maximal_independent_set", "bellman_ford",
                  "lloyd_cluster")},
@@ -67,8 +67,6 @@ TO_PORT = {
     **{("pyamg_tpu.parallel", n): DEVICE_SETUP
        for n in ("shard_structured_solver", "StructuredShardedSolver",
                  "structured_sa_setup_sharded")},
-    **{("pyamg_tpu.relaxation", n): CHAIN
-       for n in ("jacobi_ne", "gauss_seidel_ne", "gauss_seidel_nr")},
     **{("pyamg_tpu.relaxation", n): SMOOTHERS
        for n in ("schwarz", "mls_polynomial_coefficients")},
     **{("pyamg_tpu.sparse", n): CONSTRUCTORS

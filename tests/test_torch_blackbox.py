@@ -4,7 +4,8 @@ other front doors use: the port against the JAX package.
 * ``solver_configuration`` gives the JAX package's dict (strings, tuples,
   B) on a symmetric and on a nonsymmetric matrix; ``solve`` on the 40^2
   Poisson problem takes the JAX package's iterations and its x to 1e-8;
-  the nonsymmetric ``solver`` raises, naming the ROADMAP item.
+  the nonsymmetric ``solver`` builds the JAX package's hierarchy and
+  ``solve`` runs GMRES on it.
 * ``setup_complexity`` and ``cycle_complexity``: the bit-exact pins of the
   JAX package's tests (``tests/test_util.py::TestComplexity``: the 500^2
   SA profile against the reference model's values, AMLI beside W, the
@@ -118,20 +119,34 @@ def test_solve_prints_what_the_jax_package_prints(capsys):
 
 
 def test_nonsymmetric_solver_raises_before_any_setup(monkeypatch):
-    from pyamg_tpu_torch.aggregation import aggregation
+    """(A nonsymmetric matrix raised here, before any setup, until the
+    nonsymmetric slice ported its chain: ``solver`` now builds the JAX
+    package's nonsymmetric hierarchy, and ``solve`` runs GMRES on it;
+    ``test_torch_nonsymmetric.py`` compares both level by level.)  A
+    setup that fails raises ``TypeError``, as in the JAX package."""
+    import pyamg_tpu_torch.aggregation as aggregation
 
-    def no_setup(*args, **kw):
-        raise AssertionError("setup work started")
-
-    monkeypatch.setattr(aggregation, "smoothed_aggregation_solver",
-                        no_setup)
-    A = _nonsymmetric()
+    A = _nonsymmetric(24)
     config = pyamg_tpu_torch.solver_configuration(A, verb=False)
-    with pytest.raises(NotImplementedError, match="unstructured SA chain"):
+    ml = pyamg_tpu_torch.solver(A, config, device="cpu")
+    ref = _jax(pyamg_tpu.solver, A.copy(),
+               pyamg_tpu.solver_configuration(A, verb=False))
+    assert [lvl.A_csr.nnz for lvl in ml.levels] == \
+        [lvl.A_csr.nnz for lvl in ref.levels]
+    assert ml.levels[0].symmetry == "nonsymmetric"
+    assert ml.levels[0].presmoother.kind == "jacobi_nr"
+    b = np.ones(A.shape[0])
+    r1, r2 = [], []
+    pyamg_tpu_torch.solve(A, b, verb=False, residuals=r1, device="cpu")
+    _jax(pyamg_tpu.solve, A.copy(), b, verb=False, residuals=r2)
+    assert len(r1) == len(r2) and r1[-1] <= 1e-5 * r1[0]
+
+    def broken(*args, **kw):
+        raise RuntimeError("setup failed")
+
+    monkeypatch.setattr(aggregation, "smoothed_aggregation_solver", broken)
+    with pytest.raises(TypeError, match="failed to generate solver"):
         pyamg_tpu_torch.solver(A, config, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pyamg_tpu_torch.solve(A, np.ones(A.shape[0]), verb=False,
-                              device="cpu")
     with pytest.raises(TypeError, match="square"):
         pyamg_tpu_torch.blackbox.make_csr(sp.random(4, 5, format="csr"))
 

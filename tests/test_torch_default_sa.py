@@ -303,9 +303,11 @@ def test_keep_holds_the_setup_byproducts():
 # test_torch_energy.py compare them level by level; the evolution and
 # energy-based strength and the zebra smoother, of the classical slice:
 # test_torch_strength.py and test_torch_classical.py; 3-D grid metadata:
-# test_torch_grid3d.py)
+# test_torch_grid3d.py; the nonsymmetric setup, energy smoothing by CGNR
+# and the NE/NR smoothers: test_torch_nonsymmetric.py)
 PORTED_SINCE = ("two-candidates", "filtered-jacobi", "bsr", "evolution",
-                "energy_based", "zebra", "grid3d")
+                "energy_based", "zebra", "grid3d", "nonsymmetric", "energy",
+                "jacobi_ne")
 
 
 @pytest.mark.parametrize("kw", [
@@ -466,9 +468,16 @@ def test_embedded_transfers_apply_P_and_R():
                                   device="cpu") is None
     assert embedded_dia_transfers(lvl.P_csr, lvl.root_dofs[:-1],
                                   device="cpu") is None
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        embedded_dia_transfers(lvl.P_csr, lvl.root_dofs, restrict="explicit",
-                               device="cpu")
+    # an explicit restriction (a nonsymmetric level's R) embeds its own
+    # rows at the same roots; here R = P^T, so it equals the transpose form
+    Pe, Re = embedded_dia_transfers(lvl.P_csr, lvl.root_dofs,
+                                    restrict="explicit", R_csr=lvl.R_csr,
+                                    device="cpu")
+    np.testing.assert_allclose(Re.matvec(torch.from_numpy(xf)).numpy(),
+                               R.matvec(torch.from_numpy(xf)).numpy(),
+                               rtol=1e-12, atol=1e-13)
+    assert embedded_dia_transfers(lvl.P_csr, lvl.root_dofs,
+                                  restrict="explicit", device="cpu") is None
 
 
 def _export_op(op):

@@ -334,10 +334,13 @@ def test_energy_smoother_without_host_libraries(monkeypatch):
         "weighting"])
 def test_energy_options_outside_the_port_raise(kw, err, request):
     """(The root-node form and the filters raised until the root-node slice
-    ported them: they now give the JAX package's P; test_torch_rootnode.py
-    holds the root-node hierarchies level by level.)"""
+    ported them, CGNR and GMRES until the nonsymmetric slice: they now give
+    the JAX package's P; test_torch_rootnode.py holds the root-node
+    hierarchies level by level, test_torch_nonsymmetric.py the CGNR and
+    GMRES forms.)"""
     A, C, T, Bc = _pieces(grid=(6, 6))
-    if request.node.callspec.id in ("Cpt_params", "prefilter", "postfilter"):
+    if request.node.callspec.id in ("cgnr", "gmres", "Cpt_params",
+                                    "prefilter", "postfilter"):
         if "Cpt_params" in kw:
             # the root-node pieces of rootnode_solver's first level
             _, B = linear_elasticity((6, 6))

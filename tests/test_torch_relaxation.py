@@ -441,12 +441,28 @@ def test_identical_pre_and_post_smoothers_share_their_state():
 
 @pytest.mark.parametrize("name", ["jacobi_ne", "gauss_seidel_nr", "zebra",
                                   "line_jacobi", "schwarz", "cgnr"])
-def test_smoothers_outside_the_port_raise(name):
+def test_smoothers_outside_the_port_raise(name, first_fit):
     """The smoothers outside the port raise and name their ROADMAP item.
     (``zebra`` and ``line_jacobi`` raised here until the classical slice
     ported them: they now build their line data on a grid level, and
-    ``test_torch_classical.py`` compares them with the JAX package.)"""
-    lvl, _ = _levels("dia-grid")
+    ``test_torch_classical.py`` compares them with the JAX package.
+    ``jacobi_ne``, ``gauss_seidel_nr`` and ``cgnr`` raised until the
+    nonsymmetric slice: they now apply as the JAX package's, and
+    ``test_torch_nonsymmetric.py`` holds all seven NE/NR and Krylov
+    smoothers.)"""
+    lvl, ref = _levels("dia-grid")
+    if name in ("jacobi_ne", "gauss_seidel_nr", "cgnr"):
+        sm = smoothing.make_smoother_data(lvl, name, {}, device="cpu")
+        jsm = jsmoothing.make_smoother_data(ref, name, {})
+        assert sm.kind == jsm.kind
+        np.testing.assert_allclose(sm.omega, jsm.omega, rtol=1e-12)
+        x0, b = _xb(lvl.A_csr.shape[0])
+        y = apply_smoother(sm, lvl.A, torch.from_numpy(x0),
+                           torch.from_numpy(b))
+        yj = jax_apply(jsm, ref.A, jnp.asarray(x0), jnp.asarray(b))
+        np.testing.assert_allclose(y.numpy(), np.asarray(yj), rtol=1e-12,
+                                   atol=1e-12)
+        return
     if name in ("zebra", "line_jacobi"):
         sm = smoothing.make_smoother_data(lvl, name, {}, device="cpu")
         assert sm.kind == name and sm.line_tri.shape[0] == 3

@@ -9,7 +9,8 @@
 * The root-node bookkeeping ``get_Cpt_params`` and ``scale_T`` on their
   own, and the root-node branch of energy smoothing with the pre- and
   post-filters.
-* ``symmetry="nonsymmetric"`` raises, naming the ROADMAP item.
+* ``symmetry="nonsymmetric"`` builds the JAX package's hierarchy
+  (``test_torch_nonsymmetric.py`` holds it level by level).
 
 Every reference is built with the JAX package's ``have_native`` patched to
 True.
@@ -206,9 +207,16 @@ def test_rootnode_energy_branch_with_filters_matches_jax(filters, library,
 
 def test_rootnode_options():
     A = poisson((12, 12), format="csr")
-    with pytest.raises(NotImplementedError, match="unstructured SA chain"):
-        pyamg_tpu_torch.rootnode_solver(A, symmetry="nonsymmetric",
-                                        device="cpu")
+    # (the nonsymmetric form raised until the nonsymmetric slice:
+    # test_torch_nonsymmetric.py compares it level by level)
+    ml = pyamg_tpu_torch.rootnode_solver(A, symmetry="nonsymmetric",
+                                         max_coarse=20, device="cpu")
+    ref = _jax(pyamg_tpu.rootnode_solver, A.copy(), symmetry="nonsymmetric",
+               max_coarse=20)
+    assert len(ml.levels) == len(ref.levels) > 1
+    for lo, lr in zip(ml.levels[:-1], ref.levels[:-1]):
+        _close(lo.R_csr, lr.R_csr)
+        np.testing.assert_allclose(lo.BH, np.asarray(lr.BH), rtol=1e-10)
     with pytest.raises(ValueError, match="symmetry"):
         pyamg_tpu_torch.rootnode_solver(A, symmetry="skew", device="cpu")
     with pytest.raises(ValueError, match="energy"):

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 import pyamg_tpu
+import pyamg_tpu.amg_core as jax_core
 from pyamg_tpu.gallery import poisson as jax_poisson
 from pyamg_tpu.relaxation.smoothing import change_smoothers as jax_change
 import pyamg_tpu_torch
@@ -136,7 +137,10 @@ def test_setups_off_the_ported_path_raise(change):
     package's structured hierarchy, zebra smoothers included.  3-D grid
     metadata raised until the SA front-door slice: it now takes the JAX
     package's unstructured chain; ``test_torch_grid3d.py`` compares it
-    level by level.)"""
+    level by level.  Energy smoothing by GMRES, the ``gauss_seidel_nr``
+    smoother and the nonsymmetric setup raised until the nonsymmetric
+    slice: they now build the JAX package's hierarchy, compared level by
+    level here and in ``test_torch_nonsymmetric.py``.)"""
     kw = dict(KW)
     kw.update({k: v for k, v in change.items()
                if k not in ("grid3d", "unstructured")})
@@ -157,14 +161,24 @@ def test_setups_off_the_ported_path_raise(change):
                                        np.asarray(lr.presmoother.line_tri),
                                        rtol=1e-12)
         return
-    if change.get("grid3d"):
+    if change.get("aggregate") != "lloyd":
         ours = pyamg_tpu_torch.smoothed_aggregation_solver(A, device="cpu",
                                                            **kw)
-        ref = pyamg_tpu.smoothed_aggregation_solver(
-            jax_poisson((6, 6, 6), format="csr"), **kw)
+        J = jax_poisson((6, 6, 6) if change.get("grid3d") else (20, 20),
+                        format="csr")
+        if change.get("unstructured"):
+            J = J.tocoo().tocsr()
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(jax_core, "have_native", lambda: True)
+            ref = pyamg_tpu.smoothed_aggregation_solver(J, **kw)
         assert len(ours.levels) == len(ref.levels) > 1
         for lo, lr in zip(ours.levels, ref.levels):
             _csr_close(lo.A_csr, lr.A_csr)
+            assert type(lo.A).__name__ == type(lr.A).__name__
+        for lo, lr in zip(ours.levels[:-1], ref.levels[:-1]):
+            _csr_close(lo.P_csr, lr.P_csr)
+            _csr_close(lo.R_csr, lr.R_csr)
+            assert lo.presmoother.kind == lr.presmoother.kind
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         pyamg_tpu_torch.smoothed_aggregation_solver(A, device="cpu", **kw)

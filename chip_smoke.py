@@ -75,6 +75,15 @@ computes the same function:
   nonsymmetric root-node SA, the black box and the NE/NR and Krylov
   smoothers (kernel: dia_matvec on every DIA level, the explicit-R
   root-embedded transfers and A^H);
+* the rest of the smoother menu and the Lloyd and pairwise aggregations:
+  ``adaptive_sa_anisotropy_K2_1024`` (``adaptive_sa_solver`` with two
+  candidates, full (3, 3) grid blocks and zebra on the anisotropic
+  stencil: block-tridiagonal line relaxation on every level of two dofs a
+  node, ``solve_mp`` to 1e-10); overlapping Schwarz smoothers on the
+  1024^2 Poisson hierarchy (CG, ``solve_mp``, the fixed-order sum of the
+  corrections, ``strength_based_schwarz``); ``aggregate="lloyd"`` and
+  pairwise aggregation on the same matrix as plain CSR (kernel:
+  dia_matvec on every DIA level and transfer);
 * dia_matvec at every DIA shape that the phases' hierarchies hold or
   their paths launched, with its launches there: both of the kernel's
   routes (a thread a row; threads over (row, offset) pairs for short,
@@ -209,6 +218,22 @@ NONSYM = dict(grid=1024, small=256, kw=dict(
     max_coarse=500))
 NONSYM_SMOOTHERS = ("jacobi_ne", "gauss_seidel_ne", "cgnr", "cgne", "cg",
                     "gmres")
+# the rest of the smoother menu and the Lloyd and pairwise aggregations
+# (phases 30-32).  adaptive_sa_anisotropy_K2_1024: the protocol of
+# benchmarks/reference_harness/our_k2.py (two candidates, full (3, 3)
+# grid blocks, zebra), whose operator complexity 1.90 and 10 inner
+# iterations the JAX package's notes record (ROUND5_NOTES.md:31-35; no
+# committed artifact); the Schwarz and the Lloyd and pairwise hierarchies
+# have no record at 1M: their counts are the card's own, and the CPU tests
+# hold both packages equal
+K2 = dict(grid=(1024, 1024), iters=10, iters_tol=2, opc_max=2.1,
+          stencil=dict(epsilon=0.001, theta=0.0, type="FD"),
+          kw=dict(num_candidates=2, candidate_iters=5,
+                  prepostsmoother="zebra",
+                  aggregate=("grid", {"block": (3, 3)}), max_coarse=100))
+SCHWARZ_KW = dict(presmoother="schwarz", postsmoother="schwarz",
+                  max_coarse=500)
+AGGREGATIONS = {"lloyd": "lloyd", "pairwise": ("pairwise", {"matchings": 2})}
 DEFAULT_SA = {
     "structured": dict(rows=[1048576, 116964, 12996, 1444, 169], opc=1.225,
                        cg=9, cycles=10),
@@ -239,6 +264,10 @@ HIERARCHY_PINS = {
     "recirc_flow 1024^2, nonsymmetric SA": (5, 1.338143),
     "recirc_flow 256^2, nonsymmetric root-node": (4, 1.341215),
     "recirc_flow 256^2, black box": (4, 1.364530),
+    "adaptive_sa_anisotropy_K2_1024": (6, 1.899639),
+    "schwarz SA 1024^2": (5, 1.224878),
+    "lloyd SA 1024^2": (4, 1.056553),
+    "pairwise SA 1024^2": (7, 2.782670),
 }
 # short, wide random operators held on both routes of dia_matvec in phase
 # 3: the widest DIA level of poisson3d_64_sa_chebyshev, level 3 of the
@@ -1952,15 +1981,7 @@ def elasticity_rbm(torch):
     if bdia is None:
         raise AssertionError("the default call built no SparseBDIA smoother")
     launches = dia_kernel.launches
-    xv = torch.rand(bdia.shape[1], device="cuda", dtype=bdia.dtype)
-    (ms,) = _medians(torch, lambda: bdia.matvec(xv))
-    nbytes = (bdia.blocks.numel() * bdia.blocks.element_size()
-              + 2 * xv.numel() * xv.element_size())
-    b_ms, b_by = bound(nbytes, 2 * bdia.blocks.numel())
-    print(f"SparseBDIA matvec (plain torch, shifted batched 2x2 block "
-          f"products) {tuple(bdia.shape)}, {bdia.n_offsets} block "
-          f"diagonals: {ms * 1e3:.2f} us, bound {b_ms * 1e3:.2f} us "
-          f"({b_by}, {nbytes / 1e6:.2f} MB)")
+    time_bdia(torch, bdia)
     print(f"dia_matvec launches over the three calls: {launches};  plain "
           f"twin calls on CUDA {twin[0]} (DIA) "
           f"{spgemm_kernel.plain_cuda_calls} (SpGEMM)")
@@ -1970,6 +1991,20 @@ def elasticity_rbm(torch):
     if twin[0] or spgemm_kernel.plain_cuda_calls:
         raise AssertionError("a plain twin ran on CUDA")
     return launches, worst
+
+
+def time_bdia(torch, bdia):
+    """Print the device time of one ``SparseBDIA`` matvec (plain torch)
+    beside its bound."""
+    xv = torch.rand(bdia.shape[1], device="cuda", dtype=bdia.dtype)
+    (ms,) = _medians(torch, lambda: bdia.matvec(xv))
+    nbytes = (bdia.blocks.numel() * bdia.blocks.element_size()
+              + 2 * xv.numel() * xv.element_size())
+    b_ms, b_by = bound(nbytes, 2 * bdia.blocks.numel())
+    print(f"SparseBDIA matvec (plain torch, shifted batched block "
+          f"products) {tuple(bdia.shape)}, {bdia.n_offsets} block "
+          f"diagonals: {ms * 1e3:.2f} us, bound {b_ms * 1e3:.2f} us "
+          f"({b_by}, {nbytes / 1e6:.2f} MB)")
 
 
 def _classical_stages():
@@ -2541,25 +2576,32 @@ def poisson3d(torch):
 
 
 def pcr_rounds(torch, ml):
-    """Parallel-cyclic-reduction rounds (and line solves) of one V-cycle of
-    a zebra-smoothed hierarchy (float32)."""
+    """Parallel-cyclic-reduction solves and rounds of one V-cycle of a
+    line-smoothed hierarchy (float32), of the scalar lines and of the
+    node-blocked ones apart: ``{"scalar": {"solves", "rounds"},
+    "blocked": {...}}``."""
     from pyamg_tpu_torch.relaxation import device
 
-    real = device.batched_tridiag_pcr
-    count = {"solves": 0, "rounds": 0}
+    count = {kind: {"solves": 0, "rounds": 0}
+             for kind in ("scalar", "blocked")}
 
-    def counted(dl, d, du, B):
-        count["solves"] += 1
-        count["rounds"] += int(np.ceil(np.log2(max(d.shape[-1], 1))))
-        return real(dl, d, du, B)
+    def counted(kind, real):
+        def run(dl, d, du, B):
+            count[kind]["solves"] += 1
+            count[kind]["rounds"] += int(np.ceil(np.log2(max(d.shape[-1],
+                                                             1))))
+            return real(dl, d, du, B)
+        return run
 
     n = ml.levels[0].A.shape[0]
     b = torch.ones(n, device="cuda", dtype=ml.levels[0].A.dtype)
-    device.batched_tridiag_pcr = counted
+    real = device.batched_tridiag_pcr, device.batched_block_tridiag_pcr
+    device.batched_tridiag_pcr = counted("scalar", real[0])
+    device.batched_block_tridiag_pcr = counted("blocked", real[1])
     try:
         _launches_of(lambda: ml.cycle_fn("V")(torch.zeros_like(b), b))
     finally:
-        device.batched_tridiag_pcr = real
+        device.batched_tridiag_pcr, device.batched_block_tridiag_pcr = real
     return count
 
 
@@ -2603,7 +2645,7 @@ def adaptive_aniso(torch):
         info, relres, _, _ = classical_solve(torch, ml, A, b,
                                              inner_maxiter=60)
     launches = dia_kernel.launches
-    pcr = pcr_rounds(torch, ml)
+    pcr = pcr_rounds(torch, ml)["scalar"]
     print(f"zebra line solves a V-cycle {pcr['solves']}, PCR rounds "
           f"{pcr['rounds']}")
     worst = hold_dia_cases(torch, np.random.default_rng(25),
@@ -2861,6 +2903,218 @@ def nonsymmetric_phase(torch):
     return launches, worst
 
 
+def off_kernel_levels(ml):
+    """The levels whose operator is not a DIA operator (K1' does not run
+    their matvecs), by index and form."""
+    from pyamg_tpu_torch.sparse import SparseDIA
+
+    return {i: _form(lvl.A) for i, lvl in enumerate(ml.levels)
+            if not isinstance(lvl.A, SparseDIA)}
+
+
+def adaptive_k2(torch):
+    """``adaptive_sa_anisotropy_K2_1024`` (``K2``): the grid-aligned
+    anisotropic FD stencil (epsilon 0.001) at 1024^2 through
+    ``adaptive_sa_solver`` with two candidates, full (3, 3) grid blocks
+    and zebra, cast to float32, ``solve_mp`` to 1e-10 with 60 inner
+    iterations.  Every level of two dofs a node relaxes along
+    block-tridiagonal lines.  Returns ``(launches, worst)``."""
+    phase("30. adaptive SA, two candidates, full (3, 3) coarsening: "
+          "adaptive_sa_anisotropy_K2_1024")
+    import pyamg_tpu_torch
+    import pyamg_tpu_torch.relaxation.relaxation as rel
+    from pyamg_tpu_torch.aggregation import aggregation as agg
+    from pyamg_tpu_torch.gallery import diffusion_stencil_2d, stencil_grid
+    from pyamg_tpu_torch.sparse import SparseBDIA, dia_kernel, spgemm_kernel
+
+    t_phase = time.perf_counter()
+    A = stencil_grid(diffusion_stencil_2d(**K2["stencil"]), K2["grid"],
+                     format="csr")
+    b = A @ np.random.default_rng(0).random(A.shape[0])
+    stages = [("host zebra sweeps", rel, "zebra"),
+              ("host Gauss-Seidel", rel, "gauss_seidel"),
+              ("grid aggregation", agg, "grid_aggregation"),
+              ("fit_candidates", agg, "fit_candidates"),
+              ("structured S and rho", agg, "structured_smoother_S"),
+              ("Galerkin RAP", agg, "galerkin_product"),
+              ("device arrays", agg, "_finalize_device_operators"),
+              ("smoothers", agg, "change_smoothers")]
+    dia_kernel.launches = 0
+    spgemm_kernel.plain_cuda_calls = 0
+    twin = [0]
+    with counting_twin_calls(torch, twin):
+        (ml, work), _ = timed_setup(
+            torch, lambda: pyamg_tpu_torch.adaptive_sa_solver(
+                A, device="cuda", **K2["kw"]), stages)
+        ml = ml.astype(torch.float32)
+        torch.cuda.synchronize()
+        print(f"adaptive_sa_solver: work {work:.4f} (fine-level nnz units),"
+              f" then astype(float32)")
+        print_levels(ml)
+        info, relres, _, _ = classical_solve(torch, ml, A, b,
+                                             inner_maxiter=60)
+    launches = dia_kernel.launches
+    pcr = pcr_rounds(torch, ml)
+    print(f"PCR a V-cycle: scalar lines {pcr['scalar']}, node-blocked "
+          f"lines {pcr['blocked']}")
+    blocked = [i for i, lvl in enumerate(ml.levels[:-1])
+               if getattr(lvl, "blocksize", 1) == 2]
+    flat = [i for i in blocked
+            if ml.levels[i].presmoother.line_tri.dim() != 5]
+    off = off_kernel_levels(ml)
+    print(f"levels of two dofs a node {blocked}; on block-tridiagonal lines "
+          f"{[i for i in blocked if i not in flat]}; levels whose A is not "
+          f"DIA (no K1') {off}")
+    # the node-blocked levels' transfers carry their smoother S as a
+    # SparseBDIA (plain torch): the largest one timed
+    bdia = [op for lvl in ml.levels[:-1]
+            for tr in (lvl.A, lvl.P, lvl.R)
+            for op in getattr(tr, "ops", (tr,)) if isinstance(op, SparseBDIA)]
+    if bdia:
+        time_bdia(torch, max(bdia, key=lambda op: op.shape[0]))
+    worst = hold_dia_cases(torch, np.random.default_rng(30),
+                           record_hierarchy("adaptive_sa_anisotropy_K2_1024",
+                                            ml))
+    _check_front_door(torch, "phase 30", launches, worst, twin)
+    opc = ml.operator_complexity()
+    if not blocked or flat or pcr["blocked"]["solves"] <= 0:
+        raise AssertionError(f"levels of two dofs a node {blocked}, of them "
+                             f"not block-line relaxed {flat}, blocked PCR "
+                             f"{pcr['blocked']}")
+    if opc > K2["opc_max"] \
+            or abs(info["inner_iterations"] - K2["iters"]) > K2["iters_tol"] \
+            or not relres <= 5e-10:
+        raise AssertionError(f"opc {opc} (<= {K2['opc_max']}), {info}, "
+                             f"relres {relres}; expected {K2['iters']}+-"
+                             f"{K2['iters_tol']} and <= 5e-10")
+    print(f"phase 30 seconds {time.perf_counter() - t_phase:.1f}")
+    return launches, worst
+
+
+def schwarz_phase(torch):
+    """Overlapping Schwarz as the smoother of SA on the 1024^2 Poisson
+    problem with its grid metadata (``SCHWARZ_KW``, float32 operators):
+    setup stage by stage with ``schwarz_parameters`` apart, the tables'
+    bytes by level, CG to 1e-8, ``solve_mp`` to 1e-10, five V-cycles, one
+    step twice for the same bits; then ``strength_based_schwarz`` on level
+    0 takes the same subdomains.  Returns ``(launches, worst)``."""
+    phase("31. overlapping Schwarz smoothers, 1024^2 Poisson")
+    import pyamg_tpu_torch
+    import pyamg_tpu_torch.relaxation.relaxation as rel
+    from pyamg_tpu_torch.gallery import poisson
+    from pyamg_tpu_torch.relaxation.device import schwarz_step
+    from pyamg_tpu_torch.relaxation.smoothing import make_smoother_data
+    from pyamg_tpu_torch.sparse import dia_kernel, spgemm_kernel
+
+    t_phase = time.perf_counter()
+    A = poisson(GRID, format="csr")
+    b = A @ np.random.default_rng(0).random(A.shape[0])
+    stages = [st for st in _sa_stages() if st[0] != "smoothers"] \
+        + [("schwarz_parameters", rel, "schwarz_parameters")]
+    dia_kernel.launches = 0
+    spgemm_kernel.plain_cuda_calls = 0
+    twin = [0]
+    with counting_twin_calls(torch, twin):
+        ml, _ = timed_setup(
+            torch, lambda: pyamg_tpu_torch.smoothed_aggregation_solver(
+                A, op_dtype=torch.float32, device="cuda", **SCHWARZ_KW),
+            stages)
+        print_levels(ml)
+        for i, lvl in enumerate(ml.levels[:-1]):
+            sm = lvl.presmoother
+            nbytes = sum(t.numel() * t.element_size() for t in (
+                sm.subdomain_idx, sm.subdomain_inv, sm.dof_slots,
+                sm.dof_weight))
+            print(f"level {i}: Schwarz tables (n_dom, L) = "
+                  f"{tuple(sm.subdomain_idx.shape)}, dof slots "
+                  f"{tuple(sm.dof_slots.shape)}: {nbytes / 1e6:.1f} MB on "
+                  f"the card")
+        _, relres_cg, _ = timed_solve(torch, ml, A, b)
+        info, relres, _, _ = classical_solve(torch, ml, A, b)
+        cycles = []
+        ml.solve(b, tol=1e-12, maxiter=5, residuals=cycles)
+        lvl = ml.levels[0]
+        xs = torch.rand(A.shape[0], device="cuda", dtype=torch.float32)
+        bs = torch.rand(A.shape[0], device="cuda", dtype=torch.float32)
+        same = torch.equal(schwarz_step(lvl.A, lvl.presmoother, xs, bs),
+                           schwarz_step(lvl.A, lvl.presmoother, xs, bs))
+    launches = dia_kernel.launches
+    print(f"five V-cycles: residual reduction {cycles[-1] / cycles[0]:.3e};"
+          f"  one Schwarz step twice on level 0, the same bits: {same}")
+    t0 = time.perf_counter()
+    sb = make_smoother_data(lvl, "strength_based_schwarz", {},
+                            dtype=torch.float32, device="cuda")
+    agree = torch.equal(sb.subdomain_idx, lvl.presmoother.subdomain_idx) \
+        and torch.equal(sb.subdomain_inv, lvl.presmoother.subdomain_inv)
+    print(f"strength_based_schwarz on level 0 ({time.perf_counter() - t0:.3f}"
+          f" s): the subdomains and inverses of schwarz: {agree}")
+    print(f"levels whose A is not DIA (no K1') {off_kernel_levels(ml)};  "
+          f"cycle_complexity V {pyamg_tpu_torch.cycle_complexity(ml):.4f} "
+          f"(fine-level nnz units, the subdomain solves included)")
+    worst = hold_dia_cases(torch, np.random.default_rng(31),
+                           record_hierarchy("schwarz SA 1024^2", ml))
+    _check_front_door(torch, "phase 31", launches, worst, twin)
+    if not (relres_cg <= 5e-7 and relres <= 5e-10
+            and cycles[-1] < cycles[0] and same and agree):
+        raise AssertionError(f"CG relres {relres_cg} (<= 5e-7), solve_mp "
+                             f"{info} relres {relres} (<= 5e-10), five "
+                             f"cycles {cycles[0]} -> {cycles[-1]}, same bits "
+                             f"{same}, strength_based_schwarz {agree}")
+    print(f"phase 31 seconds {time.perf_counter() - t_phase:.1f}")
+    return launches, worst
+
+
+def lloyd_pairwise_phase(torch):
+    """``smoothed_aggregation_solver`` with ``aggregate="lloyd"`` and with
+    pairwise aggregation (two Drake matchings a level) on the 1024^2
+    Poisson problem as plain CSR (float32 operators): setup stage by stage
+    with Bellman-Ford, the recentering and the matchings apart, CG to
+    1e-8, ``solve_mp`` to 1e-10.  Returns ``(launches, worst)``."""
+    phase("32. Lloyd and pairwise aggregation, 1024^2 Poisson as plain CSR")
+    import scipy.sparse as sp
+    import pyamg_tpu_torch
+    from pyamg_tpu_torch import graph
+    from pyamg_tpu_torch.aggregation import aggregate, matching
+    from pyamg_tpu_torch.gallery import poisson
+    from pyamg_tpu_torch.sparse import dia_kernel, spgemm_kernel
+
+    t_phase = time.perf_counter()
+    A = sp.csr_matrix(poisson(GRID, format="csr").tocoo())
+    b = A @ np.random.default_rng(0).random(A.shape[0])
+    # the aggregation stage encloses the three below it: left out, its
+    # remainder counts under "rest"
+    stages = [st for st in _sa_stages() if st[0] != "aggregation"] + [
+        ("Bellman-Ford", graph, "bellman_ford"),
+        ("recentering", graph, "_recenter"),
+        ("matchings", matching, "drake_matching"),
+        ("pair labels", aggregate, "_pairs_to_labels")]
+    spgemm_kernel.plain_cuda_calls = 0
+    twin, launches, worst = [0], 0, 0.0
+    for name, flag in AGGREGATIONS.items():
+        print(f"-- aggregate={flag!r}")
+        dia_kernel.launches = 0
+        with counting_twin_calls(torch, twin):
+            ml, _ = timed_setup(
+                torch, lambda: pyamg_tpu_torch.smoothed_aggregation_solver(
+                    A, aggregate=flag, max_coarse=500,
+                    op_dtype=torch.float32, device="cuda"), stages)
+            print_levels(ml)
+            _, relres_cg, _ = timed_solve(torch, ml, A, b, maxiter=400)
+            info, relres, _, _ = classical_solve(torch, ml, A, b)
+        launches += dia_kernel.launches
+        print(f"levels whose A is not DIA (no K1') {off_kernel_levels(ml)}")
+        worst = max(worst, hold_dia_cases(
+            torch, np.random.default_rng(32),
+            record_hierarchy(f"{name} SA 1024^2", ml)))
+        if not (relres_cg <= 5e-7 and relres <= 5e-10):
+            raise AssertionError(f"{name}: CG relres {relres_cg} (<= 5e-7), "
+                                 f"solve_mp {info} relres {relres} "
+                                 f"(<= 5e-10)")
+    _check_front_door(torch, "phase 32", launches, worst, twin)
+    print(f"phase 32 seconds {time.perf_counter() - t_phase:.1f}")
+    return launches, worst
+
+
 def dia_shapes(torch, launches):
     """dia_matvec at every DIA shape the smoke ran: the shapes (rows,
     cols, offsets, dtype) of every hierarchy's DIA operators and of every
@@ -3063,6 +3317,12 @@ def main():
     launches["dia_matvec"] += n_ns
     worst["dia_matvec"] = max(worst["dia_matvec"], err_ns)
     print(f"dia_matvec launches by the nonsymmetric phase 29: {n_ns}")
+    menu = [adaptive_k2(torch), schwarz_phase(torch),
+            lloyd_pairwise_phase(torch)]
+    launches["dia_matvec"] += sum(n for n, _ in menu)
+    worst["dia_matvec"] = max([worst["dia_matvec"]] + [e for _, e in menu])
+    print(f"dia_matvec launches by phases 30-32 (two-candidate adaptive SA, "
+          f"Schwarz, Lloyd and pairwise): {[n for n, _ in menu]}")
     times["dia_matvec"].update(dia_shapes(torch, launches))
     print(f"chip_smoke seconds: {time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": [dict(

@@ -11,8 +11,9 @@ What is ported:
   ``aggregate=("grid", ...)``, the structured path of grid-block
   aggregates, semicoarsened under anisotropy with line smoothers;
   otherwise strength, aggregation, tentative and Jacobi- or
-  energy-smoothed prolongators and Galerkin products; blocked levels in
-  BSR blocks); the other symmetric SA front doors ``rootnode_solver``
+  energy-smoothed prolongators and Galerkin products, with standard,
+  Lloyd or pairwise (matching) aggregation; blocked levels in BSR
+  blocks); the other symmetric SA front doors ``rootnode_solver``
   (root-node energy minimization, root-embedded transfers) and
   ``adaptive_sa_solver`` (candidates found by relaxation); the black-box
   ``solve``, ``solver`` and ``solver_configuration`` for a Hermitian
@@ -20,14 +21,17 @@ What is ported:
   and every DIA sparse matvec of the solve -- DIA levels, the DIA
   smoothers of grid transfers, root-embedded DIA transfers -- runs a
   hand-written CUDA kernel (``csrc/dia_matvec.cu``); multicolor
-  Gauss-Seidel, SOR, Jacobi, block, Chebyshev smoothers; V, W, F and AMLI
+  Gauss-Seidel, SOR, Jacobi, block, Chebyshev, line (zebra, also on
+  levels of several dofs a node), normal-equation, Krylov and overlapping
+  Schwarz smoothers; V, W, F and AMLI
   cycles; dense and host-iterative coarse solvers; stand-alone cycling,
   every Krylov method of ``krylov`` as accelerator, the mixed-precision
   ``solve_mp``, ``aspreconditioner`` and ``MultilevelSolverSet``; real and
   complex Hermitian operators;
 * the setup's sequential host stages (aggregation, first-fit coloring,
   Gauss-Seidel sweeps, classical strength, CSR to DIA, the energy CG's
-  masked products and projections) in a compiled
+  masked products and projections, Bellman-Ford, the Drake matching) in a
+  compiled
   library (``amg_core``, built from ``csrc/amg_core.cpp`` with g++ at first
   use), with Python forms that serve where no compiler is found;
 * the Krylov suite (``krylov``: CG, CR, CGNE, CGNR, BiCGStab, steepest

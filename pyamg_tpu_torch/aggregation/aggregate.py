@@ -1,12 +1,13 @@
-"""Aggregation: block aggregation on structured grids, and the greedy
-standard and naive aggregations over a strength graph.
+"""Aggregation: block aggregation on structured grids, the greedy
+standard and naive aggregations over a strength graph, Lloyd clustering
+and pairwise (matching) aggregation.
 
 Port of ``grid_aggregation``, ``fit_aggop``, ``standard_aggregation``,
-``naive_aggregation`` and ``parallel_aggregation`` from
-``pyamg_tpu/aggregation/aggregate.py``.  The greedy passes run in the
-compiled ``amg_core`` library where it loaded; their Python forms (over
-Python lists rather than numpy scalars) give the same aggregates without
-it.  The Lloyd and pairwise aggregations are not ported yet.
+``naive_aggregation``, ``parallel_aggregation``, ``lloyd_aggregation`` and
+``pairwise_aggregation`` from ``pyamg_tpu/aggregation/aggregate.py``.  The
+greedy passes, Bellman-Ford and the Drake matching run in the compiled
+``amg_core`` library where it loaded; their Python forms (over Python
+lists rather than numpy scalars) give the same aggregates without it.
 """
 
 from __future__ import annotations
@@ -18,7 +19,8 @@ from ..amg_core import naive_aggregation_native, standard_aggregation_native
 from ..util.utils import to_csr
 
 __all__ = ["grid_aggregation", "fit_aggop", "standard_aggregation",
-           "naive_aggregation", "parallel_aggregation"]
+           "naive_aggregation", "parallel_aggregation", "lloyd_aggregation",
+           "pairwise_aggregation"]
 
 
 def grid_aggregation(grid, block=None):
@@ -219,3 +221,76 @@ def parallel_aggregation(C, seed=0):
         labels[left] = np.arange(left.size) + roots.size
         roots = np.concatenate([roots, left])
     return fit_aggop(labels, roots.size), roots
+
+
+def lloyd_aggregation(C, ratio=0.03, distance="unit", maxiter=10, seed=0):
+    """Lloyd-clustering aggregation: ``ceil(ratio * n)`` seeds drawn from
+    ``default_rng(seed)``, then :func:`~pyamg_tpu_torch.graph.lloyd_cluster`
+    on C's graph with the edge lengths of ``distance`` ("unit", "abs",
+    "inv", "same" or "sub").  Returns ``(AggOp, seeds)``; a node no seed
+    reaches is in no aggregate (a zero row of AggOp)."""
+    from ..graph import lloyd_cluster
+
+    C = to_csr(C)
+    n = C.shape[0]
+    if ratio <= 0 or ratio > 1:
+        raise ValueError("ratio must be > 0.0 and <= 1.0")
+    G = C.copy()
+    if distance == "unit":
+        G.data = np.ones_like(G.data, dtype=np.float64)
+    elif distance == "abs":
+        G.data = np.abs(G.data)
+    elif distance == "inv":
+        with np.errstate(divide="ignore"):
+            G.data = 1.0 / np.abs(G.data)
+    elif distance == "same":
+        G = C
+    elif distance == "sub":
+        G.data = G.data - np.abs(G.data).min()
+    else:
+        raise ValueError(f"unrecognized distance metric {distance!r}")
+    num_seeds = max(1, int(min(n, np.ceil(ratio * n))))
+    seeds = np.random.default_rng(seed).choice(n, size=num_seeds,
+                                               replace=False)
+    _, clusters, seeds = lloyd_cluster(G, seeds, maxiter=maxiter)
+    return fit_aggop(clusters, num_seeds), np.asarray(seeds)
+
+
+def pairwise_aggregation(A, matchings=2, algorithm="drake",
+                         get_weights=None, **kwargs):
+    """Pairwise aggregation: ``matchings`` rounds of a weighted matching
+    ("drake", "preis" or "notay"), each pairing the nodes of the Galerkin
+    operator of the previous round's aggregates, for a coarsening factor
+    near 2**matchings.  Returns ``(AggOp, None)``."""
+    from .matching import drake_matching, notay_matching, preis_matching
+
+    match = {"drake": drake_matching, "preis": preis_matching,
+             "notay": notay_matching}
+    if algorithm not in match:
+        raise ValueError(f"unknown matching algorithm {algorithm!r}")
+    Ak = to_csr(A)
+    AggTotal = None
+    for _ in range(int(matchings)):
+        Agg = fit_aggop(_pairs_to_labels(match[algorithm](Ak, **kwargs),
+                                         Ak.shape[0]))
+        AggTotal = Agg if AggTotal is None else (AggTotal @ Agg).tocsr()
+        Ak = (Agg.T @ Ak @ Agg).tocsr()
+    return AggTotal.tocsr(), None
+
+
+def _pairs_to_labels(pairs, n):
+    """Aggregate labels of a partner array (-1: unmatched): in node order,
+    each node not yet labelled opens an aggregate and takes its partner
+    into it if the partner is not labelled yet."""
+    pairs = np.asarray(pairs).tolist()
+    labels = [-1] * n
+    next_agg = 0
+    for i in range(n):
+        if labels[i] >= 0:
+            continue
+        labels[i] = next_agg
+        j = pairs[i]
+        if j >= 0 and labels[j] < 0:
+            labels[j] = next_agg
+        next_agg += 1
+    return np.array(labels, dtype=np.int64)

@@ -60,10 +60,11 @@ from ..util.linalg import approximate_spectral_radius
 from ..util.utils import (eliminate_diag_dom_nodes, filter_matrix_rows,
                           get_diagonal,
                           levelize_smooth_or_improve_candidates,
-                          levelize_strength_or_aggregation, not_ported,
+                          levelize_strength_or_aggregation,
                           numpy_dtype, relaxation_as_linear_operator, to_csr,
                           torch_dtype, unpack_arg)
-from .aggregate import (grid_aggregation, naive_aggregation,
+from .aggregate import (grid_aggregation, lloyd_aggregation,
+                        naive_aggregation, pairwise_aggregation,
                         parallel_aggregation, standard_aggregation)
 from .smooth import (energy_prolongation_smoother,
                      jacobi_prolongation_smoother,
@@ -72,9 +73,6 @@ from .tentative import fit_candidates
 
 __all__ = ["smoothed_aggregation_solver", "structured_smoother_S",
            "galerkin_product"]
-
-_UNSTRUCTURED = "the unstructured SA chain"
-
 
 def _strength(A, B, flag):
     fn, kwargs = unpack_arg(flag)
@@ -119,10 +117,12 @@ def _aggregate(C, A, B, flag):
         return parallel_aggregation(C, **kwargs)
     if fn == "naive":
         return naive_aggregation(C, **kwargs)
+    if fn == "lloyd":
+        return lloyd_aggregation(C, **kwargs)
+    if fn == "pairwise":
+        return pairwise_aggregation(A, **kwargs)
     if fn == "predefined":
         return to_csr(kwargs["AggOp"]), None
-    if fn in ("lloyd", "pairwise"):
-        raise not_ported(f"aggregation {fn!r}", _UNSTRUCTURED)
     raise ValueError(f"unrecognized aggregation method {fn!r}")
 
 

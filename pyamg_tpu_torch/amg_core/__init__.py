@@ -8,8 +8,11 @@ CSR-to-DIA conversion, and the pattern-restricted products, constraint
 projections and Gram matrices of the energy-minimization CG in scalar (CSR)
 and block (BSR) form; for classical AMG the Ruge-Stuben splitting, direct
 and standard interpolation, the evolution measure's steps and the batched
-tridiagonal solves of the line smoothers.  The source is ``csrc/amg_core.cpp``; ``_build.build_host``
-compiles it at first use into ``_build/`` (never beside the source).  Every
+tridiagonal solves of the line smoothers; for the Lloyd and pairwise
+aggregations Bellman-Ford from a seed set, breadth-first levels and the
+Drake path-growing matching.  The source is ``csrc/amg_core.cpp``;
+``_build.build_host`` compiles it at first use into ``_build/`` (never
+beside the source).  Every
 binding returns ``None`` (or ``False`` for the in-place sweeps) when the
 library is unavailable or the input is not what it takes, and the caller
 then runs its numpy/Python form: the package works without a toolchain.
@@ -41,7 +44,9 @@ __all__ = ["have_native", "standard_aggregation_native",
            "identity_minus_colscaled_native", "pattern_values_native",
            "evolution_nulldim1_native", "distance_filter_native",
            "evolution_epilogue_native", "direct_interpolation_native",
-           "standard_interpolation_native", "thomas_lines_native"]
+           "standard_interpolation_native", "thomas_lines_native",
+           "bellman_ford_native", "bfs_levels_native",
+           "drake_matching_native"]
 
 _lib = None
 
@@ -169,6 +174,13 @@ def _declare(lib):
             getattr(lib, name + sfx).restype = None
     lib.thomas_lines.argtypes = [_I, _I, _f64p, _f64p, _f64p, _f64p, _f64p]
     lib.thomas_lines.restype = None
+    lib.bellman_ford.argtypes = [_I, _i64p, _i64p, _f64p, _I, _i64p, _f64p,
+                                 _i64p]
+    lib.bfs_levels.argtypes = [_I, _i64p, _i64p, _I, _i64p, _i64p,
+                               ctypes.POINTER(_I)]
+    lib.drake_matching_core.argtypes = [_I, _i64p, _i64p, _f64p, _i64p]
+    for name in ("bellman_ford", "bfs_levels", "drake_matching_core"):
+        getattr(lib, name).restype = None
     for name in ("dia_offsets", "dia_offsets_i32",
                  "identity_minus_rowscaled", "identity_minus_rowscaled_i32",
                  "weak_axis_filter", "weak_axis_filter_i32",
@@ -742,3 +754,50 @@ def thomas_lines_native(dl, dm, du, R):
                                   for a in (dl, dm, du)), R,
                      np.empty_like(R))
     return True
+
+
+def bellman_ford_native(A, seeds):
+    """``(dist, nearest)``: shortest distances over the edge weights |A|
+    from the seed set, and the seed each node's path starts at (-1 where
+    none reaches); None without the library."""
+    lib = _load()
+    if not lib:
+        return None
+    n = A.shape[0]
+    Ap, Aj = _csr_arrays(A)
+    Ax = np.ascontiguousarray(np.abs(A.data), dtype=np.float64)
+    seeds = np.ascontiguousarray(seeds, dtype=np.int64)
+    dist = np.zeros(n, dtype=np.float64)
+    nearest = np.zeros(n, dtype=np.int64)
+    lib.bellman_ford(n, Ap, Aj, Ax, seeds.size, seeds, dist, nearest)
+    return dist, nearest
+
+
+def bfs_levels_native(A, seed):
+    """``(order, level)`` of a breadth-first search of A's graph from
+    ``seed`` (level -1 where unreached); None without the library."""
+    lib = _load()
+    if not lib:
+        return None
+    n = A.shape[0]
+    Ap, Aj = _csr_arrays(A)
+    level = np.zeros(n, dtype=np.int64)
+    order = np.zeros(n, dtype=np.int64)
+    cnt = _I(0)
+    lib.bfs_levels(n, Ap, Aj, int(seed), level, order, ctypes.byref(cnt))
+    return order[:cnt.value].copy(), level
+
+
+def drake_matching_native(A, weights=None):
+    """The partner of each node (-1: unmatched) in the Drake path-growing
+    matching over the weights (default |A|); None without the library."""
+    lib = _load()
+    if not lib:
+        return None
+    n = A.shape[0]
+    Ap, Aj = _csr_arrays(A)
+    w = np.ascontiguousarray(
+        np.abs(A.data) if weights is None else weights, dtype=np.float64)
+    match = np.zeros(n, dtype=np.int64)
+    lib.drake_matching_core(n, Ap, Aj, w, match)
+    return match

@@ -124,7 +124,8 @@ def _schwarz_terms(lvl, sm, power):
     A)."""
     idx = getattr(sm, "subdomain_idx", None)
     if idx is not None:
-        sizes = np.asarray((np.asarray(idx) >= 0).sum(axis=1), dtype=float)
+        idx = np.asarray(idx.cpu())             # the table lives on the card
+        sizes = (idx >= 0).sum(axis=1).astype(float)
     else:
         A = lvl.A_csr
         sizes = np.diff(A.indptr).astype(float)

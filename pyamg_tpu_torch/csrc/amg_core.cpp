@@ -34,13 +34,20 @@
 //   * direct_interpolation,    -- classical interpolation, one pass each
 //     standard_interpolation
 //   * thomas_lines             -- batched tridiagonal solves (line smoothers)
+//   * bellman_ford             -- shortest |weight| distances from a seed set
+//                                 (Lloyd aggregation)
+//   * bfs_levels               -- breadth-first levels from one seed
+//   * drake_matching_core      -- path-growing weighted matching (pairwise
+//                                 aggregation)
 //
 // Build: g++ -O3 -shared -fPIC -std=c++17 [-fopenmp] amg_core.cpp
 
 #include <algorithm>
 #include <cmath>
 #include <cstdint>
+#include <cstring>
 #include <limits>
+#include <queue>
 #include <vector>
 
 using I = int64_t;
@@ -1433,6 +1440,109 @@ I standard_interpolation_i32(I n, const int32_t* Ap, const int32_t* Aj,
 void thomas_lines(I nlines, I L, const double* dl, const double* dm,
                   const double* du, double* R, double* cp) {
     thomas_lines_impl(nlines, L, dl, dm, du, R, cp);
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// Greedy path-growing weighted matching (Drake and Hougardy): grow paths
+// from each start in turn along the heaviest edge to an unused node, taking
+// every other edge; two covers (starts ascending and descending), the
+// heavier kept.  match out: the partner, or -1.
+// ---------------------------------------------------------------------------
+static double grow_cover(I n, const I* Ap, const I* Aj, const double* w,
+                         const I* start_order, I* match) {
+    std::vector<char> used(n, 0);
+    std::fill(match, match + n, (I)-1);
+    double total = 0.0;
+    for (I t = 0; t < n; t++) {
+        I s = start_order[t];
+        if (used[s]) continue;
+        I x = s;
+        bool take = true;
+        while (true) {
+            used[x] = 1;
+            I best_j = -1;
+            double best_w = -1.0;
+            for (I kk = Ap[x]; kk < Ap[x + 1]; kk++) {
+                I j = Aj[kk];
+                if (j != x && !used[j] && w[kk] > best_w) {
+                    best_w = w[kk];
+                    best_j = j;
+                }
+            }
+            if (best_j < 0) break;
+            if (take) {
+                match[x] = best_j;
+                match[best_j] = x;
+                total += best_w;
+            }
+            take = !take;
+            x = best_j;
+        }
+    }
+    return total;
+}
+
+extern "C" {
+
+// Bellman-Ford (a FIFO of the nodes whose distance fell) from a seed set over
+// the edge weights |Ax|: dist out, and nearest out, the seed each node's
+// shortest path starts at (-1 where none reaches)
+void bellman_ford(I n, const I* Ap, const I* Aj, const double* Ax,
+                  I n_seeds, const I* seeds, double* dist, I* nearest) {
+    const double INF = std::numeric_limits<double>::infinity();
+    for (I i = 0; i < n; i++) { dist[i] = INF; nearest[i] = -1; }
+    std::queue<I> q;
+    std::vector<char> inq(n, 0);
+    for (I s = 0; s < n_seeds; s++) {
+        dist[seeds[s]] = 0.0;
+        nearest[seeds[s]] = seeds[s];
+        q.push(seeds[s]);
+        inq[seeds[s]] = 1;
+    }
+    while (!q.empty()) {
+        I i = q.front(); q.pop(); inq[i] = 0;
+        for (I jj = Ap[i]; jj < Ap[i + 1]; jj++) {
+            I j = Aj[jj];
+            double nd = dist[i] + std::fabs(Ax[jj]);
+            if (nd < dist[j]) {
+                dist[j] = nd;
+                nearest[j] = nearest[i];
+                if (!inq[j]) { q.push(j); inq[j] = 1; }
+            }
+        }
+    }
+}
+
+// breadth-first levels from one seed (-1 where unreached) and the visiting
+// order, *n_order entries of it
+void bfs_levels(I n, const I* Ap, const I* Aj, I seed, I* level, I* order,
+                I* n_order) {
+    std::fill(level, level + n, (I)-1);
+    I cnt = 0;
+    std::queue<I> q;
+    level[seed] = 0;
+    q.push(seed);
+    while (!q.empty()) {
+        I i = q.front(); q.pop();
+        order[cnt++] = i;
+        for (I jj = Ap[i]; jj < Ap[i + 1]; jj++) {
+            I j = Aj[jj];
+            if (level[j] < 0) { level[j] = level[i] + 1; q.push(j); }
+        }
+    }
+    *n_order = cnt;
+}
+
+void drake_matching_core(I n, const I* Ap, const I* Aj, const double* w,
+                         I* match) {
+    std::vector<I> fwd(n), bwd(n);
+    for (I i = 0; i < n; i++) { fwd[i] = i; bwd[i] = n - 1 - i; }
+    std::vector<I> m1(n), m2(n);
+    double t1 = grow_cover(n, Ap, Aj, w, fwd.data(), m1.data());
+    double t2 = grow_cover(n, Ap, Aj, w, bwd.data(), m2.data());
+    std::memcpy(match, (t1 >= t2) ? m1.data() : m2.data(), sizeof(I) * n);
 }
 
 }  // extern "C"

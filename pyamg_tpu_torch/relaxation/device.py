@@ -6,12 +6,12 @@ multicolor Gauss-Seidel in mask form (one full matvec per color: cheap on
 DIA levels) and in gather form (each row of the matrix touched once per
 sweep: for padded-ELL levels), multicolor SOR, block Jacobi and multicolor
 block Gauss-Seidel, with forward, backward and symmetric sweeps, and the
-scalar line smoothers (line Jacobi and zebra line Gauss-Seidel: every line
-of a grid solved at once by parallel cyclic reduction), Jacobi on the
-normal equations (NE and NR) and the Krylov smoothers (CG, GMRES, CGNR,
-CGNE at a fixed depth).  Every step is a matvec, or a gather, plus vector
-updates.  The Schwarz and node-blocked line smoothers are not ported yet
-and raise.
+line smoothers (line Jacobi and zebra line Gauss-Seidel: every line of a
+grid solved at once by parallel cyclic reduction, with q x q node blocks on
+a level of q dofs a node), Jacobi on the normal equations (NE and NR), the
+Krylov smoothers (CG, GMRES, CGNR, CGNE at a fixed depth) and additive
+overlapping Schwarz.  Every step is a matvec, or a gather, plus vector
+updates.
 """
 
 from __future__ import annotations
@@ -21,12 +21,13 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..util.utils import not_ported, torch_dtype
+from ..util.utils import torch_dtype
 
 __all__ = ["SmootherData", "jacobi_step", "richardson_step",
            "polynomial_step", "multicolor_gs_step",
            "multicolor_gs_gather_step", "block_jacobi_step",
-           "batched_tridiag_pcr", "line_relaxation_step",
+           "batched_tridiag_pcr", "batched_block_tridiag_pcr",
+           "line_relaxation_step", "schwarz_step",
            "krylov_smoother_step", "jacobi_ne_step", "jacobi_nr_step",
            "cgnr_smoother_step", "cgne_smoother_step", "apply_smoother"]
 
@@ -49,7 +50,8 @@ class SmootherData:
     color_cols: Optional[torch.Tensor] = None    # (C, R, W)
     color_data: Optional[torch.Tensor] = None    # (C, R, W)
     # line smoothers: (3, nlines, L) sub-, main and super-diagonal of the
-    # lines along grid axis ``line_axis``
+    # lines along grid axis ``line_axis``; (3, q, q, nlines, L) node blocks
+    # on a level of q dofs a node
     line_tri: Optional[torch.Tensor] = None
     grid: Optional[Tuple[int, ...]] = None
     line_axis: int = 0
@@ -57,6 +59,14 @@ class SmootherData:
     # the inverted squared row (NE) or column (NR) norms of A
     AT: Optional[object] = None
     dinv_ne: Optional[torch.Tensor] = None
+    # Schwarz: (n_dom, L) subdomain dofs (-1 padded), (n_dom, L, L)
+    # inverses, and each dof's slots in the flattened (n_dom * L)
+    # corrections, padded with n_dom * L (an appended zero), with the
+    # inverse of their count
+    subdomain_idx: Optional[torch.Tensor] = None
+    subdomain_inv: Optional[torch.Tensor] = None
+    dof_slots: Optional[torch.Tensor] = None
+    dof_weight: Optional[torch.Tensor] = None
 
     def astype(self, dtype):
         """This state with every floating-point array cast to ``dtype``
@@ -71,7 +81,9 @@ class SmootherData:
                        color_data=cast(self.color_data),
                        line_tri=cast(self.line_tri),
                        AT=None if self.AT is None else self.AT.astype(dtype),
-                       dinv_ne=cast(self.dinv_ne))
+                       dinv_ne=cast(self.dinv_ne),
+                       subdomain_inv=cast(self.subdomain_inv),
+                       dof_weight=cast(self.dof_weight))
 
 
 def jacobi_step(A, dinv, x, b, omega=1.0):
@@ -171,15 +183,100 @@ def batched_tridiag_pcr(dl, d, du, B):
     return B / d
 
 
+def _binv_small(M):
+    """Inverses of the q x q blocks of ``M`` (q, q, ...), block indices
+    leading: the adjugate in closed form for q <= 3 (elementwise work over
+    the whole batch), ``torch.linalg.inv`` on the moved axes otherwise."""
+    q = M.shape[0]
+    if q == 1:
+        return 1.0 / M
+    if q == 2:
+        a, b, c, d = M[0, 0], M[0, 1], M[1, 0], M[1, 1]
+        det = a * d - b * c
+        return torch.stack([torch.stack([d, -b]),
+                            torch.stack([-c, a])]) / det
+    if q == 3:
+        m = [[M[i, j] for j in range(3)] for i in range(3)]
+
+        def cof(i1, i2, j1, j2):
+            return m[i1][j1] * m[i2][j2] - m[i1][j2] * m[i2][j1]
+
+        c00, c01, c02 = cof(1, 2, 1, 2), -cof(1, 2, 0, 2), cof(1, 2, 0, 1)
+        c10, c11, c12 = -cof(0, 2, 1, 2), cof(0, 2, 0, 2), -cof(0, 2, 0, 1)
+        c20, c21, c22 = cof(0, 1, 1, 2), -cof(0, 1, 0, 2), cof(0, 1, 0, 1)
+        det = m[0][0] * c00 + m[0][1] * c01 + m[0][2] * c02
+        return torch.stack([torch.stack([c00, c10, c20]),
+                            torch.stack([c01, c11, c21]),
+                            torch.stack([c02, c12, c22])]) / det
+    Mt = torch.movedim(M, (0, 1), (-2, -1))
+    return torch.movedim(torch.linalg.inv(Mt), (-2, -1), (0, 1))
+
+
+def _bmm(X, Y):
+    """Blockwise X Y of (q, q, ...) blocks, block indices leading, as
+    elementwise products and a sum (no matrix-multiply unit, whose
+    reduced-precision modes would break the exact cancellations of the
+    cyclic reduction)."""
+    return (X.unsqueeze(2) * Y.unsqueeze(0)).sum(dim=1)
+
+
+def _bmv(X, v):
+    """Blockwise X v of (q, q, ...) blocks and (q, ...) vectors."""
+    return (X * v.unsqueeze(0)).sum(dim=1)
+
+
+def batched_block_tridiag_pcr(dl, d, du, B):
+    """Solve the block-tridiagonal systems ``(dl, d, du) x = B``, one per
+    line, by parallel cyclic reduction with q x q block algebra: log2(L)
+    rounds, as :func:`batched_tridiag_pcr`.  Component layout: ``dl``,
+    ``d``, ``du`` (q, q, nlines, L) and ``B`` (q, nlines, L).  Neighbours
+    beyond a line's end are identity blocks (diagonal) or zero blocks."""
+    q, L = d.shape[0], d.shape[-1]
+    eye = torch.eye(q, dtype=d.dtype, device=d.device)[:, :, None, None]
+
+    def shift(a, s, eye_fill=False):
+        # a[..., i + s], identity or zero blocks beyond the ends
+        shape = a.shape[:-1] + (abs(s),)
+        pad = (eye.expand(shape) if eye_fill
+               else torch.zeros(shape, dtype=a.dtype, device=a.device))
+        if s > 0:
+            return torch.cat([a[..., s:], pad], dim=-1)
+        return torch.cat([pad, a[..., :s]], dim=-1)
+
+    s = 1
+    while s < L:
+        alpha = -_bmm(dl, _binv_small(shift(d, -s, True)))
+        beta = -_bmm(du, _binv_small(shift(d, s, True)))
+        d = d + _bmm(alpha, shift(du, -s)) + _bmm(beta, shift(dl, s))
+        B = B + _bmv(alpha, shift(B, -s)) + _bmv(beta, shift(B, s))
+        dl = _bmm(alpha, shift(dl, -s))
+        du = _bmm(beta, shift(du, s))
+        s *= 2
+    return _bmv(_binv_small(d), B)
+
+
 def line_relaxation_step(A, sm: SmootherData, x, b, zebra_phase=None):
     """One damped line-Jacobi step (``zebra_phase`` None), or one zebra
     half-sweep over the even (0) or odd (1) lines: exact solves of the
-    residual along the lines of ``sm.line_axis``."""
-    if sm.line_tri.dim() != 3:
-        raise not_ported("node-blocked line relaxation",
-                         "multicolor GS/SOR/block smoothers")
+    residual along the lines of ``sm.line_axis``.  A 5-D ``line_tri``
+    marks a level of q dofs a node, whose lines are block-tridiagonal."""
     grid = sm.grid
     axis = sm.line_axis % len(grid)
+    if sm.line_tri.dim() == 5:
+        q, L = sm.line_tri.shape[1], sm.line_tri.shape[-1]
+        Rg = torch.movedim((b - A.matvec(x)).reshape(tuple(grid) + (q,)),
+                           axis, len(grid) - 1)
+        lead = Rg.shape[:-2]
+        dx = batched_block_tridiag_pcr(
+            sm.line_tri[0], sm.line_tri[1], sm.line_tri[2],
+            torch.movedim(Rg.reshape(-1, L, q), -1, 0))
+        if zebra_phase is not None:
+            keep = torch.arange(dx.shape[1], device=dx.device) % 2 \
+                == zebra_phase
+            dx = dx * keep[None, :, None].to(dx.dtype)
+        dxg = torch.movedim(torch.movedim(dx, 0, -1).reshape(lead + (L, q)),
+                            len(grid) - 1, axis)
+        return x + sm.omega * dxg.reshape(-1)
     Rg = torch.movedim((b - A.matvec(x)).reshape(grid), axis, -1)
     lead = Rg.shape[:-1]
     dx = batched_tridiag_pcr(sm.line_tri[0], sm.line_tri[1], sm.line_tri[2],
@@ -189,6 +286,23 @@ def line_relaxation_step(A, sm: SmootherData, x, b, zebra_phase=None):
         dx = dx * keep[:, None].to(dx.dtype)
     dxg = torch.movedim(dx.reshape(lead + (dx.shape[-1],)), -1, axis)
     return x + sm.omega * dxg.reshape(-1)
+
+
+def schwarz_step(A, sm: SmootherData, x, b):
+    """One weighted additive overlapping Schwarz step: every subdomain
+    solves its residual with its dense inverse at once, and each dof takes
+    the mean of the corrections of the subdomains that hold it (the JAX
+    package's partition-of-unity weighting).  The corrections are summed
+    by a gather through ``sm.dof_slots`` in a fixed order, so the step
+    is the same in every run."""
+    r = b - A.matvec(x)
+    idx = sm.subdomain_idx
+    valid = (idx >= 0).to(r.dtype)
+    r_loc = r[idx.clamp(min=0)] * valid
+    dx_loc = (sm.subdomain_inv * r_loc.unsqueeze(1)).sum(dim=2) * valid
+    flat = torch.cat([dx_loc.reshape(-1), dx_loc.new_zeros(1)])
+    dx = flat[sm.dof_slots].sum(dim=1) * sm.dof_weight
+    return x + sm.omega * dx
 
 
 def _safe(d):
@@ -341,7 +455,8 @@ def apply_smoother(sm: SmootherData, A, x, b):
             x = cgnr_smoother_step(A, sm.AT, x, b, iterations=2)
         elif sm.kind == "cgne_smoother":
             x = cgne_smoother_step(A, sm.AT, x, b, iterations=2)
+        elif sm.kind == "schwarz":
+            x = schwarz_step(A, sm, x, b)
         else:
-            raise not_ported(f"smoother kind {sm.kind!r}",
-                             "multicolor GS/SOR/block smoothers")
+            raise ValueError(f"unknown smoother kind {sm.kind!r}")
     return x

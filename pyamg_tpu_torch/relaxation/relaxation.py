@@ -6,7 +6,8 @@ Port of ``make_system``, ``gauss_seidel``, ``jacobi``, ``sor``,
 ``gauss_seidel_ne`` (Kaczmarz; compiled where ``amg_core`` loaded) and
 ``gauss_seidel_nr``, and the scalar line relaxations ``zebra``,
 ``line_gauss_seidel`` and ``line_jacobi`` (exact tridiagonal solves along
-one grid axis; compiled Thomas solves where ``amg_core`` loaded) from
+one grid axis; compiled Thomas solves where ``amg_core`` loaded), and
+multiplicative overlapping Schwarz with its ``schwarz_parameters`` from
 ``pyamg_tpu/relaxation/relaxation.py``.  They
 serve the setup phase (``improve_candidates``), the iterative coarse
 solvers and, in the tests, the lexicographic oracle of the device
@@ -31,7 +32,8 @@ from ..util.utils import get_block_diag, to_csr
 __all__ = ["make_system", "sor", "gauss_seidel", "jacobi", "polynomial",
            "block_jacobi", "block_gauss_seidel", "gauss_seidel_indexed",
            "jacobi_ne", "gauss_seidel_ne", "gauss_seidel_nr",
-           "zebra", "line_gauss_seidel", "line_jacobi"]
+           "zebra", "line_gauss_seidel", "line_jacobi",
+           "schwarz_parameters", "schwarz"]
 
 _SWEEPS = ("forward", "backward", "symmetric")
 
@@ -462,4 +464,93 @@ def line_jacobi(A, x, b, iterations=1, grid=None, axis=None, omega=0.7):
     lines, unlines, solve_lines, _phase = _line_setup(A, grid, axis)
     for _ in range(iterations):
         x_v += omega * unlines(solve_lines(lines(b_v - A @ x_v)))
+    return _store(x, x_v)
+
+
+# entries of the dense subblocks gathered at once in schwarz_parameters
+_SUBBLOCK_CHUNK = 1 << 23
+
+
+def subdomain_groups(sizes):
+    """``(size, domains)`` for each distinct nonzero subdomain size, the
+    domains of that size in ascending order."""
+    sizes = np.asarray(sizes)
+    return [(int(s), np.flatnonzero(sizes == s))
+            for s in np.unique(sizes) if s > 0]
+
+
+def _dense_subblocks(A, idx):
+    """``A[np.ix_(i, i)]`` for every row ``i`` of the (count, s) index
+    array, as a (count, s, s) stack: each entry is looked up in A's
+    summed, sorted pattern (absent entries are 0)."""
+    if A.nnz == 0:
+        return np.zeros(idx.shape + idx.shape[-1:], dtype=A.dtype)
+    m = A.shape[1]
+    rows = np.repeat(np.arange(A.shape[0], dtype=np.int64), np.diff(A.indptr))
+    keys = rows * m + A.indices
+    q = idx[:, :, None].astype(np.int64) * m + idx[:, None, :]
+    pos = np.minimum(np.searchsorted(keys, q), keys.size - 1)
+    return np.where(keys[pos] == q, A.data[pos], 0).astype(A.dtype,
+                                                          copy=False)
+
+
+def schwarz_parameters(A, subdomain=None, subdomain_ptr=None,
+                       inv_subblock=None, inv_subblock_ptr=None):
+    """Overlapping-Schwarz subdomains and the pseudo-inverses of their
+    dense subblocks of A, as the JAX package computes them: by default the
+    subdomain of row i is its pattern (A's own ``indices``), and the
+    inverses are ``np.linalg.pinv`` of ``A[np.ix_(idx, idx)]``.
+
+    Returns ``(subdomain, subdomain_ptr, inv_subblock, inv_subblock_ptr)``:
+    flat arrays, each inverse row-major at ``inv_subblock_ptr[i]``.  The
+    subblocks are gathered for all domains of one size at once, and their
+    pseudo-inverses taken on the stack."""
+    A = to_csr(A)
+    n = A.shape[0]
+    if subdomain is None or subdomain_ptr is None:
+        subdomain_ptr = A.indptr.copy()
+        subdomain = A.indices.copy()
+    if inv_subblock is None or inv_subblock_ptr is None:
+        sizes = np.diff(subdomain_ptr).astype(np.int64)
+        inv_subblock_ptr = np.zeros(n + 1, dtype=np.int64)
+        inv_subblock_ptr[1:] = np.cumsum(sizes ** 2)
+        inv_subblock = np.zeros(int(inv_subblock_ptr[-1]), dtype=A.dtype)
+        Ac = A.copy()
+        Ac.sum_duplicates()
+        for s, doms in subdomain_groups(sizes):
+            step = max(_SUBBLOCK_CHUNK // (s * s), 1)
+            for lo in range(0, doms.size, step):
+                d = doms[lo:lo + step]
+                idx = subdomain[subdomain_ptr[d][:, None] + np.arange(s)]
+                inv = np.linalg.pinv(_dense_subblocks(Ac, idx))
+                inv_subblock[inv_subblock_ptr[d][:, None]
+                             + np.arange(s * s)] = inv.reshape(d.size, -1)
+    return subdomain, subdomain_ptr, inv_subblock, inv_subblock_ptr
+
+
+def schwarz(A, x, b, iterations=1, subdomain=None, subdomain_ptr=None,
+            inv_subblock=None, inv_subblock_ptr=None, sweep="forward"):
+    """Multiplicative overlapping Schwarz, in place: each subdomain in turn
+    (forward, backward, or both) corrects its dofs by its inverse times its
+    residual."""
+    A, x_v, b_v = make_system(A, x, b)
+    A = A.tocsr()
+    _check_sweep(sweep)
+    subdomain, subdomain_ptr, inv_subblock, inv_subblock_ptr = \
+        schwarz_parameters(A, subdomain, subdomain_ptr, inv_subblock,
+                           inv_subblock_ptr)
+    indptr, cols, data = A.indptr, A.indices, A.data
+
+    def one_pass(order):
+        for i in order:
+            idx = subdomain[subdomain_ptr[i]:subdomain_ptr[i + 1]]
+            m = idx.size
+            Binv = inv_subblock[inv_subblock_ptr[i]:
+                                inv_subblock_ptr[i + 1]].reshape(m, m)
+            r = np.array([b_v[j] - data[indptr[j]:indptr[j + 1]]
+                          @ x_v[cols[indptr[j]:indptr[j + 1]]]
+                          for j in idx], dtype=x_v.dtype)
+            x_v[idx] += Binv @ r
+
+    _ordered_passes(one_pass, subdomain_ptr.shape[0] - 1, iterations, sweep)
     return _store(x, x_v)

@@ -3,9 +3,11 @@
 Port of ``pyamg_tpu/relaxation/smoothing.py`` for jacobi, richardson,
 chebyshev and polynomial smoothing, multicolor Gauss-Seidel and SOR, block
 Jacobi and block Gauss-Seidel, the scalar line smoothers (line Jacobi,
-zebra; on a level without a grid, multicolor Gauss-Seidel), Jacobi on the
-normal equations (``jacobi_ne``, ``gauss_seidel_ne``, ``gauss_seidel_nr``)
-and the Krylov smoothers (``cg``, ``gmres``, ``cgne``, ``cgnr``).  Sequential
+zebra; on a level without a grid, multicolor Gauss-Seidel; block-tridiagonal
+lines on a grid level with several dofs a node), Jacobi on the normal
+equations (``jacobi_ne``, ``gauss_seidel_ne``, ``gauss_seidel_nr``), the
+Krylov smoothers (``cg``, ``gmres``, ``cgne``, ``cgnr``) and additive
+overlapping Schwarz (``schwarz``, ``strength_based_schwarz``).  Sequential
 methods run as their multicolor form: the colors are geometric on a
 structured grid (2, or 2^d for a full 3^d stencil) and greedy first-fit
 otherwise; a level whose operator is padded ELL gets the gather arrays of
@@ -25,13 +27,13 @@ import torch
 from ..amg_core import have_native
 from ..util.linalg import approximate_spectral_radius
 from ..util.utils import (amalgamate, get_block_diag,
-                          levelize_smooth_or_improve_candidates, not_ported,
-                          numpy_dtype, unpack_arg)
+                          levelize_smooth_or_improve_candidates, numpy_dtype,
+                          unpack_arg)
 from .chebyshev import chebyshev_polynomial_coefficients
 from .device import SmootherData
 
 __all__ = ["change_smoothers", "rho_D_inv_A", "rho_block_D_inv_A",
-           "make_smoother_data", "gather_form_bytes"]
+           "make_smoother_data", "gather_form_bytes", "schwarz_dof_slots"]
 
 DEFAULT_SWEEP = "forward"
 DEFAULT_NITER = 1
@@ -341,8 +343,11 @@ def _make_smoother_data(lvl, fn_name, kwargs, dtype, device):
         n = A_csr.shape[0]
         q = max(getattr(lvl, "blocksize", 1), 1)
         if grid is not None and q > 1 and int(np.prod(grid)) * q == n:
-            raise not_ported(f"node-blocked smoother {fn_name!r}",
-                             "multicolor GS/SOR/block smoothers")
+            # q dofs a grid node (the coarse levels of a K-candidate
+            # hierarchy): block-tridiagonal lines, so that the level stays
+            # line-relaxed as the semicoarsening above it needs
+            return _block_line_data(A_csr, tuple(int(g) for g in grid), q,
+                                    fn_name, iterations, sweep, kwargs, dev)
         if grid is None or int(np.prod(grid)) != n:
             # a level without its grid (every coarse level of classical
             # AMG): multicolor Gauss-Seidel, which needs no geometry
@@ -408,9 +413,106 @@ def _make_smoother_data(lvl, fn_name, kwargs, dtype, device):
                             iterations=max(iterations, 1), AT=AT)
 
     if fn_name in ("schwarz", "strength_based_schwarz"):
-        raise not_ported(f"smoother {fn_name!r}",
-                         "multicolor GS/SOR/block smoothers")
+        # strength_based_schwarz takes A's rows too: the JAX package
+        # computes a strength matrix for it and never reads it
+        return _schwarz_data(A_csr, iterations, kwargs, dev)
     raise ValueError(f"unknown smoother {fn_name!r}")
+
+
+def _block_line_data(A_csr, grid, q, fn_name, iterations, sweep, kwargs,
+                     dev) -> SmootherData:
+    """Line-smoother state of a node-blocked grid level (q dofs a node):
+    ``line_tri`` (3, q, q, nlines, L), the sub-, main and super-diagonal
+    node blocks of the lines along the strong axis, in the JAX package's
+    component layout (block indices leading).  A dof whose rows are all
+    zero (an eliminated adaptive-SA candidate) gets a 1 on its diagonal,
+    so that every node block stays invertible; its residual is 0, so its
+    update is too."""
+    nb = int(np.prod(grid))
+    A_bsr = A_csr.tobsr(blocksize=(q, q))
+    A_bsr.sort_indices()
+    strides = _grid_strides(grid)
+    axis = kwargs.get("axis")
+    if axis is None:        # the strongest same-dof coupling direction
+        axis = int(np.argmax([np.abs(A_csr.diagonal(st * q)).sum()
+                              for st in strides]))
+    axis = axis % len(grid)
+    stride = strides[axis]
+    L = grid[axis]
+    brows = np.repeat(np.arange(nb), np.diff(A_bsr.indptr))
+    delta = A_bsr.indices - brows
+    blocks = {}
+    for name, want in (("d", 0), ("du", stride), ("dl", -stride)):
+        blocks[name] = np.zeros((nb, q, q), dtype=A_csr.dtype)
+        m = delta == want
+        blocks[name][brows[m]] = A_bsr.data[m]
+    d, du, dl = blocks["d"], blocks["du"], blocks["dl"]
+    coords = np.unravel_index(np.arange(nb), grid)
+    du[coords[axis] == L - 1] = 0.0
+    dl[coords[axis] == 0] = 0.0
+    rowmass = (np.abs(d).sum(axis=2) + np.abs(du).sum(axis=2)
+               + np.abs(dl).sum(axis=2))
+    nz_n, nz_q = np.nonzero(rowmass == 0)
+    d[nz_n, nz_q, nz_q] = 1.0
+
+    def lines(blk):         # (nlines, L, q, q), the line axis innermost
+        g = np.moveaxis(blk.reshape(grid + (q, q)), axis, len(grid) - 1)
+        return g.reshape(-1, L, q, q)
+
+    tri = np.stack([lines(dl), lines(d), lines(du)]).transpose(0, 3, 4, 1, 2)
+    omega = float(kwargs.get("omega",
+                             0.7 if fn_name == "line_jacobi" else 1.0))
+    return SmootherData(kind="line_jacobi" if fn_name == "line_jacobi"
+                        else "zebra", iterations=iterations, sweep=sweep,
+                        omega=omega, line_tri=dev(np.ascontiguousarray(tri)),
+                        grid=grid, line_axis=axis)
+
+
+def schwarz_dof_slots(idx, n):
+    """``(dof_slots, dof_weight)`` of a (n_dom, L) subdomain table (-1
+    padded) over n dofs: each dof's positions in the flattened table, in
+    ascending order, padded with n_dom * L; and the inverse of their count
+    (1 for a dof in no subdomain)."""
+    flat = np.flatnonzero(idx.ravel() >= 0)
+    dofs = idx.ravel()[flat]
+    order = np.argsort(dofs, kind="stable")
+    counts = np.bincount(dofs, minlength=n)
+    M = max(int(counts.max()) if counts.size else 0, 1)
+    rank = np.arange(flat.size) - np.repeat(np.cumsum(counts) - counts,
+                                            counts)
+    slots = np.full((n, M), idx.size, dtype=np.int64)
+    slots[dofs[order], rank] = flat[order]
+    return slots, 1.0 / np.maximum(counts, 1)
+
+
+def _schwarz_data(A_csr, iterations, kwargs, dev) -> SmootherData:
+    """Additive Schwarz state: the (n_dom, L) subdomain table (-1 padded),
+    the (n_dom, L, L) inverses, and for each dof its slots in the flattened
+    (n_dom * L) corrections (``dof_slots``, padded with the index of an
+    appended zero) with the inverse of their count (``dof_weight``), so
+    that the step sums each dof's corrections by a gather in a fixed
+    order."""
+    from .relaxation import schwarz_parameters, subdomain_groups
+
+    sub, sub_ptr, inv, inv_ptr = schwarz_parameters(
+        A_csr, kwargs.get("subdomain"), kwargs.get("subdomain_ptr"),
+        kwargs.get("inv_subblock"), kwargs.get("inv_subblock_ptr"))
+    n = A_csr.shape[0]
+    n_dom = sub_ptr.shape[0] - 1
+    sizes = np.diff(sub_ptr).astype(np.int64)
+    L = int(sizes.max()) if n_dom else 1
+    idx = np.full((n_dom, L), -1, dtype=np.int64)
+    binv = np.zeros((n_dom, L, L), dtype=A_csr.dtype)
+    for s, doms in subdomain_groups(sizes):
+        idx[doms, :s] = sub[sub_ptr[doms][:, None] + np.arange(s)]
+        binv[doms, :s, :s] = inv[inv_ptr[doms][:, None]
+                                 + np.arange(s * s)].reshape(-1, s, s)
+    slots, weight = schwarz_dof_slots(idx, n)
+    return SmootherData(kind="schwarz", iterations=iterations,
+                        omega=float(kwargs.get("omega", 1.0)),
+                        subdomain_idx=dev(idx, None),
+                        subdomain_inv=dev(binv), dof_slots=dev(slots, None),
+                        dof_weight=dev(weight.astype(A_csr.dtype)))
 
 
 def change_smoothers(ml, presmoother, postsmoother):

@@ -30,8 +30,11 @@ is banded, else ``device_operator``'s form.
 A smoother dict holds ``kind`` and whichever of ``iterations``, ``sweep``,
 ``omega``, ``coefficients``, ``blocksize``, ``grid``, ``line_axis`` and the
 arrays ``dinv``, ``color_masks``, ``block_dinv``, ``color_rows``,
-``color_cols``, ``color_data``, ``line_tri`` that kind uses.  ``coarse`` is
-the coarsest level's dense pseudoinverse.
+``color_cols``, ``color_data``, ``line_tri`` (3-D, or 5-D for the
+block-tridiagonal lines of a level of q dofs a node), ``subdomain_idx``
+and ``subdomain_inv`` (Schwarz: each dof's correction slots are derived
+from the subdomain table) that kind uses.  ``coarse`` is the coarsest
+level's dense pseudoinverse.
 
 :func:`ell_hierarchy_from_numpy` does the same for the padded-ELL
 hierarchies of the general device setup (``parallel.setup``): every
@@ -48,6 +51,7 @@ from ..classical.classical import _device_transfers
 from ..multilevel import Level, MultilevelSolver
 from ..parallel.sharding import ShardedSolver
 from ..relaxation.device import SmootherData
+from ..relaxation.smoothing import schwarz_dof_slots
 from ..sparse import (ComposedOp, CptProlongOp, CptRestrictOp, DenseOp,
                       GridPoolOp, GridRepeatOp, SparseDIA, SparseELL)
 from .utils import numpy_dtype, torch_dtype
@@ -69,12 +73,15 @@ def _loaders(device, dtype):
     return tensor, index
 
 
-def _smoother(s, tensor, index):
-    """SmootherData from a smoother dict (layout in the module
-    docstring)."""
+def _smoother(s, n, tensor, index):
+    """SmootherData of a level of n dofs from a smoother dict (layout in
+    the module docstring)."""
     def opt(key, load=tensor):
         return None if s.get(key) is None else load(s[key])
 
+    slots = weight = None
+    if s.get("subdomain_idx") is not None:
+        slots, weight = schwarz_dof_slots(np.asarray(s["subdomain_idx"]), n)
     return SmootherData(kind=s["kind"], iterations=int(s.get("iterations", 1)),
                         sweep=s.get("sweep", "forward"),
                         omega=float(s.get("omega", 1.0)), dinv=opt("dinv"),
@@ -89,7 +96,12 @@ def _smoother(s, tensor, index):
                         line_tri=opt("line_tri"),
                         grid=None if s.get("grid") is None
                         else tuple(int(g) for g in s["grid"]),
-                        line_axis=int(s.get("line_axis", 0)))
+                        line_axis=int(s.get("line_axis", 0)),
+                        subdomain_idx=opt("subdomain_idx", index),
+                        subdomain_inv=opt("subdomain_inv"),
+                        dof_slots=None if slots is None else index(slots),
+                        dof_weight=None if weight is None
+                        else tensor(weight))
 
 
 def _operator(d, tensor, index):
@@ -143,8 +155,10 @@ def hierarchy_from_numpy(levels, coarse, device, dtype):
                 spec["P_csr"], spec["R_csr"], spec["splitting"], dtype,
                 device)
         if "presmoother" in spec:
-            lvl.presmoother = _smoother(spec["presmoother"], tensor, index)
-            lvl.postsmoother = _smoother(spec["postsmoother"], tensor, index)
+            n = lvl.A.shape[0]
+            lvl.presmoother = _smoother(spec["presmoother"], n, tensor, index)
+            lvl.postsmoother = _smoother(spec["postsmoother"], n, tensor,
+                                         index)
         out.append(lvl)
     ml = MultilevelSolver(out, device=device)
     ml._op_dtype = torch_dtype(dtype)
@@ -165,8 +179,9 @@ def ell_hierarchy_from_numpy(levels, sizes, n_orig, coarse, device, dtype):
         if "P" in spec:
             lvl.P = _operator(spec["P"], tensor, index)
             lvl.R = _operator(spec["R"], tensor, index)
-        lvl.presmoother = _smoother(spec["presmoother"], tensor, index)
-        lvl.postsmoother = _smoother(spec["postsmoother"], tensor, index)
+        n = lvl.A.shape[0]
+        lvl.presmoother = _smoother(spec["presmoother"], n, tensor, index)
+        lvl.postsmoother = _smoother(spec["postsmoother"], n, tensor, index)
         out.append(lvl)
     return ShardedSolver.from_sharded_levels(out, sizes, n_orig, device,
                                              coarse=tensor(coarse))

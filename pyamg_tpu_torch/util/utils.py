@@ -450,16 +450,12 @@ _HOST_RELAXATIONS = frozenset([
 def host_relaxation(method):
     """``(function, kwargs)`` of a smoother option on the host
     (``relaxation.relaxation``): a name the JAX package has no host
-    relaxation for means symmetric Gauss-Seidel, as there; a host
-    relaxation the port lacks raises ``NotImplementedError``."""
+    relaxation for means symmetric Gauss-Seidel, as there."""
     from ..relaxation import relaxation as rel
 
     fn_name, kwargs = unpack_arg(method)
     if fn_name not in _HOST_RELAXATIONS:
         fn_name, kwargs = "gauss_seidel", {"sweep": "symmetric"}
-    if not hasattr(rel, fn_name):
-        raise not_ported(f"host relaxation {fn_name!r}",
-                         "multicolor GS/SOR/block smoothers")
     return getattr(rel, fn_name), dict(kwargs)
 
 

@@ -166,9 +166,11 @@ def test_bridge_rows_and_host_relaxation_match_jax():
     J.grid = A.grid
     ref = _jax(jax_adaptive._relax_zero, J, x0.copy(), "gauss_seidel_nr", 1)
     np.testing.assert_allclose(ours, ref, rtol=1e-12, atol=1e-14)
-    # a host relaxation of the JAX package that the port lacks raises
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        adaptive._relax_zero(A, x0.copy(), "schwarz", 1)
+    # schwarz raised here until the smoother-menu slice ported the host
+    # multiplicative Schwarz: it now relaxes as the JAX package's
+    ours = adaptive._relax_zero(A, x0.copy(), "schwarz", 1)
+    ref = _jax(jax_adaptive._relax_zero, J, x0.copy(), "schwarz", 1)
+    np.testing.assert_allclose(ours, ref, rtol=1e-12, atol=1e-14)
 
 
 def test_intermediate_hierarchies_stay_on_the_host(monkeypatch):

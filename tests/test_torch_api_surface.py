@@ -29,8 +29,6 @@ from test_api_surface import REFERENCE_SURFACE
 
 ROADMAP = (Path(__file__).resolve().parents[1] / "ROADMAP.md").read_text()
 
-CHAIN = "the unstructured SA chain"
-SMOOTHERS = "multicolor GS/SOR/block smoothers"
 CONSTRUCTORS = "the other constructors"
 DEVICE_SETUP = "device setup"
 DISTRIBUTED = "the distributed path"
@@ -39,36 +37,21 @@ BY_DESIGN = "Not ported by design"
 # (reference module, name) -> the ROADMAP.md item that ports it
 TO_PORT = {
     ("pyamg_tpu", "vis"): CONSTRUCTORS,
-    **{("pyamg_tpu.aggregation", n): CHAIN
-       for n in ("matching", "lloyd_aggregation", "pairwise_aggregation")},
     **{("pyamg_tpu.aggregation", n): CONSTRUCTORS
        for n in ("asa_solver", "tl_sa_solver", "newideal_solver",
                  "ben_ideal_interpolation")},
     ("pyamg_tpu.aggregation", "structured_sa_setup"): DEVICE_SETUP,
-    **{("pyamg_tpu.aggregation.aggregate", n): CHAIN
-       for n in ("lloyd_aggregation", "pairwise_aggregation")},
-    **{("pyamg_tpu.aggregation.matching", n): CHAIN
-       for n in ("preis_matching_1999", "drake_matching",
-                 "notay_matching_2010")},
     **{("pyamg_tpu.aggregation.new_adaptive", n): CONSTRUCTORS
        for n in ("A_norm", "my_rand", "tl_sa_solver")},
     ("pyamg_tpu.aggregation.rootnode_nii", "newideal_solver"): CONSTRUCTORS,
     ("pyamg_tpu.aggregation.tentative", "ben_ideal_interpolation"):
         CONSTRUCTORS,
-    **{("pyamg_tpu.amg_core", n): CHAIN
-       for n in ("bellman_ford_native", "bfs_levels_native",
-                 "drake_matching_native")},
-    **{("pyamg_tpu.graph", n): CHAIN
-       for n in ("maximal_independent_set", "bellman_ford",
-                 "lloyd_cluster")},
     ("pyamg_tpu.graph", "connected_components"): CONSTRUCTORS,
     **{("pyamg_tpu.parallel", n): DISTRIBUTED
        for n in ("make_mesh", "shard_solver")},
     **{("pyamg_tpu.parallel", n): DEVICE_SETUP
        for n in ("shard_structured_solver", "StructuredShardedSolver",
                  "structured_sa_setup_sharded")},
-    **{("pyamg_tpu.relaxation", n): SMOOTHERS
-       for n in ("schwarz", "mls_polynomial_coefficients")},
     **{("pyamg_tpu.sparse", n): CONSTRUCTORS
        for n in ("count_diagonals", "spgemm", "rap", "transpose")},
     **{("pyamg_tpu.util", n): CONSTRUCTORS

@@ -572,14 +572,24 @@ def test_pcr_solves_the_lines_and_node_blocked_lines_raise():
     assert amg_core.thomas_lines_native(dl, d, du, R)
     np.testing.assert_allclose(x.numpy(), R, rtol=1e-10, atol=1e-12)
 
+    import pyamg_tpu.relaxation.smoothing as jax_smoothing
+    from pyamg_tpu.multilevel import Level as JaxLevel
     from pyamg_tpu_torch.multilevel import Level
     from pyamg_tpu_torch.relaxation import make_smoother_data
 
+    # a node-blocked grid level raised here until the smoother-menu slice
+    # ported the block-tridiagonal lines: it now takes the JAX package's
+    # (3, q, q, nlines, L) line blocks (test_torch_smoothers.py holds
+    # their solves)
     A = _matrix("poisson", 6)
-    lvl = Level(A_csr=sp.kron(A, np.eye(2)).tocsr(), grid=(6, 6),
-                blocksize=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_smoother_data(lvl, "zebra", {}, device="cpu")
+    A2 = sp.kron(A, np.eye(2)).tocsr()
+    lvl = Level(A_csr=A2, grid=(6, 6), blocksize=2)
+    sm = make_smoother_data(lvl, "zebra", {}, device="cpu")
+    ref = jax_smoothing.make_smoother_data(
+        JaxLevel(A_csr=A2.copy(), grid=(6, 6), blocksize=2), "zebra", {})
+    assert tuple(sm.line_tri.shape) == (3, 2, 2, 6, 6)
+    np.testing.assert_array_equal(sm.line_tri.numpy(),
+                                  np.asarray(ref.line_tri))
 
 
 # ---------------------------------------------------------------------------

@@ -304,10 +304,11 @@ def test_keep_holds_the_setup_byproducts():
 # energy-based strength and the zebra smoother, of the classical slice:
 # test_torch_strength.py and test_torch_classical.py; 3-D grid metadata:
 # test_torch_grid3d.py; the nonsymmetric setup, energy smoothing by CGNR
-# and the NE/NR smoothers: test_torch_nonsymmetric.py)
+# and the NE/NR smoothers: test_torch_nonsymmetric.py; Lloyd and pairwise
+# aggregation: test_torch_matching.py)
 PORTED_SINCE = ("two-candidates", "filtered-jacobi", "bsr", "evolution",
                 "energy_based", "zebra", "grid3d", "nonsymmetric", "energy",
-                "jacobi_ne")
+                "jacobi_ne", "lloyd", "pairwise")
 
 
 @pytest.mark.parametrize("kw", [

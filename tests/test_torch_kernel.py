@@ -331,6 +331,44 @@ def test_cuda_default_call_cycles_like_the_cpu(cuda_device, case, cycle):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_schwarz_and_block_lines_step_like_the_cpu(cuda_device, dtype):
+    """The Schwarz step and the node-blocked zebra sweep (plain torch: the
+    gather of the subdomain residuals, the fixed-order sum of the
+    corrections, the block cyclic reduction) on the card against the same
+    state on the CPU; the Schwarz step twice, for the same bits."""
+    import scipy.sparse as sp
+
+    from pyamg_tpu_torch.multilevel import Level
+    from pyamg_tpu_torch.relaxation import device, smoothing
+    from pyamg_tpu_torch.sparse import device_operator
+
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    rng = np.random.default_rng(0)
+    A = poisson((64, 64), format="csr")
+    M = rng.standard_normal((2, 2))
+    A2 = sp.kron(poisson((32, 24), format="csr"),
+                 M @ M.T + 2 * np.eye(2)).tocsr()
+    for name, B, grid, q in (("schwarz", A, None, 1),
+                             ("zebra", A2, (32, 24), 2)):
+        x0, b = rng.standard_normal((2, B.shape[0]))
+        out = {}
+        for dev in ("cpu", cuda_device):
+            lvl = Level(A_csr=B, grid=grid, blocksize=q)
+            lvl.A = device_operator(B, dtype=dtype, device=dev)
+            sm = smoothing.make_smoother_data(lvl, name, {}, dtype=dtype,
+                                              device=dev)
+            xs = [torch.as_tensor(v, dtype=dtype, device=dev)
+                  for v in (x0, b)]
+            out[str(dev)] = [device.apply_smoother(sm, lvl.A, *xs)
+                             for _ in range(2)]
+        y, y_cpu = out["cuda"][0], out["cpu"][0]
+        assert y.is_cuda and torch.equal(y, out["cuda"][1])
+        assert float((y.cpu() - y_cpu).abs().max()) <= \
+            tol * float(y_cpu.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_cuda_spgemm_kernels_match_plain_version(cuda_device, dtype):
     tol = 1e-5 if dtype == torch.float32 else 1e-12
     for label, case in spgemm_cases.ALL.items():

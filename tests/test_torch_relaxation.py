@@ -442,14 +442,16 @@ def test_identical_pre_and_post_smoothers_share_their_state():
 @pytest.mark.parametrize("name", ["jacobi_ne", "gauss_seidel_nr", "zebra",
                                   "line_jacobi", "schwarz", "cgnr"])
 def test_smoothers_outside_the_port_raise(name, first_fit):
-    """The smoothers outside the port raise and name their ROADMAP item.
-    (``zebra`` and ``line_jacobi`` raised here until the classical slice
-    ported them: they now build their line data on a grid level, and
-    ``test_torch_classical.py`` compares them with the JAX package.
-    ``jacobi_ne``, ``gauss_seidel_nr`` and ``cgnr`` raised until the
-    nonsymmetric slice: they now apply as the JAX package's, and
+    """The smoothers that raised and named their ROADMAP item until a
+    slice ported them.  (``zebra`` and ``line_jacobi`` raised here until
+    the classical slice ported them: they now build their line data on a
+    grid level, and ``test_torch_classical.py`` compares them with the JAX
+    package.  ``jacobi_ne``, ``gauss_seidel_nr`` and ``cgnr`` raised until
+    the nonsymmetric slice: they now apply as the JAX package's, and
     ``test_torch_nonsymmetric.py`` holds all seven NE/NR and Krylov
-    smoothers.)"""
+    smoothers.  ``schwarz`` raised until the smoother-menu slice: it now
+    applies as the JAX package's, and ``test_torch_smoothers.py`` holds
+    it.)"""
     lvl, ref = _levels("dia-grid")
     if name in ("jacobi_ne", "gauss_seidel_nr", "cgnr"):
         sm = smoothing.make_smoother_data(lvl, name, {}, device="cpu")
@@ -472,13 +474,23 @@ def test_smoothers_outside_the_port_raise(name, first_fit):
         x1 = apply_smoother(sm, lvl.A, x0, b)
         assert torch.linalg.norm(b - lvl.A.matvec(x1)) < r0
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        smoothing.make_smoother_data(lvl, name, {}, device="cpu")
+    # schwarz raised here until the smoother-menu slice ported it: it now
+    # applies as the JAX package's (test_torch_smoothers.py holds its
+    # state and step on more operators)
+    sm = smoothing.make_smoother_data(lvl, name, {}, device="cpu")
+    jsm = jsmoothing.make_smoother_data(ref, name, {})
+    assert sm.kind == jsm.kind == "schwarz"
+    x0, b = _xb(lvl.A_csr.shape[0])
+    y = apply_smoother(sm, lvl.A, torch.from_numpy(x0), torch.from_numpy(b))
+    yj = jax_apply(jsm, ref.A, jnp.asarray(x0), jnp.asarray(b))
+    np.testing.assert_allclose(y.numpy(), np.asarray(yj), rtol=1e-12,
+                               atol=1e-12)
+    # what is left outside the menu: an unknown name or kind
     with pytest.raises(ValueError, match="unknown smoother"):
         smoothing.make_smoother_data(lvl, "no_such_smoother", {},
                                      device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        apply_smoother(SmootherData(kind=name), lvl.A, None, None)
+    with pytest.raises(ValueError, match="unknown smoother kind"):
+        apply_smoother(SmootherData(kind="no_such_kind"), lvl.A, None, None)
 
 
 # ---------------------------------------------------------------------------

@@ -128,7 +128,9 @@ def test_grid_aggregation_and_fit_candidates_match_jax(grid, block):
     {"unstructured": True, "aggregate": "lloyd"},
 ])
 def test_setups_off_the_ported_path_raise(change):
-    """Setups outside the port raise and name their ROADMAP item.  (Block Gauss-Seidel ``improve_candidates``, Richardson
+    """Setups that raised and named their ROADMAP item until a slice
+    ported them; each now builds the JAX package's hierarchy.  (Block
+    Gauss-Seidel ``improve_candidates``, Richardson
     prolongation smoothing, Gauss-Seidel smoothers and matrices without
     grid metadata raised here before they were ported:
     ``test_torch_default_sa.py`` now compares them with the JAX package.
@@ -140,7 +142,10 @@ def test_setups_off_the_ported_path_raise(change):
     level by level.  Energy smoothing by GMRES, the ``gauss_seidel_nr``
     smoother and the nonsymmetric setup raised until the nonsymmetric
     slice: they now build the JAX package's hierarchy, compared level by
-    level here and in ``test_torch_nonsymmetric.py``.)"""
+    level here and in ``test_torch_nonsymmetric.py``.  Lloyd aggregation
+    raised until the smoother-menu and matching slice: every setup of this
+    list is now compared level by level, and
+    ``test_torch_matching.py`` holds Lloyd and pairwise aggregation.)"""
     kw = dict(KW)
     kw.update({k: v for k, v in change.items()
                if k not in ("grid3d", "unstructured")})
@@ -161,24 +166,21 @@ def test_setups_off_the_ported_path_raise(change):
                                        np.asarray(lr.presmoother.line_tri),
                                        rtol=1e-12)
         return
-    if change.get("aggregate") != "lloyd":
-        ours = pyamg_tpu_torch.smoothed_aggregation_solver(A, device="cpu",
-                                                           **kw)
-        J = jax_poisson((6, 6, 6) if change.get("grid3d") else (20, 20),
-                        format="csr")
-        if change.get("unstructured"):
-            J = J.tocoo().tocsr()
-        with pytest.MonkeyPatch.context() as mp:
-            mp.setattr(jax_core, "have_native", lambda: True)
-            ref = pyamg_tpu.smoothed_aggregation_solver(J, **kw)
-        assert len(ours.levels) == len(ref.levels) > 1
-        for lo, lr in zip(ours.levels, ref.levels):
-            _csr_close(lo.A_csr, lr.A_csr)
-            assert type(lo.A).__name__ == type(lr.A).__name__
-        for lo, lr in zip(ours.levels[:-1], ref.levels[:-1]):
-            _csr_close(lo.P_csr, lr.P_csr)
-            _csr_close(lo.R_csr, lr.R_csr)
-            assert lo.presmoother.kind == lr.presmoother.kind
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pyamg_tpu_torch.smoothed_aggregation_solver(A, device="cpu", **kw)
+    ours = pyamg_tpu_torch.smoothed_aggregation_solver(A, device="cpu",
+                                                       **kw)
+    J = jax_poisson((6, 6, 6) if change.get("grid3d") else (20, 20),
+                    format="csr")
+    if change.get("unstructured"):
+        J = J.tocoo().tocsr()
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_core, "have_native", lambda: True)
+        ref = pyamg_tpu.smoothed_aggregation_solver(J, **kw)
+    assert len(ours.levels) == len(ref.levels) > 1
+    for lo, lr in zip(ours.levels, ref.levels):
+        _csr_close(lo.A_csr, lr.A_csr)
+        assert type(lo.A).__name__ == type(lr.A).__name__
+    for lo, lr in zip(ours.levels[:-1], ref.levels[:-1]):
+        _csr_close(lo.P_csr, lr.P_csr)
+        _csr_close(lo.R_csr, lr.R_csr)
+        assert lo.presmoother.kind == lr.presmoother.kind
+

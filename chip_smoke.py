@@ -84,6 +84,19 @@ computes the same function:
   corrections, ``strength_based_schwarz``); ``aggregate="lloyd"`` and
   pairwise aggregation on the same matrix as plain CSR (kernel:
   dia_matvec on every DIA level and transfer);
+* the device setups on one card: ``structured_sa_setup_sharded`` on the
+  1024^2 problem with ``max_coarse=500`` (the sharded suite's headline,
+  ``benchmarks/suite.py:262-280``: every numeric setup step on the card,
+  the Galerkin product by comb probes), ``shard_structured_solver`` and CG
+  to 1e-6, ``solve_mp`` to 1e-10; its level-1 operator against the
+  float64 scipy product R A P; ``structured_sa_setup`` on 64^3 (27 probes
+  a level); a checkpoint round trip (``save_hierarchy``,
+  ``load_hierarchy``); then the device energy, root-node and adaptive SA
+  setups at 1024^2 stage by stage, CG to 1e-8 and ``solve_mp`` to 1e-10,
+  every masked product of their energy CG and Galerkin products held
+  against the twin (kernels: dia_matvec in the power steps, the probes
+  and the cycles; masked_spgemm_banded and masked_spgemm_gather in the
+  energy CG and the products);
 * dia_matvec at every DIA shape that the phases' hierarchies hold or
   their paths launched, with its launches there: both of the kernel's
   routes (a thread a row; threads over (row, offset) pairs for short,
@@ -242,8 +255,9 @@ DEFAULT_SA = {
 }
 # levels and operator complexity (to 6 places) of every hierarchy the
 # phases build, as PERF.md section 2 records them (measured on an NVIDIA
-# H100 80GB HBM3 by this script): the setups are host code, which no
-# kernel of the solve can move
+# H100 80GB HBM3 by this script): the host stages of the setups decide
+# them, except those of the device-built structured hierarchies, whose
+# coarse stencils the comb probes compute on the card
 HIERARCHY_PINS = {
     "structured path": (5, 1.224878),
     "default call, A.grid": (5, 1.224878),
@@ -268,7 +282,28 @@ HIERARCHY_PINS = {
     "schwarz SA 1024^2": (5, 1.224878),
     "lloyd SA 1024^2": (4, 1.056553),
     "pairwise SA 1024^2": (7, 2.782670),
+    "device structured SA 1024^2": (5, 1.224878),
+    "device structured SA 64^3": (4, 1.150867),
+    "energy SA (device)": (6, 1.338179),
+    "root-node SA (device)": (6, 1.338179),
+    "adaptive SA (device)": (6, 1.338179),
 }
+# the device setups (phases 33-34): the sharded suite's headline
+# (benchmarks/suite.py:262-280: structured_sa_setup_sharded at 1024^2,
+# max_coarse=500, float32, CG to 1e-6 in 60 iterations at most) and the
+# 64^3 device-built hierarchy
+DEVICE_SA = dict(max_coarse=500, maxiter=60, grid3d=(64, 64, 64),
+                 # the adaptive setup's default 8 Jacobi sweeps leave a rough
+                 # candidate at 1M unknowns: its solves take hundreds of
+                 # iterations, timed once, and over ~450 iterations float32
+                 # CG's true residual drifts from its recursive one (true
+                 # 8.8e-7 at a tracked 9.6e-9 on an NVIDIA H100 80GB HBM3,
+                 # 700 W): its CG is held to the float32 floor of so long
+                 # a run, its solve_mp to 5e-10 as the others
+                 cg={"adaptive SA (device)": dict(maxiter=2000, repeats=1)},
+                 mp={"adaptive SA (device)": dict(inner_maxiter=400,
+                                                   repeats=1)},
+                 cg_relres={"adaptive SA (device)": 2e-6})
 # short, wide random operators held on both routes of dia_matvec in phase
 # 3: the widest DIA level of poisson3d_64_sa_chebyshev, level 3 of the
 # plain-CSR default hierarchy, and a 603-offset smoother's width
@@ -581,12 +616,12 @@ def recording_products(store, limit, module=None, names=("S*T", "A*P",
     real = module.masked_spgemm_auto
     k_level = len(names)
 
-    def record(A, B, pattern):
+    def record(A, B, pattern, **kw):
         if len(store) < limit:
             k = len(store)
             store.append((f"level {k // k_level} {names[k % k_level]}", A, B,
                           pattern))
-        return real(A, B, pattern)
+        return real(A, B, pattern, **kw)
 
     module.masked_spgemm_auto = record
     try:
@@ -2061,15 +2096,15 @@ def classical_setup(torch, A, **kw):
     return ml, setup_s
 
 
-def classical_solve(torch, ml, A, b, **kw):
-    """``solve_mp(b, tol=1e-10, **kw)`` once, then best of 3, and one
-    V-cycle's dia_matvec launches; returns ``(info, relres, best_s,
-    per_cycle)``."""
+def classical_solve(torch, ml, A, b, repeats=3, **kw):
+    """``solve_mp(b, tol=1e-10, **kw)`` once, then best of ``repeats``,
+    and one V-cycle's dia_matvec launches; returns ``(info, relres,
+    best_s, per_cycle)``."""
     x, info = ml.solve_mp(b, tol=TOL, return_info=True, **kw)
     torch.cuda.synchronize()
     relres = _true_relres(A, b, x)
     runs = []
-    for _ in range(3):
+    for _ in range(repeats):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         ml.solve_mp(b, tol=TOL, **kw)
@@ -2079,7 +2114,8 @@ def classical_solve(torch, ml, A, b, **kw):
     cycle = ml.cycle_fn("V")
     per_cycle = _launches_of(lambda: cycle(torch.zeros_like(b32), b32))
     print(f"solve_mp(tol=1e-10{''.join(f', {k}={v}' for k, v in kw.items())}"
-          f"): {info}  true f64 relres {relres:.3e}  solve_s best of 3 "
+          f"): {info}  true f64 relres {relres:.3e}  solve_s best of "
+          f"{repeats} "
           f"{min(runs):.4f}  runs {[round(r, 4) for r in runs]} (after the "
           f"first, which also builds the float64 operator);  dia_matvec "
           f"launches a V-cycle {per_cycle}")
@@ -2249,16 +2285,19 @@ def time_level0_dia(torch, ml, level=0):
           f"{l_ms * 1e3:.2f} us")
 
 
-def time_classical_products(torch, products):
-    """The SpGEMM kernels at two shapes of the classical device setup --
-    level 0's evolution squaring (banded) and R*AP (gather), float32 --
-    beside the plain version, the bound and cuSPARSE SpGEMM."""
+def time_classical_products(torch, products,
+                            picks=(("masked_spgemm_banded",
+                                    "level 0 evolution A~*A~"),
+                                   ("masked_spgemm_gather", "level 0 R*AP"))):
+    """The SpGEMM kernels at the recorded products ``picks`` names (kernel,
+    label; by default two shapes of the classical device setup: level 0's
+    evolution squaring, banded, and R*AP, gather), float32, beside the
+    plain version, the bound and cuSPARSE SpGEMM."""
     from pyamg_tpu_torch.sparse import spgemm_kernel
 
     before = dict(spgemm_kernel.launches)
     by_label = {label: (A, B, pat) for label, A, B, pat in products}
-    for name, label in (("masked_spgemm_banded", "level 0 evolution A~*A~"),
-                        ("masked_spgemm_gather", "level 0 R*AP")):
+    for name, label in picks:
         A, B, pattern = by_label[label]
         slabs, bodies = spgemm_bodies(A, B, pattern)
         kernel = bodies[name][0]
@@ -2465,12 +2504,13 @@ def print_levels(ml):
           f"{ml.operator_complexity():.6f}")
 
 
-def timed_solve(torch, ml, A, b, accel="cg", tol=1e-8, maxiter=100):
-    """``solve(b, tol, accel, maxiter)`` best of 3; returns ``(residual
-    history, true f64 relres, best_s)``.  The history is what the method
-    tracks: ||M r|| for left-preconditioned GMRES."""
+def timed_solve(torch, ml, A, b, accel="cg", tol=1e-8, maxiter=100,
+                repeats=3):
+    """``solve(b, tol, accel, maxiter)`` best of ``repeats``; returns
+    ``(residual history, true f64 relres, best_s)``.  The history is what
+    the method tracks: ||M r|| for left-preconditioned GMRES."""
     runs = []
-    for _ in range(3):
+    for _ in range(repeats):
         res = []
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2480,8 +2520,8 @@ def timed_solve(torch, ml, A, b, accel="cg", tol=1e-8, maxiter=100):
     relres = _true_relres(A, b, x)
     print(f"solve(tol={tol:g}, accel={accel!r}, maxiter={maxiter}): "
           f"iterations {len(res) - 1}  tracked {res[-1] / res[0]:.3e}  true "
-          f"f64 relres {relres:.3e}  solve_s best of 3 {min(runs):.4f}  "
-          f"runs {[round(r, 4) for r in runs]}")
+          f"f64 relres {relres:.3e}  solve_s best of {repeats} "
+          f"{min(runs):.4f}  runs {[round(r, 4) for r in runs]}")
     return res, relres, min(runs)
 
 
@@ -3115,6 +3155,310 @@ def lloyd_pairwise_phase(torch):
     return launches, worst
 
 
+def _profiled(torch, fn):
+    """``fn()`` under ``torch.profiler``: ``(result, wall_s, device_ms,
+    device_launches)``, the device time summed over the CUDA kernels and
+    copies the profiler saw (0 when it saw none)."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ops = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (out, wall, sum(e.self_device_time_total for e in ops) / 1e3,
+            sum(e.count for e in ops))
+
+
+def _explicit_rap_error(ml):
+    """The level-1 operator of a device-built hierarchy against the float64
+    scipy product R A P of level 0's operators: max relative difference."""
+    lvl = ml.levels[0]
+    R, A, P = (op.to_scipy().astype(np.float64)
+               for op in (lvl.R, lvl.A, lvl.P))
+    want = (R @ (A @ P)).tocsr()
+    got = ml.levels[1].A.to_scipy().astype(np.float64)
+    return float(abs(got - want).max() / abs(want).max())
+
+
+def device_structured_phase(torch):
+    """``structured_sa_setup_sharded`` on the 1024^2 Poisson problem in
+    float32 with ``max_coarse=500``, then ``shard_structured_solver`` and
+    CG to 1e-6 (60 iterations at most), as ``benchmarks/suite.py:262-280``
+    runs the sharded suite's headline, here on one card; ``solve_mp`` to
+    1e-10.  The setup runs every numeric step on the card: 30 power steps
+    and 9 comb probes of R A P a level (K1').  Its seconds plain, by stage,
+    and under ``torch.profiler`` (the device-busy share); the level-1
+    operator against the float64 scipy product R A P; the levels against
+    the host structured path's.  Then ``structured_sa_setup`` on 64^3 (27
+    probes a level) with CG to 1e-8, and a ``save_hierarchy`` /
+    ``load_hierarchy`` round trip of the 1024^2 hierarchy.  Returns
+    ``(launches, worst)``."""
+    phase("33. device-built structured SA (comb-probe RAP), 1024^2 and 64^3")
+    import tempfile
+
+    from pyamg_tpu_torch.aggregation import device_setup as ds
+    from pyamg_tpu_torch.gallery import poisson
+    from pyamg_tpu_torch.parallel import (shard_structured_solver,
+                                          structured_sa_setup_sharded)
+    from pyamg_tpu_torch.sparse import SparseDIA, dia_kernel, spgemm_kernel
+    from pyamg_tpu_torch.util import load_hierarchy, save_hierarchy
+
+    t_phase = time.perf_counter()
+    A = poisson(GRID, format="csr")
+    b = A @ np.random.default_rng(0).random(A.shape[0])
+    kw = dict(dtype=torch.float32, max_coarse=DEVICE_SA["max_coarse"],
+              device="cuda")
+
+    def build():
+        return structured_sa_setup_sharded(A, GRID, **kw)
+
+    stages = [("fine DIA from scipy (host, upload)", SparseDIA,
+               "from_scipy"),
+              ("power rho (K1')", ds, "device_power_rho"),
+              ("S = I - c D^-1 A", ds, "device_smoothing_factor"),
+              ("S^T", ds, "dia_transpose"),
+              ("comb-probe RAP (K1')", ds, "device_rap"),
+              ("color masks (host, upload)", ds, "_geometric_masks"),
+              ("coarsest A to the host", SparseDIA, "to_scipy")]
+    dia_kernel.launches = 0
+    spgemm_kernel.plain_cuda_calls = 0
+    twin = [0]
+    with counting_twin_calls(torch, twin):
+        runs = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            n0 = dia_kernel.launches
+            ml = build()
+            torch.cuda.synchronize()
+            runs.append(time.perf_counter() - t0)
+            setup_launches = dia_kernel.launches - n0
+        print(f"setup_s {runs[0]:.3f} (first) {runs[1]:.3f} (second), "
+              f"synchronized;  K1' launches of one setup {setup_launches}")
+        timed_setup(torch, build, stages)
+        _, wall, busy_ms, n_dev = _profiled(torch, build)
+        print(f"profiled setup: wall {wall:.3f} s, device kernels and copies "
+              f"{busy_ms:.2f} ms in {n_dev} launches: "
+              f"{100 * busy_ms / (wall * 1e3):.2f}% busy (of the profiled "
+              f"wall), {100 * busy_ms / (runs[1] * 1e3):.2f}% of the second "
+              f"plain setup")
+        print_levels(ml)
+        rows = [lvl.A.shape[0] for lvl in ml.levels]
+        sol = shard_structured_solver(ml)
+        res, relres_cg, cg_s = timed_solve(torch, sol, A, b, tol=1e-6,
+                                           maxiter=DEVICE_SA["maxiter"])
+        info, relres, _, per_cycle = classical_solve(torch, ml, A, b)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = pathlib.Path(tmp) / "device_sa_1024.npz"
+            t0 = time.perf_counter()
+            save_hierarchy(ml, path)
+            save_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            loaded = load_hierarchy(path, device="cuda")
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            size_mb = path.stat().st_size / 1e6
+        print(f"checkpoint: saved in {save_s:.3f} s ({size_mb:.1f} MB), "
+              f"loaded in {load_s:.3f} s;  the loaded hierarchy:")
+        print_levels(loaded)
+        res_l, relres_l, _ = timed_solve(torch, loaded, A, b, tol=1e-6,
+                                         maxiter=DEVICE_SA["maxiter"])
+        A3 = poisson(DEVICE_SA["grid3d"], format="csr")
+        b3 = A3 @ np.random.default_rng(0).random(A3.shape[0])
+        ml3, _ = timed_setup(torch, lambda: ds.structured_sa_setup(
+            A3, DEVICE_SA["grid3d"], dtype=torch.float32, device="cuda"),
+            stages)
+        print_levels(ml3)
+        _, relres3, _ = timed_solve(torch, ml3, A3, b3, tol=1e-8)
+    launches = dia_kernel.launches
+    rap_err = _explicit_rap_error(ml)
+    print(f"level-1 operator from the comb probes vs the float64 scipy "
+          f"product R A P of level 0's operators: max rel {rap_err:.3e}")
+    worst = hold_dia_cases(
+        torch, np.random.default_rng(33),
+        record_hierarchy("device structured SA 1024^2", ml)
+        + record_hierarchy("device structured SA 64^3", ml3))
+    _check_front_door(torch, "phase 33", launches, worst, twin)
+    iters, iters_l = len(res) - 1, len(res_l) - 1
+    if not (rows == DEFAULT_SA["structured"]["rows"] and rap_err <= 1e-5
+            and iters <= DEVICE_SA["maxiter"] and relres_cg <= 1e-5
+            and relres <= 5e-10 and abs(iters_l - iters) <= 1
+            and relres_l <= 1e-5 and relres3 <= 5e-7
+            and setup_launches > 0):
+        raise AssertionError(
+            f"rows {rows} (host structured path "
+            f"{DEFAULT_SA['structured']['rows']}), R A P max rel {rap_err} "
+            f"(<= 1e-5), CG {iters} iterations relres {relres_cg} (<= 1e-5),"
+            f" solve_mp {info} relres {relres} (<= 5e-10), loaded CG "
+            f"{iters_l} relres {relres_l}, 64^3 CG relres {relres3} "
+            f"(<= 5e-7), setup launches {setup_launches}")
+    print(f"phase 33 seconds {time.perf_counter() - t_phase:.1f}")
+    return launches, worst
+
+
+@contextlib.contextmanager
+def recording_energy_products(store, name):
+    """Keep the operands ``(label, A, B, pattern)`` of every masked
+    product of a device SA setup -- the energy CG's A D
+    (``parallel.energy``) and the Galerkin products (``parallel.setup``)
+    -- labelled by setup, rows and kind, while passing each call on."""
+    from pyamg_tpu_torch.parallel import energy, setup
+
+    saved = [(mod, mod.masked_spgemm_auto) for mod in (energy, setup)]
+
+    def recorder(real, kind):
+        def record(A, B, pattern, **kw):
+            store.append((f"{name} {A.shape[0]} rows {kind}", A, B,
+                          pattern))
+            return real(A, B, pattern, **kw)
+        return record
+
+    energy.masked_spgemm_auto = recorder(saved[0][1], "A*D")
+    setup.masked_spgemm_auto = recorder(saved[1][1], "Galerkin")
+    try:
+        yield
+    finally:
+        for mod, real in saved:
+            mod.masked_spgemm_auto = real
+
+
+def _device_sa_stages():
+    """``stage_timer`` stages of the device SA setups: the host integer
+    stages, the device CG and candidate relaxation, the products."""
+    import pyamg_tpu_torch.aggregation.aggregate as aggregate
+    import pyamg_tpu_torch.aggregation.smooth as smooth
+    import pyamg_tpu_torch.aggregation.tentative as tentative
+    import pyamg_tpu_torch.strength as strength
+    import pyamg_tpu_torch.util.utils as utils
+    from pyamg_tpu_torch.parallel import energy, setup
+    from pyamg_tpu_torch.sparse import SparseELL
+
+    return [("strength (host)", strength,
+             "symmetric_strength_of_connection"),
+            ("aggregation (host)", aggregate, "standard_aggregation"),
+            ("fit_candidates (host)", tentative, "fit_candidates"),
+            ("Cpt_params, scale_T (host)", utils, "get_Cpt_params"),
+            ("Cpt_params, scale_T (host)", utils, "scale_T"),
+            ("energy pattern, BtBinv (host)", smooth, "_grow_pattern"),
+            ("energy pattern, BtBinv (host)", utils, "compute_BtBinv"),
+            ("energy route (A's offsets read back)", energy, "spgemm_plan"),
+            ("energy CG (device, K4'/K5')", energy, "_energy_cg"),
+            ("candidate relaxation and rho (device)", setup,
+             "_mesh_candidate_relax"),
+            ("candidate relaxation and rho (device)", setup,
+             "_ell_power_rho"),
+            ("Jacobi S values (device)", setup, "_jacobi_smoothing_vals"),
+            ("Galerkin products (device, K4'/K5')", setup,
+             "masked_spgemm_auto"),
+            ("R = P^T (device)", setup, "ell_transpose_onto"),
+            ("symbolic patterns (host)", setup, "_pattern_csr"),
+            ("coarse values to the host", SparseELL, "to_scipy"),
+            ("ELL from scipy (host, upload)", SparseELL, "from_scipy"),
+            ("coloring (host)", setup, "_ell_smoother")]
+
+
+def device_energy_phase(torch):
+    """The device energy, root-node and adaptive SA setups on the 1024^2
+    Poisson problem in float32: ``general_sa_setup_sharded(A,
+    smooth=("energy", {"maxiter": 4}))``, ``rootnode_setup_sharded(A)`` and
+    ``adaptive_sa_setup_sharded(A)``, each stage by stage (host integer
+    stages against the device CG and products) and once more under
+    ``torch.profiler`` (its device-busy share), CG to 1e-8 and
+    ``solve_mp`` to 1e-10; every masked product of the three setups (the
+    energy CG's A D included) recorded and held against the twin, and
+    the energy CG's A D timed at levels 0 and 2.  Returns the SpGEMM
+    kernels' launches, their largest difference from the twin and the
+    dia_matvec launches (``solve_mp``'s float64 residuals)."""
+    phase("34. device energy, root-node and adaptive SA setups, 1024^2")
+    from pyamg_tpu_torch.gallery import poisson
+    from pyamg_tpu_torch.parallel import (adaptive_sa_setup_sharded,
+                                          general_sa_setup_sharded,
+                                          rootnode_setup_sharded)
+    from pyamg_tpu_torch.sparse import dia_kernel, spgemm_kernel
+
+    t_phase = time.perf_counter()
+    A = poisson(GRID, format="csr")
+    b = A @ np.random.default_rng(0).random(A.shape[0])
+    setups = {
+        "energy SA (device)": lambda: general_sa_setup_sharded(
+            A, smooth=("energy", {"maxiter": 4}), dtype=np.float32,
+            device="cuda"),
+        "root-node SA (device)": lambda: rootnode_setup_sharded(
+            A, dtype=np.float32, device="cuda"),
+        "adaptive SA (device)": lambda: adaptive_sa_setup_sharded(
+            A, dtype=np.float32, device="cuda"),
+    }
+    launches = dict.fromkeys(spgemm_kernel.launches, 0)
+    products, failures = [], []
+    spgemm_kernel.plain_cuda_calls = 0
+    dia_kernel.launches = 0
+    twin = [0]
+    for name, build in setups.items():
+        print(f"-- {name}")
+        before = dict(spgemm_kernel.launches)
+        mine = []
+        with counting_twin_calls(torch, twin):
+            with recording_energy_products(mine, name):
+                sol, _ = timed_setup(torch, build, _device_sa_stages())
+            got = {k: spgemm_kernel.launches[k] - before[k]
+                   for k in launches}
+            cg = sum(1 for label, *_ in mine if label.endswith("A*D"))
+            print(f"SpGEMM launches {got} ({cg} in the energy CG, "
+                  f"{len(mine) - cg} Galerkin)")
+            counts = dict(spgemm_kernel.launches)
+            _, wall, busy_ms, n_dev = _profiled(torch, build)
+            spgemm_kernel.launches.update(counts)
+            print(f"profiled setup (again, not counted): wall {wall:.3f} s, "
+                  f"device kernels and copies {busy_ms:.2f} ms in {n_dev} "
+                  f"launches: {100 * busy_ms / (wall * 1e3):.2f}% busy")
+            print_levels(sol.inner)
+            _, relres_cg, _ = timed_solve(torch, sol, A, b,
+                                          **DEVICE_SA["cg"].get(name, {}))
+            info, relres, _, _ = classical_solve(
+                torch, sol.inner, A, b, **DEVICE_SA["mp"].get(name, {}))
+        for k in launches:
+            launches[k] += got[k]
+        products += mine
+        record_hierarchy(name, sol.inner)
+        if sum(got.values()) != len(mine):
+            failures.append(f"{name}: recorded {len(mine)} products, the "
+                            f"kernels launched {got}")
+        bar = DEVICE_SA["cg_relres"].get(name, 5e-7)
+        if not (relres_cg <= bar and relres <= 5e-10):
+            failures.append(f"{name}: CG relres {relres_cg} (<= {bar}), "
+                            f"solve_mp {info} relres {relres} (<= 5e-10)")
+        del sol
+    if not any(label.endswith("A*D") for label, *_ in products):
+        failures.append("no energy-CG product ran")
+    plain_calls = spgemm_kernel.plain_cuda_calls
+    print(f"SpGEMM launches over the three setups {launches};  plain twin "
+          f"calls on CUDA {plain_calls} (SpGEMM) {twin[0]} (DIA);  "
+          f"dia_matvec launches {dia_kernel.launches}")
+    print(f"holding both SpGEMM kernels against their twin on the three "
+          f"setups' {len(products)} masked products:")
+    worst = hold_spgemm(torch, products)
+    n0, n2 = GRID[0] * GRID[1], sorted({A.shape[0] for _, A, _, _ in
+                                        products})[-3]
+    time_classical_products(
+        torch, products,
+        (("masked_spgemm_banded", f"energy SA (device) {n0} rows A*D"),
+         ("masked_spgemm_gather", f"energy SA (device) {n2} rows A*D")))
+    if plain_calls or twin[0]:
+        failures.append("a plain twin ran on CUDA")
+    if min(launches.values()) <= 0:
+        failures.append(f"a SpGEMM kernel never launched: {launches}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    print(f"phase 34 seconds {time.perf_counter() - t_phase:.1f}")
+    return launches, worst, dia_kernel.launches
+
+
 def dia_shapes(torch, launches):
     """dia_matvec at every DIA shape the smoke ran: the shapes (rows,
     cols, offsets, dtype) of every hierarchy's DIA operators and of every
@@ -3323,6 +3667,15 @@ def main():
     worst["dia_matvec"] = max([worst["dia_matvec"]] + [e for _, e in menu])
     print(f"dia_matvec launches by phases 30-32 (two-candidate adaptive SA, "
           f"Schwarz, Lloyd and pairwise): {[n for n, _ in menu]}")
+    n_dev, err_dev = device_structured_phase(torch)
+    energy_launches, energy_worst, n_energy = device_energy_phase(torch)
+    launches["dia_matvec"] += n_dev + n_energy
+    worst["dia_matvec"] = max(worst["dia_matvec"], err_dev)
+    for name, count in energy_launches.items():
+        launches[name] += count
+        worst[name] = max(worst[name], energy_worst.get(name, 0.0))
+    print(f"launches by the device-setup phases 33-34: dia_matvec {n_dev} + "
+          f"{n_energy};  {energy_launches}")
     times["dia_matvec"].update(dia_shapes(torch, launches))
     print(f"chip_smoke seconds: {time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": [dict(

@@ -1,10 +1,12 @@
-"""Smoothed aggregation setups: SA on structured grids and on general
-sparse matrices, root-node SA and adaptive SA, with the standard, Lloyd
-and pairwise aggregations."""
+"""Smoothed aggregation setups: SA on structured grids (with the setup on
+the host, or every numeric step on the device) and on general sparse
+matrices, root-node SA and adaptive SA, with the standard, Lloyd and
+pairwise aggregations."""
 
 from . import matching
 from .adaptive import adaptive_sa_solver
 from .aggregation import smoothed_aggregation_solver
+from .device_setup import structured_sa_setup
 from .aggregate import (grid_aggregation, fit_aggop, standard_aggregation,
                         naive_aggregation, parallel_aggregation,
                         lloyd_aggregation, pairwise_aggregation)
@@ -20,4 +22,5 @@ __all__ = ["smoothed_aggregation_solver", "rootnode_solver",
            "parallel_aggregation", "lloyd_aggregation",
            "pairwise_aggregation", "matching", "jacobi_prolongation_smoother",
            "richardson_prolongation_smoother",
-           "energy_prolongation_smoother", "fit_candidates"]
+           "energy_prolongation_smoother", "fit_candidates",
+           "structured_sa_setup"]

@@ -1,13 +1,18 @@
-"""Padded-ELL hierarchies and their solver, on one device.
+"""Sharded hierarchies and their solvers, on one device.
 
-Port of the one-device part of ``pyamg_tpu/parallel/sharding.py``: the
-padded sizes, ELL padding, and ``ShardedSolver`` as the general setup
-returns it (``from_sharded_levels``), with the coarsest level's
-pseudoinverse padded to the level's padded size.  On one device every
-padded size is the level's own and the JAX package's ``'pack'`` halo
-exchange has nothing to exchange, so neither is carried over.  Row
-sharding over several cards, ``shard_solver`` and the structured sharded
-solver are not ported yet (ROADMAP.md, Queue 1: the distributed path).
+Port of the one-device part of ``pyamg_tpu/parallel/sharding.py``:
+
+* the padded sizes, ELL padding, and ``ShardedSolver`` as the general
+  setups return it (``from_sharded_levels``), with the coarsest level's
+  pseudoinverse padded to the level's padded size;
+* ``StructuredShardedSolver`` and ``shard_structured_solver`` for the
+  structured (DIA and grid-operator) hierarchies.
+
+On one device every padded size is the level's own, there is nothing to
+re-place, and the JAX package's ``'pack'`` halo exchange has nothing to
+exchange, so none of that is carried over.  Row sharding over several
+cards and ``shard_solver`` are not ported yet (ROADMAP.md, Queue 1: the
+distributed path).
 """
 
 from __future__ import annotations
@@ -17,8 +22,12 @@ import torch
 
 from ..multilevel import MultilevelSolver
 from ..sparse.ell import SparseELL
+from ..util.utils import not_ported
 
-__all__ = ["ShardedSolver", "pad_to"]
+__all__ = ["ShardedSolver", "StructuredShardedSolver",
+           "shard_structured_solver", "pad_to"]
+
+_STRUCTURED_ACCELS = ("cg", "bicgstab", "gmres", "fgmres", None)
 
 
 def pad_to(n: int, k: int) -> int:
@@ -88,3 +97,54 @@ class ShardedSolver:
     def __repr__(self):
         return f"ShardedSolver(devices=1, levels={len(self.levels)})\n" \
             + repr(self.inner)
+
+
+class StructuredShardedSolver:
+    """A structured (DIA and grid-operator) hierarchy ready to solve.
+
+    The JAX package re-places the hierarchy's arrays row-sharded over a
+    mesh; on one device there is nothing to re-place, so this wraps the
+    hierarchy's :class:`MultilevelSolver` and solves on its device.
+    ``min_shard_rows`` (the smallest level the JAX package shards) is
+    accepted and ignored.  ``mesh`` other than None, or ``n_devices``
+    other than None or 1, is not ported."""
+
+    def __init__(self, ml: MultilevelSolver, mesh=None, n_devices=None,
+                 axis_name: str = "rows", min_shard_rows: int = 4096):
+        if mesh is not None or n_devices not in (None, 1):
+            raise not_ported("StructuredShardedSolver over a mesh of "
+                             "several devices", "the distributed path")
+        self.mesh = None
+        self.axis = axis_name
+        self.ml = ml
+        self.n = ml.levels[0].A.shape[0]
+
+    @property
+    def levels(self):
+        return self.ml.levels
+
+    def solve(self, b, tol=1e-8, maxiter=100, cycle="V", accel="cg",
+              residuals=None):
+        """Solve A x = b to relative residual ``tol``: stand-alone cycles
+        (``accel=None``) or CG, BiCGStab, GMRES or FGMRES with one cycle
+        as preconditioner.  ``residuals`` gets the iteration's residual
+        norms (one more than the iterations).  Returns x as a tensor on
+        the hierarchy's device."""
+        if accel not in _STRUCTURED_ACCELS:
+            raise ValueError("StructuredShardedSolver supports accel in "
+                             "('cg', 'bicgstab', 'gmres', 'fgmres', None)")
+        return self.ml.solve(b, tol=tol, maxiter=maxiter, cycle=cycle,
+                             accel=accel, residuals=residuals)
+
+    def __repr__(self):
+        return "StructuredShardedSolver(devices=1)\n" + repr(self.ml)
+
+
+def shard_structured_solver(ml, mesh=None, n_devices=None,
+                            axis_name: str = "rows",
+                            min_shard_rows: int = 4096):
+    """A :class:`StructuredShardedSolver` of a structured hierarchy (on
+    one device: the hierarchy as it is)."""
+    return StructuredShardedSolver(ml, mesh=mesh, n_devices=n_devices,
+                                   axis_name=axis_name,
+                                   min_shard_rows=min_shard_rows)

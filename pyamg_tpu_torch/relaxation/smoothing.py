@@ -532,4 +532,5 @@ def change_smoothers(ml, presmoother, postsmoother):
         fn, kw = unpack_arg(post) if post is not None else (None, {})
         lvl.postsmoother = make_smoother_data(lvl, fn, kw, dtype=dtype,
                                               device=ml.device)
+    ml._smoother_config = (presmoother, postsmoother)
     return ml

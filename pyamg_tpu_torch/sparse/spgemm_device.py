@@ -25,8 +25,9 @@ import torch
 from .ell import SparseELL
 from .spgemm_kernel import masked_matmul_vals_plain, masked_spgemm_gather
 
-__all__ = ["masked_spgemm_ell", "masked_spgemm_auto", "pattern_spgemm",
-           "rap_pattern", "sentinel_cols", "ell_transpose_onto"]
+__all__ = ["masked_spgemm_ell", "masked_spgemm_auto", "spgemm_plan",
+           "pattern_spgemm", "rap_pattern", "sentinel_cols",
+           "ell_transpose_onto"]
 
 
 def sentinel_cols(pattern: SparseELL) -> torch.Tensor:
@@ -98,13 +99,28 @@ def ell_transpose_onto(A: SparseELL, pattern: SparseELL) -> SparseELL:
     return SparseELL(vals, pattern.cols, pattern.row_nnz, pattern.shape)
 
 
+def spgemm_plan(A: SparseELL, B: SparseELL, pattern: SparseELL):
+    """The route of :func:`masked_spgemm_auto` for A, B's widths and
+    ``pattern``, decided once for products that repeat with new values of
+    B (the energy CG's ``A D``): None on a CPU device, else a
+    ``BandedSpgemmPlan`` (infeasible: the gather kernel).  Deciding reads
+    A's offsets back to the host."""
+    if A.data.device.type == "cpu":
+        return None
+    from .spgemm_dia import BandedSpgemmPlan
+
+    return BandedSpgemmPlan(A, B, pattern)
+
+
 def masked_spgemm_auto(A: SparseELL, B: SparseELL,
-                       pattern: SparseELL) -> SparseELL:
+                       pattern: SparseELL, plan=None) -> SparseELL:
     """``masked_spgemm_ell``'s product, routed to a hand-written kernel.
 
     CUDA: the banded kernel when A has at most 64 distinct ``col - row``
     offsets, else the gather kernel; a slab wider than the kernels take
-    (64) raises.  The JAX router's size floors (2^17 rows for the banded
+    (64) raises.  ``plan``: the route from :func:`spgemm_plan` for these
+    A, B widths and pattern, when the caller has it; by default it is
+    decided here.  The JAX router's size floors (2^17 rows for the banded
     kernel, 2^19 for the gather kernel) were the TPU's dispatch floor and
     are not ported: every product goes to a kernel.  The JAX package's
     ``MaskedSpgemmPlan`` (``spgemm_pallas.py``) is not ported either: its
@@ -113,9 +129,8 @@ def masked_spgemm_auto(A: SparseELL, B: SparseELL,
     plain form."""
     if A.data.device.type == "cpu":
         return masked_spgemm_ell(A, B, pattern)
-    from .spgemm_dia import BandedSpgemmPlan
-
-    plan = BandedSpgemmPlan(A, B, pattern)
+    if plan is None:
+        plan = spgemm_plan(A, B, pattern)
     if plan.feasible:
         return plan(A, B)
     vals = masked_spgemm_gather(A.data, A.cols, B.data, B.cols,

@@ -21,7 +21,13 @@ can run, and be compared, with the setup factored out:
 * dense: ``mat``, ``shape``;
 * fine-embedded DIA transfer: ``dia`` (a DIA dict), ``cpts`` (the fine
   position of each coarse dof), ``shape``, and ``restrict`` true for the
-  restriction.
+  restriction;
+* grid transfer: ``wmap``, ``fine_grid``, ``block``, ``shape``, and
+  ``pool`` true for the restriction (``GridPoolOp``, else
+  ``GridRepeatOp``);
+* composition: ``ops`` (operator dicts, applied right to left) and
+  ``shape`` -- the P and R of a device-built structured level
+  (``structured_sa_setup``) are DIA and grid dicts composed.
 
 A classical level's transfers are built from its host matrices as
 ``ruge_stuben_solver`` builds them: the C-point embedding in DIA where it
@@ -118,6 +124,15 @@ def _operator(d, tensor, index):
         cls = CptRestrictOp if d.get("restrict") else CptProlongOp
         return cls(_operator(d["dia"], tensor, index), index(d["cpts"]),
                    d["shape"])
+    if "wmap" in d:
+        if d.get("pool"):
+            return GridPoolOp(tensor(d["wmap"]), d["fine_grid"], d["block"],
+                              d["shape"], conj=False)
+        return GridRepeatOp(tensor(d["wmap"]), d["fine_grid"], d["block"],
+                            d["shape"])
+    if "ops" in d:
+        return ComposedOp([_operator(o, tensor, index) for o in d["ops"]],
+                          d["shape"])
     raise ValueError(f"not an operator dict: keys {sorted(d)}")
 
 

@@ -30,7 +30,6 @@ from test_api_surface import REFERENCE_SURFACE
 ROADMAP = (Path(__file__).resolve().parents[1] / "ROADMAP.md").read_text()
 
 CONSTRUCTORS = "the other constructors"
-DEVICE_SETUP = "device setup"
 DISTRIBUTED = "the distributed path"
 BY_DESIGN = "Not ported by design"
 
@@ -40,7 +39,6 @@ TO_PORT = {
     **{("pyamg_tpu.aggregation", n): CONSTRUCTORS
        for n in ("asa_solver", "tl_sa_solver", "newideal_solver",
                  "ben_ideal_interpolation")},
-    ("pyamg_tpu.aggregation", "structured_sa_setup"): DEVICE_SETUP,
     **{("pyamg_tpu.aggregation.new_adaptive", n): CONSTRUCTORS
        for n in ("A_norm", "my_rand", "tl_sa_solver")},
     ("pyamg_tpu.aggregation.rootnode_nii", "newideal_solver"): CONSTRUCTORS,
@@ -49,14 +47,10 @@ TO_PORT = {
     ("pyamg_tpu.graph", "connected_components"): CONSTRUCTORS,
     **{("pyamg_tpu.parallel", n): DISTRIBUTED
        for n in ("make_mesh", "shard_solver")},
-    **{("pyamg_tpu.parallel", n): DEVICE_SETUP
-       for n in ("shard_structured_solver", "StructuredShardedSolver",
-                 "structured_sa_setup_sharded")},
     **{("pyamg_tpu.sparse", n): CONSTRUCTORS
        for n in ("count_diagonals", "spgemm", "rap", "transpose")},
     **{("pyamg_tpu.util", n): CONSTRUCTORS
-       for n in ("checkpoint", "profiling", "save_hierarchy",
-                 "load_hierarchy", "profile_cycles", "hierarchy_spectrum",
+       for n in ("profiling", "profile_cycles", "hierarchy_spectrum",
                  "diag_sparse", "profile_solver")},
     ("pyamg_tpu.util", "pinv_array_jax"): BY_DESIGN,
     **{("pyamg_tpu.util.utils", n): CONSTRUCTORS

@@ -331,17 +331,16 @@ def test_naive_jacobi_setup_matches_jax():
     lambda A: parallel.general_sa_setup_sharded(A, n_devices=2, device="cpu"),
     lambda A: parallel.general_sa_setup_sharded(A, mesh=object(),
                                                 device="cpu"),
-    lambda A: parallel.general_sa_setup_sharded(A, smooth=("energy", {}),
-                                                device="cpu"),
-    lambda A: parallel.rootnode_setup_sharded(A),
-    lambda A: parallel.adaptive_sa_setup_sharded(A),
     lambda A: parallel.classical_setup_sharded(A, n_devices=2,
                                                device="cpu"),
-], ids=["n_devices", "mesh", "energy", "rootnode", "adaptive", "classical"])
+], ids=["n_devices", "mesh", "classical"])
 def test_setups_off_the_ported_path_raise(call):
     """(``classical_setup_sharded`` raised on any call until the classical
-    slice ported it on one device: over several it still raises;
-    ``test_torch_classical.py`` compares it with the JAX package.)"""
+    slice ported it on one device, and ``smooth="energy"``,
+    ``rootnode_setup_sharded`` and ``adaptive_sa_setup_sharded`` until the
+    device setups did: over several devices they still raise;
+    ``test_torch_classical.py`` and ``test_torch_device_energy.py`` compare
+    them with the JAX package.)"""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         call(poisson((10, 10), format="csr"))
 

@@ -493,3 +493,33 @@ def test_cuda_dia_variants_match_plain_version(cuda_device, kernel):
         assert y.dtype == torch.float32 and bool(torch.isfinite(y).all())
         err = float((y - y_ref).abs().max())
         assert err <= tol * float(y_ref.abs().max()), (label, err)
+
+
+@pytest.mark.cuda
+def test_cuda_device_setups_build_like_the_cpu(cuda_device):
+    """The structured device setup (power steps and comb probes on the DIA
+    kernel) and the energy CG (its products routed once a level, through
+    the SpGEMM kernels) on the card against the same setups on the CPU,
+    in float64."""
+    import scipy.sparse as sp
+
+    from pyamg_tpu_torch.aggregation.device_setup import structured_sa_setup
+    from pyamg_tpu_torch.parallel import general_sa_setup_sharded
+
+    A = poisson((48, 48), format="csr")
+    built = {str(dev): structured_sa_setup(A, (48, 48), dtype=torch.float64,
+                                           max_coarse=50, device=dev)
+             for dev in ("cpu", cuda_device)}
+    assert len(built["cuda"].levels) == len(built["cpu"].levels) == 3
+    for lg, lc in zip(built["cuda"].levels, built["cpu"].levels):
+        assert lg.A.diags.is_cuda and lg.A.offsets == lc.A.offsets
+        assert float((lg.A.diags.cpu() - lc.A.diags).abs().max()) <= \
+            1e-12 * float(lc.A.diags.abs().max())
+    before = dict(spgemm_kernel.launches)
+    energy = {str(dev): general_sa_setup_sharded(
+        A, smooth=("energy", {"maxiter": 4}), dtype=np.float64,
+        max_coarse=50, device=dev) for dev in ("cpu", cuda_device)}
+    assert sum(spgemm_kernel.launches.values()) > sum(before.values())
+    for lg, lc in zip(energy["cuda"].levels[:-1], energy["cpu"].levels[:-1]):
+        diff = sp.csr_matrix(lg.P.to_scipy() - lc.P.to_scipy())
+        assert abs(diff).max() <= 1e-12 * abs(lc.P.to_scipy()).max()

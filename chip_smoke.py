@@ -97,6 +97,17 @@ computes the same function:
   against the twin (kernels: dia_matvec in the power steps, the probes
   and the cycles; masked_spgemm_banded and masked_spgemm_gather in the
   energy CG and the products);
+* the other constructors on the 1024^2 Poisson problem as plain CSR,
+  every argument at its default (float64 operators):
+  ``aggregation.newideal_solver`` (local least-squares ideal interpolation,
+  solved as one batched pseudo-inverse) and the recursive adaptive SA
+  ``aggregation.asa_solver``, setup stage by stage, CG to 1e-8 and
+  ``solve_mp`` to 1e-10; the profiling tools on the card
+  (``util.profiling``: cycle times, a ``torch.profiler`` trace that must
+  name dia_matvec's kernel, solve timings, ``profile_solver``, the level
+  spectra of a 256^2 hierarchy) and ``sparse.rap`` on the card against
+  scipy; dia_matvec's float64 entry at level 0, warm and cold, beside its
+  twin, its bound and cuSPARSE (kernel: dia_matvec on every DIA level);
 * dia_matvec at every DIA shape that the phases' hierarchies hold or
   their paths launched, with its launches there: both of the kernel's
   routes (a thread a row; threads over (row, offset) pairs for short,
@@ -287,6 +298,8 @@ HIERARCHY_PINS = {
     "energy SA (device)": (6, 1.338179),
     "root-node SA (device)": (6, 1.338179),
     "adaptive SA (device)": (6, 1.338179),
+    "newideal_solver 1024^2": (6, 1.337429),
+    "asa_solver 1024^2": (6, 3.335670),
 }
 # the device setups (phases 33-34): the sharded suite's headline
 # (benchmarks/suite.py:262-280: structured_sa_setup_sharded at 1024^2,
@@ -304,6 +317,14 @@ DEVICE_SA = dict(max_coarse=500, maxiter=60, grid3d=(64, 64, 64),
                  mp={"adaptive SA (device)": dict(inner_maxiter=400,
                                                    repeats=1)},
                  cg_relres={"adaptive SA (device)": 2e-6})
+# the other constructors (phases 35-36) on the 1024^2 Poisson problem as
+# plain CSR, every argument at its default: newideal_solver (a weak
+# preconditioner in both packages: its CG count doubles with the grid) and
+# the recursive adaptive SA asa_solver (the JAX package's CPU runs take 11
+# or 12 CG iterations at 128^2 to 512^2); the spectra of the 256^2
+# asa_solver hierarchy (ARPACK on every level)
+NEWIDEAL = dict(maxiter=2000)
+ASA_NEW = dict(cg=12, cg_tol=3, spectrum_grid=256)
 # short, wide random operators held on both routes of dia_matvec in phase
 # 3: the widest DIA level of poisson3d_64_sa_chebyshev, level 3 of the
 # plain-CSR default hierarchy, and a 603-offset smoother's width
@@ -3459,6 +3480,234 @@ def device_energy_phase(torch):
     return launches, worst, dia_kernel.launches
 
 
+def _nii_stages():
+    """``stage_timer`` stages of ``newideal_solver``."""
+    from pyamg_tpu_torch.aggregation import rootnode_nii as nii
+
+    return [("strength", nii, "_strength"),
+            ("aggregation", nii, "_aggregate"),
+            ("ben_ideal_interpolation", nii, "ben_ideal_interpolation"),
+            ("R*A*P", nii, "_galerkin"),
+            ("device operators", nii, "device_operator"),
+            ("smoothers", nii, "change_smoothers")]
+
+
+def _asa_stages():
+    """``stage_timer`` stages of ``asa_solver``: the recursion's host
+    stages, the device arrays of the accepted hierarchy, the smoothers."""
+    from pyamg_tpu_torch.aggregation import new_adaptive as asa
+
+    return [("targets", asa, "_relax_targets"),
+            ("strength", asa, "_strength"),
+            ("aggregation", asa, "_aggregate"),
+            ("global Ritz", asa, "global_ritz_process"),
+            ("local Ritz", asa, "local_ritz_process"),
+            ("P smoothing", asa, "_smooth_P"),
+            ("R*A*P", asa, "_galerkin"),
+            ("convergence tests", asa, "_test_level_conv"),
+            ("device arrays", asa, "_finalize_device_operators"),
+            ("smoothers", asa, "change_smoothers")]
+
+
+F64_LEVEL0 = (GRID[0] * GRID[1], GRID[0] * GRID[1], 5, "float64")
+
+
+def time_level0_f64(torch, ml):
+    """dia_matvec's float64 entry on a hierarchy's level-0 operator
+    (1024^2 rows, 5 offsets): warm (L2-resident, back to back on one
+    operand) beside the twin and cuSPARSE's float64 CSR SpMV, and cold
+    (copies that overflow L2, in turn) beside cuSPARSE on the same copies;
+    the bound of its bytes.  The launches made here are taken off the
+    counts.  Returns the record."""
+    from pyamg_tpu_torch.benchmarks.dia_spmv_bench import L2_BYTES, csr_tensor
+    from pyamg_tpu_torch.sparse import SparseDIA, dia_kernel
+
+    A0 = ml.levels[0].A
+    op = SparseDIA(A0.diags.to(torch.float64), A0.offsets, A0.shape)
+    x = torch.rand(op.shape[1], device="cuda", dtype=torch.float64)
+    csr = csr_tensor(op.to_scipy(), "cuda", torch.float64)
+    before = dia_kernel.launches, dict(dia_kernel.entry_launches)
+    nbytes, flops = dia_work(op, x)
+    b_ms, b_by = bound(nbytes, flops, F64_FLOP_PER_S)
+    k_ms, p_ms, lib_ms = _medians(torch, lambda: op.matvec(x),
+                                  lambda: op.matvec_plain(x),
+                                  lambda: torch.mv(csr, x))
+    copies = int(2 * L2_BYTES // nbytes) + 2
+    ops = [(SparseDIA(op.diags.clone(), op.offsets, op.shape), x.clone(),
+            csr_tensor(op.to_scipy(), "cuda", torch.float64))
+           for _ in range(copies)]
+
+    def cold():
+        for o, xo, _ in ops:
+            o.matvec(xo)
+
+    def cold_library():
+        for _, xo, c in ops:
+            torch.mv(c, xo)
+
+    cold_ms, cold_lib_ms = (t / copies for t in _medians(torch, cold,
+                                                         cold_library))
+    dia_kernel.launches = before[0]
+    dia_kernel.entry_launches.update(before[1])
+    rec = dict(shape=f"{op.shape[0]}x{op.shape[1]} k={op.n_offsets} float64",
+               warm_ms=k_ms, cold_ms=cold_ms, plain_ms=p_ms,
+               library_warm_ms=lib_ms, library_cold_ms=cold_lib_ms,
+               bound_ms=b_ms, bound_by=b_by, mbytes=nbytes / 1e6)
+    print(f"dia_matvec float64 level 0 {tuple(op.shape)}, {op.n_offsets} "
+          f"offsets, {nbytes / 1e6:.1f} MB: warm {k_ms * 1e3:.2f} us, cold "
+          f"({copies} copies in turn) {cold_ms * 1e3:.2f} us, bound "
+          f"{b_ms * 1e3:.2f} us ({b_by}), cold/bound {cold_ms / b_ms:.2f};  "
+          f"plain {p_ms * 1e3:.2f} us (warm);  cuSPARSE torch.mv(csr int32, "
+          f"float64) warm {lib_ms * 1e3:.2f} us, cold "
+          f"{cold_lib_ms * 1e3:.2f} us")
+    print(json.dumps({"dia_matvec_float64_level0": rec}))
+    return rec
+
+
+def newideal_phase(torch):
+    """``newideal_solver(A)`` with every argument at its default on the
+    1024^2 Poisson problem as plain CSR (float64 operators, symmetric
+    Gauss-Seidel): setup stage by stage, the levels and their device
+    forms, CG to 1e-8 (best of 3), dia_matvec held against its twin on
+    every DIA operator, the hierarchy held to its pin.  Returns
+    ``(launches, worst, ml)``."""
+    phase("35. newideal_solver, 1024^2 plain CSR, defaults")
+    import scipy.sparse as sp
+    from pyamg_tpu_torch.aggregation import newideal_solver
+    from pyamg_tpu_torch.gallery import poisson
+    from pyamg_tpu_torch.sparse import dia_kernel, spgemm_kernel
+
+    t_phase = time.perf_counter()
+    A = sp.csr_matrix(poisson(GRID, format="csr").tocoo())
+    b = A @ np.random.default_rng(0).random(A.shape[0])
+    spgemm_kernel.plain_cuda_calls = 0
+    dia_kernel.launches = 0
+    twin = [0]
+    with counting_twin_calls(torch, twin):
+        ml, _ = timed_setup(torch, lambda: newideal_solver(A, device="cuda"),
+                            _nii_stages())
+        print_levels(ml)
+        res, relres, _ = timed_solve(torch, ml, A, b, tol=1e-8,
+                                     maxiter=NEWIDEAL["maxiter"])
+    launches = dia_kernel.launches
+    worst = hold_dia_cases(torch, np.random.default_rng(35), record_hierarchy(
+        "newideal_solver 1024^2", ml))
+    _check_front_door(torch, "phase 35", launches, worst, twin)
+    its = len(res) - 1
+    if not (its < NEWIDEAL["maxiter"] and relres <= 5e-8):
+        raise AssertionError(f"newideal_solver: CG {its} iterations (< "
+                             f"{NEWIDEAL['maxiter']}), true relres {relres}"
+                             f" (<= 5e-8)")
+    print(f"phase 35 seconds {time.perf_counter() - t_phase:.1f}")
+    return launches, worst, ml
+
+
+def asa_phase(torch):
+    """``asa_solver(A)`` with every argument at its default on the same
+    matrix: setup stage by stage, the targets kept on each level, the
+    levels, ``_asa_work``, CG to 1e-8 and ``solve_mp`` to 1e-10,
+    dia_matvec held against its twin and the hierarchy pinned; then the
+    profiling tools on the card (``profile_cycles``, ``trace`` around a CG
+    solve, which must name dia_matvec's kernel, ``solve_timings``,
+    ``profile_solver``, ``hierarchy_spectrum`` of the 256^2 hierarchy) and
+    ``sparse.rap`` of level 0's host matrices on the card against scipy's
+    R A P.  Returns ``(launches, worst, ml)``."""
+    phase("36. asa_solver, 1024^2 plain CSR, defaults; profiling; sparse.rap")
+    import tempfile
+
+    import scipy.sparse as sp
+    from pyamg_tpu_torch.aggregation import asa_solver
+    from pyamg_tpu_torch.gallery import poisson
+    from pyamg_tpu_torch.sparse import dia_kernel, rap, spgemm_kernel
+    from pyamg_tpu_torch.util import profile_solver, profiling
+
+    t_phase = time.perf_counter()
+    A = sp.csr_matrix(poisson(GRID, format="csr").tocoo())
+    b = A @ np.random.default_rng(0).random(A.shape[0])
+    spgemm_kernel.plain_cuda_calls = 0
+    dia_kernel.launches = 0
+    twin = [0]
+    failures = []
+    with counting_twin_calls(torch, twin):
+        ml, _ = timed_setup(torch, lambda: asa_solver(A, device="cuda"),
+                            _asa_stages())
+        targets = [lvl.B.shape[1] for lvl in ml.levels[:-1]]
+        print(f"targets kept per level {targets};  _asa_work "
+              f"{ml._asa_work:.3f}")
+        print_levels(ml)
+        res, relres_cg, _ = timed_solve(torch, ml, A, b, tol=1e-8)
+        x, info = ml.solve_mp(b, tol=TOL, return_info=True)
+        torch.cuda.synchronize()
+        relres_mp = _true_relres(A, b, x)
+        print(f"solve_mp(tol=1e-10): {info}  true f64 relres "
+              f"{relres_mp:.3e}")
+        cyc = profiling.profile_cycles(ml)
+        print(f"profile_cycles: {cyc}")
+        with tempfile.TemporaryDirectory() as logdir:
+            with profiling.trace(logdir):
+                ml.solve(b, tol=1e-8, accel="cg")
+                torch.cuda.synchronize()
+            events = json.loads(pathlib.Path(logdir, "trace.json")
+                                .read_text())["traceEvents"]
+        kernels = sorted({e["name"] for e in events
+                          if "dia_matvec" in str(e.get("name", ""))
+                          and e.get("cat") == "kernel"})
+        print(f"trace: {len(events)} events; dia_matvec's kernels by name "
+              f"{kernels}")
+        if not kernels:
+            failures.append("the torch.profiler trace names no dia_matvec "
+                            "kernel")
+        _, timing = profiling.solve_timings(ml, b)
+        print(f"solve_timings: iterations {timing['iterations']}, "
+              f"{timing['total_seconds']:.4f} s, "
+              f"{timing['seconds_per_iteration'] * 1e3:.3f} ms an iteration")
+        hist = profile_solver(ml, accel="cg", tol=1e-8)
+        print(f"profile_solver(accel='cg'): {hist.size - 1} iterations, "
+              f"final relative residual {hist[-1] / hist[0]:.3e}")
+    launches = dia_kernel.launches
+    worst = hold_dia_cases(torch, np.random.default_rng(36), record_hierarchy(
+        "asa_solver 1024^2", ml))
+    _check_front_door(torch, "phase 36", launches, worst, twin)
+    its = len(res) - 1
+    if not (abs(its - ASA_NEW["cg"]) <= ASA_NEW["cg_tol"]
+            and relres_cg <= 5e-8 and relres_mp <= 5e-10):
+        failures.append(f"asa_solver: CG {its} iterations (12 +- 3), true "
+                        f"relres {relres_cg} (<= 5e-8); solve_mp {relres_mp} "
+                        f"(<= 5e-10)")
+    small = sp.csr_matrix(poisson((ASA_NEW["spectrum_grid"],) * 2,
+                                  format="csr").tocoo())
+    t0 = time.perf_counter()
+    ml_small = asa_solver(small, device="cuda")
+    spec = profiling.hierarchy_spectrum(ml_small)
+    print(f"hierarchy_spectrum of the {ASA_NEW['spectrum_grid']}^2 "
+          f"hierarchy ({time.perf_counter() - t0:.2f} s with its setup): "
+          + "; ".join(f"n {s['n']} max {s['max']} min {s['min']}"
+                      for s in spec))
+    # ARPACK may stop unconverged on a large level (its start vector is
+    # random): that level reads None in both packages; the dense levels
+    # always have both values
+    if not all(s["min"] is not None and s["max"] is not None
+               for s in spec if s["n"] <= 200) \
+            or len(spec) != len(ml_small.levels):
+        failures.append("hierarchy_spectrum: a dense level has no values")
+    lvl = ml.levels[0]
+    t0 = time.perf_counter()
+    Ac = rap(lvl.R_csr, lvl.A_csr, lvl.P_csr, device="cuda")
+    torch.cuda.synchronize()
+    t_rap = time.perf_counter() - t0
+    want = (lvl.R_csr @ lvl.A_csr @ lvl.P_csr).tocsr()
+    rel = float(abs(Ac.to_scipy() - want).max() / abs(want).max())
+    print(f"sparse.rap(R, A, P) of level 0 on the card: ELL "
+          f"{tuple(Ac.data.shape)} on {Ac.device}, {t_rap:.3f} s; max rel "
+          f"difference from scipy's R A P {rel:.2e}")
+    if not (Ac.device.type == "cuda" and rel <= 1e-12):
+        failures.append(f"sparse.rap: rel {rel} (<= 1e-12) on {Ac.device}")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    print(f"phase 36 seconds {time.perf_counter() - t_phase:.1f}")
+    return launches, worst, ml
+
+
 def dia_shapes(torch, launches):
     """dia_matvec at every DIA shape the smoke ran: the shapes (rows,
     cols, offsets, dtype) of every hierarchy's DIA operators and of every
@@ -3676,6 +3925,17 @@ def main():
         worst[name] = max(worst[name], energy_worst.get(name, 0.0))
     print(f"launches by the device-setup phases 33-34: dia_matvec {n_dev} + "
           f"{n_energy};  {energy_launches}")
+    f64_before = SHAPE_LAUNCHES.get(F64_LEVEL0, 0)
+    n_nii, err_nii, ml_nii = newideal_phase(torch)
+    n_asa_new, err_asa_new, _ = asa_phase(torch)
+    launches["dia_matvec"] += n_nii + n_asa_new
+    worst["dia_matvec"] = max(worst["dia_matvec"], err_nii, err_asa_new)
+    print(f"dia_matvec launches by phases 35-36 (newideal_solver, "
+          f"asa_solver): {n_nii} + {n_asa_new}, of them "
+          f"{SHAPE_LAUNCHES.get(F64_LEVEL0, 0) - f64_before} on the float64 "
+          f"level-0 shape {F64_LEVEL0}")
+    time_level0_f64(torch, ml_nii)
+    del ml_nii
     times["dia_matvec"].update(dia_shapes(torch, launches))
     print(f"chip_smoke seconds: {time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": [dict(

@@ -15,7 +15,10 @@ What is ported:
   Lloyd or pairwise (matching) aggregation; blocked levels in BSR
   blocks); the other symmetric SA front doors ``rootnode_solver``
   (root-node energy minimization, root-embedded transfers) and
-  ``adaptive_sa_solver`` (candidates found by relaxation); the black-box
+  ``adaptive_sa_solver`` (candidates found by relaxation), and in
+  ``aggregation`` the recursive adaptive SA ``asa_solver`` (Ritz-filtered
+  targets) and ``newideal_solver`` (local least-squares ideal
+  interpolation, batched); the black-box
   ``solve``, ``solver`` and ``solver_configuration`` for a Hermitian
   matrix; the work models ``setup_complexity`` and ``cycle_complexity``;
   and every DIA sparse matvec of the solve -- DIA levels, the DIA
@@ -55,11 +58,16 @@ What is ported:
   interpolation values, the evolution squarings and the Galerkin products
   on the masked-SpGEMM kernels;
 * the DIA SpMV benchmark with two more hand-written DIA kernels
-  (``benchmarks.dia_spmv_bench``).
+  (``benchmarks.dia_spmv_bench``);
+* the graph orderings (breadth-first search, components, reverse
+  Cuthill-McKee), the host structural products ``sparse.spgemm``/``rap``/
+  ``transpose``, profiling (``util.profiling``: a ``torch.profiler``
+  trace, cycle and solve timings, level spectra) and VTK export
+  (``vis``).
 """
 
 from . import (aggregation, amg_core, classical, complexity, gallery, graph,
-               krylov, parallel, relaxation, sparse, strength, util)
+               krylov, parallel, relaxation, sparse, strength, util, vis)
 from .aggregation import (adaptive_sa_solver, rootnode_solver,
                           smoothed_aggregation_solver)
 from .blackbox import solve, solver, solver_configuration
@@ -77,7 +85,7 @@ __version__ = "0.1.0"
 
 __all__ = ["aggregation", "amg_core", "classical", "complexity", "gallery",
            "graph", "krylov", "parallel", "relaxation", "sparse", "strength",
-           "util", "smoothed_aggregation_solver", "rootnode_solver",
+           "util", "vis", "smoothed_aggregation_solver", "rootnode_solver",
            "adaptive_sa_solver", "solve", "solver", "solver_configuration",
            "setup_complexity", "cycle_complexity", "ruge_stuben_solver",
            "MultilevelSolver", "MultilevelSolverSet", "multilevel_solver",

@@ -11,7 +11,15 @@ from __future__ import annotations
 import numpy as np
 import scipy.sparse as sp
 
-__all__ = ["fit_candidates"]
+__all__ = ["fit_candidates", "ben_ideal_interpolation"]
+
+
+def ben_ideal_interpolation(*args, **kwargs):
+    """:func:`pyamg_tpu_torch.aggregation.rootnode_nii.ben_ideal_interpolation`
+    under the name it has in this module in the JAX package."""
+    from .rootnode_nii import ben_ideal_interpolation as impl
+
+    return impl(*args, **kwargs)
 
 
 def fit_candidates(AggOp, B, tol=1e-10):

@@ -1,25 +1,27 @@
 """Graph algorithms of the setup (host, numpy).
 
-Port of ``vertex_coloring``, ``maximal_independent_set``, ``bellman_ford``
-and ``lloyd_cluster`` from ``pyamg_tpu/graph.py``.  Colorings: greedy
-first-fit (the compiled ``amg_core`` pass where the library loaded, else
-the same loop over Python lists) and Jones-Plassmann rounds.  Independent
-sets: greedy in node order, Luby rounds, and distance k through a power of
-the graph.  Bellman-Ford from a seed set runs compiled where the library
-loaded; Lloyd clustering alternates it with a recentering on the farthest
-node of each cluster.  The rest of the JAX package's graph module is not
-ported yet.
+Port of ``pyamg_tpu/graph.py``.  Colorings: greedy first-fit (the compiled
+``amg_core`` pass where the library loaded, else the same loop over Python
+lists), Jones-Plassmann rounds, and largest-degree-first (Jones-Plassmann
+rounds on the degree plus a random fraction).  Independent sets: greedy in
+node order, Luby rounds, and distance k through a power of the graph.
+Bellman-Ford from a seed set runs compiled where the library loaded; Lloyd
+clustering alternates it with a recentering on the farthest node of each
+cluster.  Breadth-first search, connected components, a pseudo-peripheral
+node and the symmetric reverse Cuthill-McKee ordering.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import scipy.sparse.csgraph as csgraph
 
 from .amg_core import bellman_ford_native, first_fit_coloring_native
-from .util.utils import not_ported, row_reduce, to_csr
+from .util.utils import row_reduce, to_csr
 
 __all__ = ["vertex_coloring", "maximal_independent_set", "bellman_ford",
-           "lloyd_cluster"]
+           "lloyd_cluster", "breadth_first_search", "connected_components",
+           "pseudo_peripheral_node", "symmetric_rcm"]
 
 
 def _graph_csr(G):
@@ -189,7 +191,8 @@ def vertex_coloring(G, method="JP", seed=0):
     ``method``: ``"FF"``/``"first-fit"``, greedy in node order, each node
     taking the smallest color none of its neighbours holds;
     ``"JP"``/``"MIS"``, Jones-Plassmann rounds with random weights from
-    ``seed``.
+    ``seed``; ``"LDF"``, largest degree first: the same rounds on the
+    weights (off-diagonal degree) + ``default_rng(seed).random(n)``.
 
     Examples
     --------
@@ -216,9 +219,12 @@ def vertex_coloring(G, method="JP", seed=0):
             colors[i] = c
         return np.array(colors, dtype=np.int32)
 
-    if method in ("JP", "MIS"):
+    if method in ("JP", "MIS", "LDF"):
         indptr, indices = G1.indptr, G1.indices
-        tie = np.random.default_rng(seed).random(n) + np.arange(n) * 1e-12
+        weight = np.random.default_rng(seed).random(n)
+        if method == "LDF":
+            weight = np.diff(indptr).astype(float) + weight
+        tie = weight + np.arange(n) * 1e-12
         colors = np.full(n, -1, dtype=np.int32)
         color = 0
         remaining = np.ones(n, dtype=bool)
@@ -235,7 +241,72 @@ def vertex_coloring(G, method="JP", seed=0):
             color += 1
             remaining &= ~winners
         return colors
-    if method == "LDF":
-        raise not_ported("vertex_coloring method 'LDF'",
-                         "the other constructors")
     raise ValueError(f"unknown coloring method {method!r}")
+
+
+def breadth_first_search(G, seed):
+    """Breadth-first search from ``seed``: ``(order, level)``, the nodes in
+    the order they are reached (each frontier's neighbours in CSR order)
+    and each node's distance in edges (-1 where unreached), int64."""
+    G = _graph_csr(G)
+    level = np.full(G.shape[0], -1, dtype=np.int64)
+    indptr, indices = G.indptr, G.indices
+    level[seed] = 0
+    order = []
+    frontier = np.array([int(seed)], dtype=np.int64)
+    depth = 0
+    while frontier.size:
+        order.append(frontier)
+        depth += 1
+        # the frontier's neighbours in CSR order; the first sighting of an
+        # unreached node places it
+        starts, ends = indptr[frontier], indptr[frontier + 1]
+        lens = ends - starts
+        pos = np.arange(lens.sum()) - np.repeat(np.cumsum(lens) - lens,
+                                                lens)
+        nbrs = indices[np.repeat(starts, lens) + pos]
+        nbrs = nbrs[level[nbrs] < 0]
+        _, first = np.unique(nbrs, return_index=True)
+        frontier = nbrs[np.sort(first)].astype(np.int64)
+        level[frontier] = depth
+    return np.concatenate(order), level
+
+
+def connected_components(G):
+    """The connected component of each node (undirected), int64 labels."""
+    G = _graph_csr(G)
+    _, labels = csgraph.connected_components(G, directed=False)
+    return labels.astype(np.int64)
+
+
+def pseudo_peripheral_node(G):
+    """A node of near-maximal eccentricity: from node 0, repeatedly jump
+    to the least-degree node of the last BFS level until the eccentricity
+    stops growing.  Returns ``(node, order, level)`` of its BFS."""
+    G = _graph_csr(G)
+    deg = np.diff(G.indptr)
+    _, level = breadth_first_search(G, 0)
+    ecc = level.max()
+    while True:
+        cand = np.flatnonzero(level == ecc)
+        v = cand[int(np.argmin(deg[cand]))]
+        order, level_v = breadth_first_search(G, v)
+        if level_v.max() <= ecc:
+            return v, order, level_v
+        level, ecc = level_v, level_v.max()
+
+
+def symmetric_rcm(A):
+    """The reverse Cuthill-McKee ordering applied to rows and columns:
+    ``(A[perm][:, perm], perm)``.
+
+    Examples
+    --------
+    >>> from pyamg_tpu_torch.gallery import poisson
+    >>> B, perm = symmetric_rcm(poisson((8, 8), format='csr'))
+    >>> bool(B.nnz == 288 and perm.shape == (64,))
+    True
+    """
+    A = to_csr(A)
+    perm = csgraph.reverse_cuthill_mckee(A, symmetric_mode=True)
+    return A[perm][:, perm], perm

@@ -17,7 +17,7 @@ from .dia import SparseDIA
 from .ell import SparseELL
 from .linop import DenseOp
 
-__all__ = ["device_operator"]
+__all__ = ["device_operator", "count_diagonals"]
 
 DIA_MAX_OFFSETS = 512
 DIA_MEM_BUDGET = 10          # accept k*n up to this multiple of nnz
@@ -30,6 +30,13 @@ def _entry_rows_offsets(A_csr):
     rows = np.repeat(np.arange(A_csr.shape[0], dtype=np.int32),
                      np.diff(A_csr.indptr))
     return rows, A_csr.indices.astype(np.int32, copy=False) - rows
+
+
+def count_diagonals(A_csr) -> int:
+    """The number of distinct diagonals (col - row) that hold an entry."""
+    import scipy.sparse as sp
+
+    return int(np.unique(_entry_rows_offsets(sp.csr_matrix(A_csr))[1]).size)
 
 
 def device_operator(A_csr, dia_max_offsets: int = DIA_MAX_OFFSETS,

@@ -70,16 +70,20 @@ class SparseELL:
 
     # -- constructors and views ----------------------------------------------
     @staticmethod
-    def from_scipy(A, dtype=None, device="cuda") -> "SparseELL":
+    def from_scipy(A, dtype=None, device="cuda", width=None) -> "SparseELL":
         """Padded ELL of a scipy matrix (any format) on ``device``, as wide
-        as its longest row (at least 1)."""
+        as its longest row (at least 1), or ``width`` wide (ValueError if a
+        row is longer)."""
         import scipy.sparse as sp
 
         A = sp.csr_matrix(A)
         A.sort_indices()
         n, m = A.shape
         nnz_per_row = np.diff(A.indptr).astype(np.int32)
-        w = max(1, int(nnz_per_row.max()) if n else 0)
+        max_nnz = int(nnz_per_row.max()) if n else 0
+        if width is not None and max_nnz > width:
+            raise ValueError(f"width={width} < max row nnz {max_nnz}")
+        w = max(1, max_nnz if width is None else int(width))
         dt = numpy_dtype(dtype) if dtype is not None else A.dtype
         data = np.zeros((n, w), dtype=dt)
         cols = np.tile(np.arange(n, dtype=np.int32)[:, None], (1, w))

@@ -1,10 +1,13 @@
 """Setup utilities (host side): option decoding, diagonal and block-diagonal
 extraction, row filters and the relaxation-as-operator wrapper.
 
-Port of the parts of ``pyamg_tpu/util/utils.py`` that the smoothed
-aggregation, root-node and adaptive setups use (among them the root-node
-bookkeeping ``get_Cpt_params`` and ``scale_T``, and the filters of energy
-smoothing), plus the numpy/torch dtype conversions the port needs.
+Port of ``pyamg_tpu/util/utils.py``: what the smoothed aggregation,
+root-node and adaptive setups use (among them the root-node bookkeeping
+``get_Cpt_params`` and ``scale_T``, and the filters of energy smoothing),
+the reference-named helpers (``diag_sparse``, ``to_type``, ``type_prep``,
+``symmetric_rescaling_sa``, ``print_table``, ``Coord2RBM``, ``UnAmal``,
+``profile_solver``), plus the numpy/torch dtype conversions the port
+needs.
 """
 
 from __future__ import annotations
@@ -23,7 +26,9 @@ __all__ = ["unpack_arg", "to_csr", "get_diagonal", "get_block_diag",
            "relaxation_as_linear_operator",
            "levelize_strength_or_aggregation",
            "levelize_smooth_or_improve_candidates", "numpy_dtype",
-           "torch_dtype", "not_ported"]
+           "torch_dtype", "not_ported", "diag_sparse", "profile_solver",
+           "to_type", "type_prep", "symmetric_rescaling_sa", "print_table",
+           "Coord2RBM", "UnAmal", "hierarchy_spectrum"]
 
 
 def not_ported(what, item):
@@ -68,6 +73,15 @@ def to_csr(A):
     if sp.issparse(A):
         return A.tocsr()
     return sp.csr_matrix(np.asarray(A))
+
+
+def diag_sparse(A):
+    """The diagonal of a sparse A as an array; of a vector, the sparse
+    diagonal matrix (CSR) that holds it."""
+    if sp.issparse(A):
+        return A.diagonal()
+    a = np.asarray(A).ravel()
+    return sp.dia_matrix((a[None, :], [0]), shape=(a.size, a.size)).tocsr()
 
 
 def get_diagonal(A, inv=False):
@@ -475,3 +489,98 @@ def relaxation_as_linear_operator(method, A, b):
         return x
 
     return LinearOperator(A.shape, matvec, dtype=A.dtype)
+
+
+def profile_solver(ml, accel=None, **kwargs):
+    """The residual history (numpy) of one ``ml.solve`` on the right-hand
+    side ``A @ default_rng(0).random(n)``, A level 0's host matrix; the
+    keyword arguments go to ``solve``."""
+    A = ml.levels[0].host_A()
+    b = A @ np.random.default_rng(0).random(A.shape[0])
+    residuals = []
+    if accel is None:
+        ml.solve(b, residuals=residuals, **kwargs)
+    else:
+        ml.solve(b, residuals=residuals, accel=accel, **kwargs)
+    return np.asarray(residuals)
+
+
+def to_type(upcast_type, varlist):
+    """Cast every element of ``varlist`` (arrays, sparse matrices, scalars)
+    to ``upcast_type`` in place; returns the list."""
+    for i, v in enumerate(varlist):
+        if np.isscalar(v):
+            varlist[i] = np.array([v], dtype=upcast_type)[0]
+        elif hasattr(v, "astype"):
+            varlist[i] = v.astype(upcast_type)
+    return varlist
+
+
+def type_prep(upcast_type, varlist):
+    """:func:`to_type`, with each scalar made a length-1 array."""
+    for i, v in enumerate(varlist):
+        if np.isscalar(v):
+            varlist[i] = np.array([v], dtype=upcast_type)
+        elif hasattr(v, "astype"):
+            varlist[i] = v.astype(upcast_type)
+    return varlist
+
+
+def symmetric_rescaling_sa(A, B, BH=None):
+    """``[D^-1/2 A D^-1/2, D^1/2 B, D^1/2 BH]`` with ``D = |diag(A)|``
+    (``BH`` stays None when not given)."""
+    D_sqrt, _, A = symmetric_rescaling(A, copy=True)
+    B = np.asarray(B) * np.asarray(D_sqrt).reshape(-1, 1)
+    if BH is not None:
+        BH = np.asarray(BH) * np.asarray(D_sqrt).reshape(-1, 1)
+    return [A, B, BH]
+
+
+def print_table(table, title="", delim="|", centering="center",
+                col_padding=2, header=True, headerchar="-"):
+    """A list of rows as an ASCII table string: columns as wide as their
+    widest cell plus ``col_padding``, justified by ``centering``
+    (``"center"``, ``"left"``, ``"right"``), a rule of ``headerchar`` under
+    the first row when ``header``, the title centered above."""
+    rows = [["" if c is None else str(c) for c in row] for row in table]
+    ncols = max((len(r) for r in rows), default=0)
+    rows = [r + [""] * (ncols - len(r)) for r in rows]
+    widths = [max(len(r[j]) for r in rows) + col_padding
+              for j in range(ncols)]
+    just = {"center": str.center, "left": str.ljust,
+            "right": str.rjust}.get(centering, str.center)
+    total = sum(widths) + len(delim) * (ncols - 1)
+    lines = ["", title.center(total)] if title else []
+    for i, r in enumerate(rows):
+        lines.append(delim.join(just(c, w) for c, w in zip(r, widths)))
+        if i == 0 and header:
+            lines.append(headerchar * max(total, 1))
+    return "\n".join(lines) + "\n"
+
+
+def Coord2RBM(numNodes, numPDEs, x, y, z):
+    """Near-nullspace modes of ``numNodes`` nodes at coordinates (x, y, z):
+    ``numPDEs`` 1 gives ones ``(numNodes, 1)``; 3 or 6 give the six rigid
+    body modes ``(numNodes * numPDEs, 6)``, per node ``[I Q; 0 I]`` with Q
+    the infinitesimal rotations."""
+    if numPDEs == 1:
+        return np.ones((int(numNodes), 1))
+    if numPDEs not in (3, 6):
+        raise ValueError("Coord2RBM supports numPDEs in (1, 3, 6), got "
+                         f"{numPDEs}")
+    x, y, z = (np.asarray(v, dtype=float).ravel() for v in (x, y, z))
+    if not (x.size == y.size == z.size == numNodes):
+        raise ValueError("coordinate vectors must have length numNodes")
+    rbm = np.zeros((numNodes, numPDEs, 6))
+    rbm[:, :3, :3] = np.eye(3)
+    rbm[:, 0, 4], rbm[:, 0, 5] = z, -y
+    rbm[:, 1, 3], rbm[:, 1, 5] = -z, x
+    rbm[:, 2, 3], rbm[:, 2, 4] = y, -x
+    if numPDEs == 6:
+        rbm[:, 3:, 3:] = np.eye(3)
+    return rbm.reshape(numNodes * numPDEs, 6)
+
+
+UnAmal = unamal
+
+from .profiling import hierarchy_spectrum  # noqa: E402  (exported here too)

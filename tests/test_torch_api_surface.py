@@ -29,37 +29,14 @@ from test_api_surface import REFERENCE_SURFACE
 
 ROADMAP = (Path(__file__).resolve().parents[1] / "ROADMAP.md").read_text()
 
-CONSTRUCTORS = "the other constructors"
 DISTRIBUTED = "the distributed path"
 BY_DESIGN = "Not ported by design"
 
 # (reference module, name) -> the ROADMAP.md item that ports it
 TO_PORT = {
-    ("pyamg_tpu", "vis"): CONSTRUCTORS,
-    **{("pyamg_tpu.aggregation", n): CONSTRUCTORS
-       for n in ("asa_solver", "tl_sa_solver", "newideal_solver",
-                 "ben_ideal_interpolation")},
-    **{("pyamg_tpu.aggregation.new_adaptive", n): CONSTRUCTORS
-       for n in ("A_norm", "my_rand", "tl_sa_solver")},
-    ("pyamg_tpu.aggregation.rootnode_nii", "newideal_solver"): CONSTRUCTORS,
-    ("pyamg_tpu.aggregation.tentative", "ben_ideal_interpolation"):
-        CONSTRUCTORS,
-    ("pyamg_tpu.graph", "connected_components"): CONSTRUCTORS,
     **{("pyamg_tpu.parallel", n): DISTRIBUTED
        for n in ("make_mesh", "shard_solver")},
-    **{("pyamg_tpu.sparse", n): CONSTRUCTORS
-       for n in ("count_diagonals", "spgemm", "rap", "transpose")},
-    **{("pyamg_tpu.util", n): CONSTRUCTORS
-       for n in ("profiling", "profile_cycles", "hierarchy_spectrum",
-                 "diag_sparse", "profile_solver")},
     ("pyamg_tpu.util", "pinv_array_jax"): BY_DESIGN,
-    **{("pyamg_tpu.util.utils", n): CONSTRUCTORS
-       for n in ("diag_sparse", "profile_solver", "to_type", "type_prep",
-                 "UnAmal", "Coord2RBM", "hierarchy_spectrum", "print_table",
-                 "symmetric_rescaling_sa")},
-    **{("pyamg_tpu.vis", n): CONSTRUCTORS
-       for n in ("vis_splitting", "vis_aggregate_groups", "write_vtu",
-                 "write_basic_mesh")},
 }
 
 

@@ -41,7 +41,7 @@ def test_public_surface():
     assert sorted(pyamg_tpu_torch.__all__) == sorted(
         ["aggregation", "amg_core", "classical", "complexity", "gallery",
          "graph", "krylov", "parallel", "relaxation", "sparse", "strength",
-         "util", "classical_strength_of_connection",
+         "util", "vis", "classical_strength_of_connection",
          "symmetric_strength_of_connection",
          "evolution_strength_of_connection",
          "smoothed_aggregation_solver", "rootnode_solver",
@@ -51,14 +51,32 @@ def test_public_surface():
          "multilevel_solver_set", "coarse_grid_solver", "SparseDIA",
          "SparseELL", "SparseBDIA", "BlockELL", "__version__"])
     from pyamg_tpu_torch import (aggregation, amg_core, blackbox, classical,
-                                 complexity, gallery, krylov, parallel,
-                                 relaxation, sparse, strength)
-    from pyamg_tpu_torch.aggregation import adaptive
-    from pyamg_tpu_torch.util import linalg, utils
+                                 complexity, gallery, graph, krylov,
+                                 parallel, relaxation, sparse, strength, util,
+                                 vis)
+    from pyamg_tpu_torch.aggregation import (adaptive, new_adaptive,
+                                             rootnode_nii, tentative)
+    from pyamg_tpu_torch.util import linalg, profiling, utils
     from pyamg_tpu_torch.classical import split
     from pyamg_tpu_torch.relaxation import device
 
     for module, names in (
+            (aggregation, ["asa_solver", "tl_sa_solver", "newideal_solver",
+                           "ben_ideal_interpolation"]),
+            (new_adaptive, ["asa_solver", "tl_sa_solver",
+                            "global_ritz_process", "local_ritz_process",
+                            "A_norm", "my_rand"]),
+            (rootnode_nii, ["newideal_solver", "ben_ideal_interpolation"]),
+            (tentative, ["fit_candidates", "ben_ideal_interpolation"]),
+            (graph, ["breadth_first_search", "connected_components",
+                     "pseudo_peripheral_node", "symmetric_rcm"]),
+            (sparse, ["count_diagonals", "spgemm", "rap", "transpose"]),
+            (util, ["profiling", "profile_cycles", "hierarchy_spectrum",
+                    "diag_sparse", "profile_solver"]),
+            (profiling, ["trace", "profile_cycles", "solve_timings",
+                         "hierarchy_spectrum"]),
+            (vis, ["write_vtu", "write_basic_mesh", "vis_aggregate_groups",
+                   "vis_splitting"]),
             (aggregation, ["rootnode_solver", "adaptive_sa_solver",
                            "parallel_aggregation", "standard_aggregation",
                            "jacobi_prolongation_smoother",
@@ -127,7 +145,10 @@ def test_public_surface():
                       "cond", "ishermitian"]),
             (utils, ["scale_T", "get_Cpt_params", "filter_operator",
                      "truncate_rows", "filter_matrix_columns",
-                     "symmetric_rescaling"])):
+                     "symmetric_rescaling", "diag_sparse", "profile_solver",
+                     "to_type", "type_prep", "symmetric_rescaling_sa",
+                     "print_table", "Coord2RBM", "UnAmal",
+                     "hierarchy_spectrum"])):
         assert set(names) <= set(module.__all__), module.__name__
 
 
@@ -166,7 +187,13 @@ def _entry_points():
             "rootnode_solver": pyamg_tpu_torch.rootnode_solver,
             "adaptive_sa_solver": pyamg_tpu_torch.adaptive_sa_solver,
             "solve": pyamg_tpu_torch.solve,
-            "solver": pyamg_tpu_torch.solver}
+            "solver": pyamg_tpu_torch.solver,
+            "newideal_solver": pyamg_tpu_torch.aggregation.newideal_solver,
+            "asa_solver": pyamg_tpu_torch.aggregation.asa_solver,
+            "tl_sa_solver": pyamg_tpu_torch.aggregation.tl_sa_solver,
+            "sparse.spgemm": pyamg_tpu_torch.sparse.spgemm,
+            "sparse.rap": pyamg_tpu_torch.sparse.rap,
+            "sparse.transpose": pyamg_tpu_torch.sparse.transpose}
 
 
 @pytest.mark.parametrize("name", ["MultilevelSolver", "SparseDIA.from_scipy",
@@ -179,8 +206,10 @@ def _entry_points():
                                   "ruge_stuben_solver",
                                   "classical_setup_sharded",
                                   "rootnode_solver", "adaptive_sa_solver",
-                                  "solve", "solver",
-                                  "krylov.prepare", "krylov.make_matvec",
+                                  "solve", "solver", "newideal_solver",
+                                  "asa_solver", "tl_sa_solver",
+                                  "sparse.spgemm", "sparse.rap",
+                                  "sparse.transpose", "krylov.prepare", "krylov.make_matvec",
                                   "gallery.demo"]
                          + [f"krylov.{name}" for name in KRYLOV])
 def test_entry_points_default_to_the_card(name):

@@ -108,6 +108,17 @@ computes the same function:
   spectra of a 256^2 hierarchy) and ``sparse.rap`` on the card against
   scipy; dia_matvec's float64 entry at level 0, warm and cold, beside its
   twin, its bound and cuSPARSE (kernel: dia_matvec on every DIA level);
+* the distributed path (phase 37, ``torch.distributed`` through
+  ``parallel.launch``): the sharded suite's headline built and solved over
+  4 gloo ranks that share the card (exchanges staged through pinned host
+  memory) and held against phase 33's one-card build, the same at 512^2
+  over 8 ranks (the JAX package's 8-device record), on one NCCL rank, and
+  ``shard_solver`` of the plain-CSR default call over 4 ranks (halo-ELL
+  levels); every rank counts its dia_matvec launches on its row slabs,
+  holds them bitwise against the twin and makes no twin call on CUDA, and
+  its host seconds inside collectives; the headline's setup and solve run
+  again with rank 0 under ``torch.profiler`` for its device-busy time
+  (kernel: dia_matvec on rectangular slabs, offsets shifted by the halo);
 * dia_matvec at every DIA shape that the phases' hierarchies hold or
   their paths launched, with its launches there: both of the kernel's
   routes (a thread a row; threads over (row, offset) pairs for short,
@@ -323,6 +334,12 @@ DEVICE_SA = dict(max_coarse=500, maxiter=60, grid3d=(64, 64, 64),
 # the recursive adaptive SA asa_solver (the JAX package's CPU runs take 11
 # or 12 CG iterations at 128^2 to 512^2); the spectra of the 256^2
 # asa_solver hierarchy (ARPACK on every level)
+# phase 37: the sharded suite's headline built and solved over ranks
+# (gloo ranks sharing the card; one NCCL rank), the JAX package's 8-device
+# record at 512^2 (benchmarks/results/sharded_cpu8.json: 7 CG iterations,
+# relres 1.98e-7), and shard_solver of the plain-CSR default call
+RANKS = dict(ranks=4, ranks_512=8, grid_512=(512, 512), cg_512=7,
+             timeout=600)
 NEWIDEAL = dict(maxiter=2000)
 ASA_NEW = dict(cg=12, cg_tol=3, spectrum_grid=256)
 # short, wide random operators held on both routes of dia_matvec in phase
@@ -335,6 +352,11 @@ WIDE_CASES = ((4096, 179), (2154, 285), (4096, 603))
 SHAPE_LAUNCHES = {}
 SHAPE_OFFSETS = {}
 SHAPE_SOURCES = {}
+# phase 33's one-card headline hierarchy (rows, CG count, diagonals), which
+# phase 37 holds the build over ranks against; the shapes of the row slabs
+# the ranks of phase 37 launched dia_matvec on
+PHASE33 = {}
+RANK_SLABS = set()
 
 
 def phase(name):
@@ -3307,6 +3329,9 @@ def device_structured_phase(torch):
         + record_hierarchy("device structured SA 64^3", ml3))
     _check_front_door(torch, "phase 33", launches, worst, twin)
     iters, iters_l = len(res) - 1, len(res_l) - 1
+    PHASE33.update(rows=rows, iters=iters, opc=ml.operator_complexity(),
+                   diags=[lvl.A.diags.cpu().numpy() for lvl in ml.levels],
+                   offsets=[lvl.A.offsets for lvl in ml.levels])
     if not (rows == DEFAULT_SA["structured"]["rows"] and rap_err <= 1e-5
             and iters <= DEVICE_SA["maxiter"] and relres_cg <= 1e-5
             and relres <= 5e-10 and abs(iters_l - iters) <= 1
@@ -3708,6 +3733,332 @@ def asa_phase(torch):
     return launches, worst, ml
 
 
+def _rank_headline(torch, mesh, case):
+    """One rank's part of the headline: ``structured_sa_setup_sharded`` on
+    the 1024^2 (or 512^2) Poisson problem in float32 with
+    ``max_coarse=500`` over the mesh, then CG to 1e-6 (60 iterations at
+    most), as ``benchmarks/suite.py:262-288``."""
+    from pyamg_tpu_torch.gallery import poisson
+    from pyamg_tpu_torch.parallel import (shard_structured_solver,
+                                          structured_sa_setup_sharded)
+    from pyamg_tpu_torch.parallel import mesh as mesh_mod
+    from pyamg_tpu_torch.sparse import dia_kernel
+    from pyamg_tpu_torch.sparse.dia import ShardedDIA
+
+    grid = RANKS["grid_512"] if case == "512" else GRID
+    A = poisson(grid, format="csr")
+    b = A @ np.random.default_rng(0).random(A.shape[0])
+
+    def setup():
+        return structured_sa_setup_sharded(
+            A, grid, dtype=torch.float32, max_coarse=DEVICE_SA["max_coarse"])
+
+    def solve(ml, res):
+        return ml.solve(b, tol=1e-6, maxiter=DEVICE_SA["maxiter"],
+                        accel="cg", residuals=res)
+
+    torch.cuda.synchronize()
+    mesh_mod.reset_counters()
+    t0 = time.perf_counter()
+    ml = setup()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    setup_exchange = dict(mesh_mod.counters)
+    res = []
+    mesh_mod.reset_counters()
+    n0 = dia_kernel.launches
+    t0 = time.perf_counter()
+    x = solve(ml, res)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    exchange = dict(mesh_mod.counters)
+    solve_launches = dia_kernel.launches - n0
+    split = None
+    if case in ("headline", "nccl"):
+        # the same setup and solve again, rank 0 under torch.profiler: its
+        # device-busy ms beside the exchange's seconds; these launches are
+        # left out of the counts
+        kept = (dia_kernel.launches, dict(SHAPE_LAUNCHES))
+        if mesh.rank == 0:
+            ml2, setup_wall, setup_dev, _ = _profiled(torch, setup)
+        else:
+            ml2 = setup()
+        mesh_mod.reset_counters()
+        if mesh.rank == 0:
+            _, solve_wall, solve_dev, _ = _profiled(
+                torch, lambda: solve(ml2, []))
+            split = dict(setup_wall=setup_wall, setup_device_ms=setup_dev,
+                         solve_wall=solve_wall, solve_device_ms=solve_dev,
+                         solve_exchange_s=mesh_mod.counters["seconds"])
+        else:
+            solve(ml2, [])
+        del ml2
+        dia_kernel.launches = kept[0]
+        SHAPE_LAUNCHES.clear()
+        SHAPE_LAUNCHES.update(kept[1])
+    levels, slabs = [], []
+    for lvl in ml.levels:
+        lay, op = lvl.layout, lvl.A
+        levels.append(dict(
+            rows=op.shape[0], sharded=lay.sharded, k=op.n_offsets,
+            halo=op.halo.exchange.n_recv if isinstance(op, ShardedDIA) else 0,
+            gather=lay.n - lay.nl if lay.sharded else 0))
+        for part in (op, *getattr(getattr(lvl, "P", None), "ops", ()),
+                     *getattr(getattr(lvl, "R", None), "ops", ())):
+            if isinstance(part, ShardedDIA):
+                slabs.append(part)
+    out = dict(rows=[lvl.A.shape[0] for lvl in ml.levels],
+               opc=ml.operator_complexity(), iters=len(res) - 1,
+               relres=_true_relres(A, b, x), setup_s=setup_s,
+               solve_s=solve_s, exchange=exchange,
+               setup_exchange=setup_exchange, split=split,
+               solve_launches=solve_launches, levels=levels,
+               solver_placement=shard_structured_solver(ml).placement())
+    diags = [lvl.A.full_diags() if isinstance(lvl.A, ShardedDIA)
+             else lvl.A.diags for lvl in ml.levels]
+    if case == "headline" and mesh.rank == 0:
+        out["diags"] = [d.cpu().numpy() for d in diags]
+    return out, slabs
+
+
+def _rank_shard_solver(torch, mesh):
+    """One rank's part of ``shard_solver`` on the plain-CSR default call
+    at 1024^2 (float32 operators, as phase 11): the unsharded CG to 1e-8,
+    then the same solve sharded (padded-ELL levels from the host CSR
+    matrices, float64)."""
+    import scipy.sparse as sp
+    import pyamg_tpu_torch
+    from pyamg_tpu_torch.gallery import poisson
+    from pyamg_tpu_torch.parallel import shard_solver
+    from pyamg_tpu_torch.parallel import mesh as mesh_mod
+
+    A = sp.csr_matrix(poisson(GRID, format="csr").tocoo())
+    b = A @ np.random.default_rng(0).random(A.shape[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ml = pyamg_tpu_torch.smoothed_aggregation_solver(
+        A, op_dtype=torch.float32, device=mesh.device)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    res1 = []
+    ml.solve(b, tol=1e-8, accel="cg", residuals=res1)
+    t0 = time.perf_counter()
+    sol = shard_solver(ml, mesh=mesh)
+    shard_s = time.perf_counter() - t0
+    res = []
+    mesh_mod.reset_counters()
+    t0 = time.perf_counter()
+    x = sol.solve(b, tol=1e-8, accel="cg", residuals=res)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    levels = [dict(rows=lvl.A.shape[0], A=type(lvl.A).__name__,
+                   P=type(getattr(lvl, "P", None)).__name__,
+                   halo=getattr(lvl.A, "halo_width", lvl.A.shape[0]
+                                - lvl.layout.nl),
+                   gather=lvl.A.shape[0] - lvl.layout.nl)
+              for lvl in sol.levels]
+    out = dict(rows=[lvl.A.shape[0] for lvl in ml.levels],
+               opc=ml.operator_complexity(), iters_one=len(res1) - 1,
+               iters=len(res) - 1, relres=_true_relres(A, b, x),
+               setup_s=setup_s, shard_s=shard_s, solve_s=solve_s,
+               exchange=dict(mesh_mod.counters), levels=levels)
+    return out, []
+
+
+def ranks_cases(mesh, cases):
+    """What every rank of phase 37 runs: each case in turn with the DIA
+    kernel's launches (by shape) and its plain twin's calls on CUDA
+    counted, then, outside the count, the kernel held bitwise against its
+    twin on every DIA slab of this rank's hierarchy.  Returns ``{case:
+    record}``."""
+    import torch
+    from pyamg_tpu_torch.sparse import dia_kernel
+
+    records = {}
+    for case in cases:
+        dia_kernel.launches = 0
+        SHAPE_LAUNCHES.clear()
+        twin = [0]
+        with counting_twin_calls(torch, twin):
+            if case == "shard_solver":
+                out, slabs = _rank_shard_solver(torch, mesh)
+            else:
+                out, slabs = _rank_headline(torch, mesh, case)
+        out.update(rank=mesh.rank, size=mesh.size, backend=mesh.backend,
+                   device=str(mesh.device), launches=dia_kernel.launches,
+                   twin=twin[0],
+                   shapes={key: (n, SHAPE_OFFSETS[key].tolist())
+                           for key, n in SHAPE_LAUNCHES.items()})
+        rng = np.random.default_rng(37 + mesh.rank)
+        worst = 0.0
+        for op in slabs:
+            m = op.diags.shape[1]
+            x = torch.as_tensor(rng.standard_normal(m), device=op.device,
+                                dtype=op.dtype)
+            worst = max(worst, float((op.matvec(x) - op.matvec_plain(x))
+                                     .abs().max()))
+        out["slab_err"], out["slabs"] = worst, len(slabs)
+        records[case] = out
+        del slabs
+        torch.cuda.empty_cache()
+    return records
+
+
+def sharded_phase(torch):
+    """The sharded suite's headline built and solved over ranks
+    (``torch.distributed``, ``parallel.launch``): (i)
+    ``structured_sa_setup_sharded`` on 1024^2 Poisson over 4 gloo ranks
+    that share the card (every exchange staged through pinned host
+    memory): phase 33's levels and operator complexity, each level's
+    diagonals gathered against phase 33's one-card build (1e-5), the JAX
+    package's placement (sharded while the rows divide the ranks), CG to
+    1e-6 in phase 33's count +- 1; (ii) the same at 512^2 over 8 gloo
+    ranks against the JAX package's 8-device record (7 +- 1, relres 1e-6);
+    (iii) the 1024^2 headline on one NCCL rank: phase 33's CG count; (iv)
+    ``shard_solver`` of the plain-CSR default call over 4 gloo ranks:
+    level 0's A and P halo ELL, CG to 1e-8 in the unsharded count +- 1.
+    Every rank counts its dia_matvec launches by shape (its slabs of
+    (rows / ranks) x (rows / ranks + lo + hi), offsets shifted by lo) and
+    its twin's calls on CUDA (none allowed), and holds the kernel
+    bitwise against the twin on its slabs.  Each case prints each rank's
+    host seconds inside collectives; the 1024^2 headline's cases (4 gloo
+    ranks, one NCCL rank) also repeat the setup and solve with rank 0
+    under ``torch.profiler``, for the split between exchange, device and
+    host.  Returns ``(launches,
+    worst)``."""
+    phase("37. the structured setup and the solve over ranks "
+          "(torch.distributed)")
+    from pyamg_tpu_torch.parallel import launch
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    groups = [(("headline", "shard_solver"), RANKS["ranks"], "gloo"),
+              (("512",), RANKS["ranks_512"], "gloo"),
+              (("nccl",), 1, "nccl")]
+    titles = {"headline": "1024^2 headline over 4 gloo ranks sharing the "
+                          "card",
+              "shard_solver": "shard_solver of the plain-CSR default call "
+                              "over the same 4 gloo ranks",
+              "512": "512^2 headline over 8 gloo ranks sharing the card",
+              "nccl": "1024^2 headline on one NCCL rank"}
+    runs, failures = {}, []
+    for group, nprocs, backend in groups:
+        t0 = time.perf_counter()
+        outs = launch(ranks_cases, nprocs, backend, "cuda:0",
+                      args=(group,), timeout=RANKS["timeout"])
+        print(f"{nprocs} {backend} ranks for {', '.join(group)}: launch wall "
+              f"{time.perf_counter() - t0:.1f} s (process start and group "
+              f"included)")
+        for case in group:
+            runs[case] = [records[case] for records in outs]
+    for case, outs in runs.items():
+        print(f"-- {titles[case]}")
+        o = outs[0]
+        its = max(o["iters"], 1)
+        print(f"backend {o['backend']}, {o['size']} ranks on {o['device']}")
+        for i, lvl in enumerate(o["levels"]):
+            place = ("row-sharded" if lvl.get("sharded", True)
+                     else "whole on every rank")
+            forms = (f"A {lvl['A']}  P {lvl['P']}  " if "A" in lvl else
+                     f"k={lvl['k']}  ")
+            print(f"level {i}: rows {lvl['rows']:8d}  {forms}{place}  halo "
+                  f"entries a matvec, largest over the ranks "
+                  f"{max(r['levels'][i]['halo'] for r in outs)} (a full "
+                  f"gather: {lvl['gather']})")
+        if "solver_placement" in o:
+            print(f"shard_structured_solver (min_shard_rows 4096) places "
+                  f"{o['solver_placement']}")
+        print(f"setup_s {o['setup_s']:.3f}  solve_s {o['solve_s']:.3f}  CG "
+              f"iterations {o['iters']}"
+              + (f" (unsharded {o['iters_one']})" if "iters_one" in o
+                 else "")
+              + f"  true f64 relres {o['relres']:.3e}  opc {o['opc']:.6f}")
+        print(f"a CG iteration (rank 0): "
+              f"{o['exchange']['collectives'] / its:.1f} collectives, "
+              f"{o['exchange']['bytes'] / its:.0f} bytes received")
+        secs = {stage: [round(r[key]["seconds"], 3) for r in outs]
+                for stage, key in (("setup", "setup_exchange"),
+                                   ("solve", "exchange")) if key in o}
+        print(f"host seconds in collectives a rank: {secs}")
+        split = o.get("split")
+        if split:
+            print(f"rank 0 again under torch.profiler: setup wall "
+                  f"{split['setup_wall']:.3f} s, device-busy "
+                  f"{split['setup_device_ms']:.1f} ms;  solve wall "
+                  f"{split['solve_wall']:.3f} s, device-busy "
+                  f"{split['solve_device_ms']:.1f} ms, in collectives "
+                  f"{split['solve_exchange_s']:.3f} s")
+        print(f"dia_matvec launches a rank {[r['launches'] for r in outs]};"
+              f"  plain twin calls on CUDA a rank "
+              f"{[r['twin'] for r in outs]};  kernel vs twin on "
+              f"{[r['slabs'] for r in outs]} slabs a rank: max abs "
+              f"{max(r['slab_err'] for r in outs):.1e}")
+        for r in outs:
+            if r["twin"] or r["slab_err"]:
+                failures.append(f"{case} rank {r['rank']}: twin calls "
+                                f"{r['twin']}, kernel vs twin "
+                                f"{r['slab_err']}")
+            if r["relres"] != o["relres"]:
+                failures.append(f"{case}: ranks disagree on x")
+
+    head, p33 = runs["headline"][0], PHASE33
+    want_place = [True] * 4 + [False]
+    errs = [float(np.abs(d - d33).max() / np.abs(d33).max())
+            for d, d33 in zip(head["diags"], p33["diags"])]
+    print(f"(i) levels {head['rows']} opc {head['opc']:.6f} (phase 33: "
+          f"{p33['rows']}, {p33['opc']:.6f});  diagonals vs phase 33's, "
+          f"max rel by level {[f'{e:.1e}' for e in errs]};  CG "
+          f"{head['iters']} (phase 33: {p33['iters']})")
+    if not (head["rows"] == p33["rows"]
+            and f"{head['opc']:.6f}" == f"{p33['opc']:.6f}"
+            and max(errs) <= 1e-5
+            and [lvl["sharded"] for lvl in head["levels"]] == want_place
+            and abs(head["iters"] - p33["iters"]) <= 1
+            and head["relres"] <= 1e-5 and all(r["launches"] > 0
+                                               for r in runs["headline"])):
+        failures.append(f"(i) headline over 4 ranks: {head['rows']} "
+                        f"{head['opc']} diags {errs} placement "
+                        f"{[lvl['sharded'] for lvl in head['levels']]} CG "
+                        f"{head['iters']} relres {head['relres']}")
+    r512 = runs["512"][0]
+    if not (abs(r512["iters"] - RANKS["cg_512"]) <= 1
+            and r512["relres"] <= 1e-6):
+        failures.append(f"(ii) 512^2 over 8 ranks: CG {r512['iters']} "
+                        f"(7 +- 1) relres {r512['relres']} (<= 1e-6)")
+    nccl = runs["nccl"][0]
+    if not (nccl["iters"] == p33["iters"] and nccl["backend"] == "nccl"
+            and nccl["relres"] <= 1e-5):
+        failures.append(f"(iii) one NCCL rank: CG {nccl['iters']} (phase "
+                        f"33: {p33['iters']}) relres {nccl['relres']}")
+    sh = runs["shard_solver"][0]
+    pins = HIERARCHY_PINS["default call, plain CSR"]
+    if not ((len(sh["rows"]), f"{sh['opc']:.6f}") == (pins[0],
+                                                       f"{pins[1]:.6f}")
+            and sh["levels"][0]["A"] == sh["levels"][0]["P"] == "HaloELL"
+            and abs(sh["iters"] - sh["iters_one"]) <= 1
+            and sh["relres"] <= 5e-7):
+        failures.append(f"(iv) shard_solver: levels {sh['rows']} opc "
+                        f"{sh['opc']}, level 0 {sh['levels'][0]}, CG "
+                        f"{sh['iters']} (unsharded {sh['iters_one']}) relres "
+                        f"{sh['relres']}")
+
+    launches = 0
+    for outs in runs.values():
+        for r in outs:
+            launches += r["launches"]
+            for key, (n, offsets) in r["shapes"].items():
+                SHAPE_LAUNCHES[key] = SHAPE_LAUNCHES.get(key, 0) + n
+                SHAPE_OFFSETS.setdefault(key, torch.tensor(offsets))
+                if key[0] != key[1]:        # a slab: lo + nl + hi columns
+                    RANK_SLABS.add(key)
+    worst = max(r["slab_err"] for outs in runs.values() for r in outs)
+    print(f"dia_matvec launches over the ranks of phase 37: {launches};  "
+          f"phase 37 seconds {time.perf_counter() - t_phase:.1f}")
+    if failures:
+        raise AssertionError("phase 37: " + "; ".join(failures))
+    return launches, worst
+
+
 def dia_shapes(torch, launches):
     """dia_matvec at every DIA shape the smoke ran: the shapes (rows,
     cols, offsets, dtype) of every hierarchy's DIA operators and of every
@@ -3718,7 +4069,8 @@ def dia_shapes(torch, launches):
     operator as CSR with int32 indices) and the bound's times, the route
     the launcher takes and launches x (its time - bound).  ``launches``: the kernels line's counts
     by entry, which the per-shape launches must sum to.  Returns the
-    widest launched float32 shape's record for the kernels line."""
+    widest launched float32 shape's record for the kernels line, with the
+    records of phase 37's rank slabs."""
     phase("28. dia_matvec at every DIA shape of the paths")
     from pyamg_tpu_torch.benchmarks.dia_route_sweep import csr_of
     from pyamg_tpu_torch.sparse import SparseDIA, dia_kernel
@@ -3814,11 +4166,26 @@ def dia_shapes(torch, launches):
     print(f"{len(records)} shapes; the chosen route slower than cuSPARSE at "
           f"{slower or 'none'}; more than 10% slower than the other route at "
           f"{other or 'none'}")
+    def total(key):
+        return sum(r["launches"] * r[key] for r in records
+                   if r[key] is not None)
+
+    print(f"over the {len(records)} shapes, launches x time: "
+          f"{total('ms'):.1f} ms on the chosen routes, "
+          f"{total('tall_ms'):.1f} ms all on the tall route, "
+          f"{total('library_ms'):.1f} ms for cuSPARSE (where it runs), "
+          f"{total('bound_ms'):.1f} ms at the bound")
     print(json.dumps({"dia_shapes": records}))
     widest = max((r for r in records
                   if r["launches"] and r["dtype"] == "float32"),
                  key=lambda r: (r["k"], r["launches"]))
-    return dict(widest_shape=widest["shape"], widest_route=widest["route"],
+    slabs = [{key: r[key] for key in ("shape", "launches", "route", "ms",
+                                      "plain_ms", "bound_ms", "library_ms",
+                                      "max_abs_err")}
+             for r in records if (r["n"], r["m"], r["k"], r["dtype"])
+             in RANK_SLABS]
+    return dict(rank_slabs=slabs,
+                widest_shape=widest["shape"], widest_route=widest["route"],
                 widest_ms=widest["ms"], widest_tall_ms=widest["tall_ms"],
                 widest_plain_ms=widest["plain_ms"],
                 widest_bound_ms=widest["bound_ms"],
@@ -3936,6 +4303,9 @@ def main():
           f"level-0 shape {F64_LEVEL0}")
     time_level0_f64(torch, ml_nii)
     del ml_nii
+    n_ranks, err_ranks = sharded_phase(torch)
+    launches["dia_matvec"] += n_ranks
+    worst["dia_matvec"] = max(worst["dia_matvec"], err_ranks)
     times["dia_matvec"].update(dia_shapes(torch, launches))
     print(f"chip_smoke seconds: {time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": [dict(

@@ -21,11 +21,22 @@ inside a level:
 The host keeps the static bookkeeping (shapes, offsets, class selectors)
 and the coarsest level's small dense factorization.
 
-Port of ``pyamg_tpu/aggregation/device_setup.py`` on one device.  The
-power iteration starts from a seeded normal vector drawn by
-:func:`_power_start`; JAX's random stream cannot be reproduced in torch,
-so rho, and with it every value of P, differs from the JAX package's by
-the power iteration's error unless both start from the same vector.
+Port of ``pyamg_tpu/aggregation/device_setup.py``.  The power iteration
+starts from a seeded normal vector drawn by :func:`_power_start`; JAX's
+random stream cannot be reproduced in torch, so rho, and with it every
+value of P, differs from the JAX package's by the power iteration's error
+unless both start from the same vector.
+
+Over a mesh of ranks (``mesh=``, ``parallel.make_mesh``) the construction
+itself is spread: a level is row-sharded while its size divides the ranks
+(the JAX package's rule), else whole on every rank.  The diagonals are
+:class:`~pyamg_tpu_torch.sparse.dia.ShardedDIA` slabs, the power
+iteration's norms are summed over the ranks and its start vector is the
+one seeded whole vector, sliced; S is row-local and S^T reads the
+neighbours' rows; the tentative transfers pool and repeat across shard
+boundaries; the comb probes run through the sharded P, A and R, each
+rank keeping the probe tables of its coarse rows.  Only the coarsest
+level's host matrix is gathered, for the dense coarse solve.
 """
 
 from __future__ import annotations
@@ -39,7 +50,10 @@ import torch
 from ..multilevel import Level, MultilevelSolver
 from ..relaxation.device import SmootherData
 from ..sparse import ComposedOp, GridPoolOp, GridRepeatOp, SparseDIA
-from ..util.utils import not_ported, numpy_dtype, torch_dtype
+from ..sparse.dia import ShardedDIA
+from ..sparse.linop import (GatheredOp, ShardedGridPoolOp,
+                            ShardedGridRepeatOp)
+from ..util.utils import numpy_dtype, torch_dtype
 
 __all__ = ["structured_sa_setup", "device_rap", "device_smoothing_factor",
            "device_power_rho", "dia_transpose"]
@@ -66,13 +80,19 @@ def _power_start(n, dtype, seed, device):
 
 def device_power_rho(A: SparseDIA, dinv, n_iter: int = 30, seed: int = 0):
     """Spectral radius of D^-1 A by ``n_iter`` steps of power iteration,
-    on A's device: a 0-d tensor, read by no host sync here."""
+    on A's device: a 0-d tensor, read by no host sync here.  On a
+    row-sharded A the start vector is this rank's rows of the whole one
+    and the norms are the whole vector's."""
     v = torch.as_tensor(_power_start(A.shape[0], A.dtype, seed, A.device),
                         dtype=A.dtype, device=A.device)
+    layout = getattr(A, "layout", None)
+    vnorm = torch.linalg.vector_norm
+    if layout is not None:
+        v, vnorm = layout.local(v), layout.norm
     lam = torch.ones((), dtype=A.dtype, device=A.device)
     for _ in range(int(n_iter)):
         w = dinv * A.matvec(v)
-        lam = torch.linalg.vector_norm(w)
+        lam = vnorm(w)
         v = w / torch.clamp(lam, min=1e-30)
     return lam
 
@@ -90,13 +110,16 @@ def device_smoothing_factor(A: SparseDIA, omega_over_rho) -> SparseDIA:
         full[[offsets.index(o) for o in A.offsets]] = diags
         diags = full
     diags[offsets.index(0)] += 1.0
-    return SparseDIA(diags, offsets, A.shape)
+    return A.like(diags, offsets)
 
 
 def dia_transpose(S: SparseDIA) -> SparseDIA:
     """Transpose of a square DIA operator on its device: the (o) diagonal
     of S^T at row j is S's (-o) diagonal at row j + o, a shift of each
-    diagonal filled with zeros."""
+    diagonal filled with zeros (on a row-sharded S, read from the
+    neighbours' rows)."""
+    if isinstance(S, ShardedDIA):
+        return S.transpose()
     n, m = S.shape
     offsets = tuple(-o for o in reversed(S.offsets))
     diags = []
@@ -146,16 +169,24 @@ def _probe_tables(cgrid):
             np.stack([t[2] for t in entries]))
 
 
-def device_rap(P, R, A: SparseDIA, cgrid) -> SparseDIA:
+def device_rap(P, R, A: SparseDIA, cgrid, layout=None) -> SparseDIA:
     """A_c = R A P on A's device by 3^d comb-vector probes (exact for
-    coarse stencils within the 3^d neighbourhood)."""
+    coarse stencils within the 3^d neighbourhood).  ``layout``: the coarse
+    level's over a mesh; a row-sharded one gets this rank's rows of the
+    probes' tables and of A_c (a :class:`ShardedDIA`)."""
     combs, offsets, sel, valid = _probe_tables(cgrid)
+    nc = combs.shape[1]
+    sharded = layout is not None and layout.sharded
+    if sharded:
+        mine = slice(layout.start, layout.start + layout.nl)
+        combs, sel, valid = combs[:, mine], sel[:, mine], valid[:, mine]
     dev, dt = A.device, A.dtype
     combs = torch.as_tensor(combs, device=dev).to(dt)
     Y = torch.stack([R.matvec(A.matvec(P.matvec(c))) for c in combs])
     diags = torch.gather(Y, 0, torch.as_tensor(sel, device=dev)) \
         * torch.as_tensor(valid, device=dev).to(dt)
-    nc = combs.shape[1]
+    if sharded:
+        return ShardedDIA(diags, offsets, layout)
     return SparseDIA(diags, offsets, (nc, nc))
 
 
@@ -175,8 +206,28 @@ def _geometric_masks(grid, two_colors, dtype, device):
     return torch.as_tensor(masks, device=device).to(dtype)
 
 
-def _build_level(A_l, B_l, cur_grid, blk, deg, omega, dtype):
-    """One level of the device setup: ``(P, R, A_c, B_c, dinv)``."""
+def _tentative(wmap, cur_grid, blk, n, nc, fine, coarse, like=None):
+    """``(T, T^T)`` on one device (``fine`` None), or over a mesh with
+    the fine and coarse levels' layouts; ``like``: the pair of an earlier
+    call on the same level, whose index tables are reused."""
+    if fine is None:
+        return (GridRepeatOp(wmap, cur_grid, blk, (n, nc)),
+                GridPoolOp(wmap, cur_grid, blk, (nc, n)))
+    if fine.sharded:
+        if like is not None:
+            return like[0].with_wmap(wmap), like[1].with_wmap(wmap)
+        return (ShardedGridRepeatOp(wmap, cur_grid, blk, fine, coarse),
+                ShardedGridPoolOp(wmap, cur_grid, blk, fine, coarse))
+    return (GatheredOp(GridRepeatOp(wmap, cur_grid, blk, (n, nc)), fine,
+                       coarse),
+            GatheredOp(GridPoolOp(wmap, cur_grid, blk, (nc, n)), coarse,
+                       fine))
+
+
+def _build_level(A_l, B_l, cur_grid, blk, deg, omega, dtype, fine=None,
+                 coarse=None):
+    """One level of the device setup: ``(P, R, A_c, B_c, dinv)``.  Over a
+    mesh, ``fine`` and ``coarse`` are the two levels' layouts."""
     n = int(np.prod(cur_grid))
     dvec = A_l.diagonal()
     dinv = torch.where(dvec != 0, 1.0 / torch.where(dvec != 0, dvec, 1), 0)
@@ -186,20 +237,19 @@ def _build_level(A_l, B_l, cur_grid, blk, deg, omega, dtype):
 
     cgrid = tuple(-(-g // b) for g, b in zip(cur_grid, blk))
     nc = int(np.prod(cgrid))
-    ones = torch.ones(n, dtype=dtype, device=A_l.device)
-    pool1 = GridPoolOp(ones, cur_grid, blk, (nc, n))
-    rep1 = GridRepeatOp(ones, cur_grid, blk, (n, nc))
+    ones = torch.ones(B_l.shape[0], dtype=dtype, device=A_l.device)
+    rep1, pool1 = _tentative(ones, cur_grid, blk, n, nc, fine, coarse)
     agg_nrm = torch.sqrt(torch.clamp(pool1.matvec(torch.abs(B_l) ** 2),
                                      min=1e-30))
     wmap = B_l * rep1.matvec(1.0 / agg_nrm)
-    T = GridRepeatOp(wmap, cur_grid, blk, (n, nc))
-    Tt = GridPoolOp(wmap, cur_grid, blk, (nc, n))
+    T, Tt = _tentative(wmap, cur_grid, blk, n, nc, fine, coarse,
+                       like=(rep1, pool1))
     if deg > 0:
         P = ComposedOp([S] * deg + [T], (n, nc))
         R = ComposedOp([Tt] + [ST] * deg, (nc, n))
     else:
         P, R = T, Tt
-    return P, R, device_rap(P, R, A_l, cgrid), agg_nrm, dinv
+    return P, R, device_rap(P, R, A_l, cgrid, coarse), agg_nrm, dinv
 
 
 def structured_sa_setup(A, grid, block=None, omega=4.0 / 3.0, degree=1,
@@ -215,23 +265,31 @@ def structured_sa_setup(A, grid, block=None, omega=4.0 / 3.0, degree=1,
     ``S^degree T`` and R its transpose, as composed DIA and grid operators;
     the smoothers are mask-form Gauss-Seidel with geometric colors (the
     checkerboard for a cross stencil, 2^d colors otherwise).  Only the
-    coarsest level carries a host matrix ``A_csr``.  ``mesh`` other than
-    None (a construction spread over several devices) is not ported."""
+    coarsest level carries a host matrix ``A_csr``.
+
+    ``mesh`` (``parallel.make_mesh``) spreads the construction over its
+    ranks, on the mesh's device: every rank of the mesh calls this with
+    the same arguments and gets the same hierarchy, each level row-sharded
+    while its size divides the ranks (``layout`` on each level), and its
+    solves take and return whole vectors.  The one-rank mesh of a process
+    without a process group builds on one device."""
     if mesh is not None:
-        raise not_ported("structured_sa_setup over a mesh of several "
-                         "devices", "the distributed path")
+        from ..parallel.sharding import _check_mesh
+
+        mesh = _check_mesh(mesh)
+        device = mesh.device
+        if not mesh.distributed:
+            mesh = None
     dtype = torch_dtype(dtype)
     if not isinstance(A, SparseDIA):
-        A_dev = SparseDIA.from_scipy(sp.csr_matrix(A),
-                                     dtype=numpy_dtype(dtype), device=device)
-    else:
-        A_dev = SparseDIA(A.diags.to(device=device, dtype=dtype), A.offsets,
-                          A.shape)
+        A = SparseDIA.from_scipy(sp.csr_matrix(A), dtype=numpy_dtype(dtype),
+                                 device="cpu" if mesh else device)
+    diags, offsets, shape = A.diags.to(dtype), A.offsets, A.shape
 
     grid = tuple(int(g) for g in grid)
-    if int(np.prod(grid)) != A_dev.shape[0]:
+    if int(np.prod(grid)) != shape[0]:
         raise ValueError(f"grid {grid} has {int(np.prod(grid))} nodes but "
-                         f"A is {A_dev.shape[0]}x{A_dev.shape[1]}")
+                         f"A is {shape[0]}x{shape[1]}")
     d = len(grid)
     if block is None:
         block = (3,) * d
@@ -247,34 +305,56 @@ def structured_sa_setup(A, grid, block=None, omega=4.0 / 3.0, degree=1,
             f"Use a larger block or the host-staged "
             f"smoothed_aggregation_solver for this configuration.")
     valid_offs, _ = _grid_offsets(grid)
-    if not set(A_dev.offsets) <= set(valid_offs):
-        bad = sorted(set(A_dev.offsets) - set(valid_offs))
+    if not set(offsets) <= set(valid_offs):
+        bad = sorted(set(offsets) - set(valid_offs))
         raise ValueError(
             f"structured_sa_setup: A has offsets {bad} outside the 3^{d} "
             f"stencil of grid {grid}; the comb-probe RAP would be inexact. "
             f"Use the host-staged smoothed_aggregation_solver instead.")
 
+    def layout_of(n):
+        """A level's layout over the mesh: row-sharded while n divides
+        the ranks (None on one device)."""
+        if mesh is None:
+            return None
+        from ..parallel.mesh import Layout
+
+        return Layout(mesh, n, n % mesh.size == 0)
+
+    lay = layout_of(shape[0])
+    if lay is not None and lay.sharded:
+        A_dev = ShardedDIA(lay.local(diags.T).T.contiguous().to(device),
+                           offsets, lay)
+    else:
+        A_dev = SparseDIA(diags.to(device), offsets, shape)
+
     levels = []
-    B = torch.ones(A_dev.shape[0], dtype=dtype, device=device)
+    B = torch.ones(shape[0] if lay is None else lay.nl, dtype=dtype,
+                   device=device)
     cur_grid = grid
     while len(levels) < max_levels - 1 and A_dev.shape[0] > max_coarse:
+        cgrid = tuple(-(-g // b) for g, b in zip(cur_grid, block))
+        clay = layout_of(int(np.prod(cgrid)))
         P, R, A_c, B_c, dinv = _build_level(A_dev, B, cur_grid, block,
-                                            degree, omega, dtype)
+                                            degree, omega, dtype, lay, clay)
         strides = [int(np.prod(cur_grid[k + 1:])) for k in range(d)]
         cross = {0} | set(strides) | {-s for s in strides}
         masks = _geometric_masks(cur_grid, set(A_dev.offsets) <= cross,
                                  dtype, device)
+        if lay is not None:
+            masks = lay.local(masks.T).T.contiguous()
         sm = SmootherData(kind="gauss_seidel", iterations=1,
                           sweep=presmoother_sweep, dinv=dinv,
                           color_masks=masks)
         levels.append(Level(A=A_dev, grid=cur_grid, P=P, R=R,
-                            presmoother=sm, postsmoother=sm))
-        A_dev, B = A_c, B_c
-        cur_grid = tuple(-(-g // b) for g, b in zip(cur_grid, block))
+                            presmoother=sm, postsmoother=sm, layout=lay))
+        A_dev, B, lay = A_c, B_c, clay
+        cur_grid = cgrid
 
     # the coarsest level's host matrix feeds the dense coarse solve; the
     # finer levels' are rebuilt on demand (Level.host_A)
-    levels.append(Level(A=A_dev, grid=cur_grid, A_csr=A_dev.to_scipy()))
+    levels.append(Level(A=A_dev, grid=cur_grid, A_csr=A_dev.to_scipy(),
+                        layout=lay))
     ml = MultilevelSolver(levels, coarse_solver=coarse_solver, device=device)
     ml._smoother_config = (("gauss_seidel",
                             {"sweep": presmoother_sweep}),) * 2

@@ -16,7 +16,7 @@ from ._common import finalize, norm, prepare, real_dtype, tolerance
 __all__ = ["cg", "cg_core"]
 
 
-def cg_core(mv, pre, x, b, tol_t, maxiter):
+def cg_core(mv, pre, x, b, tol_t, maxiter, dot=torch.vdot):
     """PCG from ``x`` until ``res <= tol_t`` or ``maxiter`` iterations.
 
     Returns ``(x, n_iters, res_buf)``: ``res_buf[j]`` is the residual norm
@@ -29,22 +29,22 @@ def cg_core(mv, pre, x, b, tol_t, maxiter):
     r = b - mv(x)
     z = pre(r)
     p = z
-    rz = torch.vdot(r, z)
-    res_buf[0] = norm(r).item()
+    rz = dot(r, z)
+    res_buf[0] = norm(r, dot).item()
     it = 0
     while res_buf[it] > tol and it < maxiter:
         Ap = mv(p)
-        pAp = torch.vdot(p, Ap)
+        pAp = dot(p, Ap)
         alpha = rz / torch.where(pAp == 0, 1, pAp)
         x = x + alpha * p
         r = r - alpha * Ap
         z = pre(r)
-        rz_new = torch.vdot(r, z)
+        rz_new = dot(r, z)
         beta = rz_new / torch.where(rz == 0, 1, rz)
         p = z + beta * p
         rz = rz_new
         it += 1
-        res_buf[it] = norm(r).item()
+        res_buf[it] = norm(r, dot).item()
     return x, it, res_buf
 
 

@@ -27,23 +27,24 @@ def _guard(d):
     return torch.where(d == 0, 1, d)
 
 
-def _iterate(step, state, res0, b, tol_t, maxiter):
+def _iterate(step, state, res0, b, tol_t, maxiter, dot):
     """Run ``state, r = step(state)`` until the norm of r meets ``tol_t``
     or ``maxiter`` steps were taken; ``state[0]`` is the iterate.  Returns
-    ``(x, n_iters, res_buf)``."""
+    ``(x, n_iters, res_buf)``; ``dot`` is the inner product."""
     rdt = real_dtype(b.dtype)
     tol = rdt.type(tol_t)
     res_buf = np.zeros(maxiter + 1, dtype=rdt)
-    res_buf[0] = norm(res0).item()
+    res_buf[0] = norm(res0, dot).item()
     it = 0
     while res_buf[it] > tol and it < maxiter:
         state, r = step(state)
         it += 1
-        res_buf[it] = norm(r).item()
+        res_buf[it] = norm(r, dot).item()
     return state[0], it, res_buf
 
 
-def cr_core(mv, pre, x, b, tol_t, maxiter):
+def cr_core(mv, pre, x, b, tol_t, maxiter,
+            dot=torch.vdot):
     """Preconditioned conjugate-residual core."""
     r0 = b - mv(x)
     r = pre(r0)
@@ -52,19 +53,20 @@ def cr_core(mv, pre, x, b, tol_t, maxiter):
     def step(state):
         x, r, p, Ar, Ap, rAr = state
         MAp = pre(Ap)
-        alpha = rAr / _guard(torch.vdot(Ap, MAp))
+        alpha = rAr / _guard(dot(Ap, MAp))
         x = x + alpha * p
         r = r - alpha * MAp
         Ar = mv(r)
-        rAr_new = torch.vdot(r, Ar)
+        rAr_new = dot(r, Ar)
         beta = rAr_new / _guard(rAr)
         return (x, r, r + beta * p, Ar, Ar + beta * Ap, rAr_new), r
 
-    return _iterate(step, (x, r, r, Ar, Ar, torch.vdot(r, Ar)), r0, b,
-                    tol_t, maxiter)
+    return _iterate(step, (x, r, r, Ar, Ar, dot(r, Ar)), r0, b,
+                    tol_t, maxiter, dot)
 
 
-def cgnr_core(mv, rmv, pre, x, b, tol_t, maxiter):
+def cgnr_core(mv, rmv, pre, x, b, tol_t, maxiter,
+              dot=torch.vdot):
     """CGNR core: left-preconditioned normal residual equations
     ``M A^H A x = M A^H b`` (z = M rhat, alpha = <z, rhat>/<Ap, Ap>)."""
     r = b - mv(x)
@@ -74,19 +76,20 @@ def cgnr_core(mv, rmv, pre, x, b, tol_t, maxiter):
     def step(state):
         x, r, p, zr = state
         Ap = mv(p)
-        alpha = zr / _guard(torch.vdot(Ap, Ap))
+        alpha = zr / _guard(dot(Ap, Ap))
         x = x + alpha * p
         r = r - alpha * Ap
         rhat = rmv(r)
         z = pre(rhat)
-        zr_new = torch.vdot(z, rhat)
+        zr_new = dot(z, rhat)
         return (x, r, z + (zr_new / _guard(zr)) * p, zr_new), r
 
-    return _iterate(step, (x, r, z, torch.vdot(z, rhat)), r, b, tol_t,
-                    maxiter)
+    return _iterate(step, (x, r, z, dot(z, rhat)), r, b, tol_t,
+                    maxiter, dot)
 
 
-def cgne_core(mv, rmv, pre, x, b, tol_t, maxiter):
+def cgne_core(mv, rmv, pre, x, b, tol_t, maxiter,
+              dot=torch.vdot):
     """CGNE core: Craig's method on ``M A A^H y = M b`` (z = M r,
     p = A^H z + beta p, alpha = <z, r>/<p, p>)."""
     r = b - mv(x)
@@ -94,18 +97,19 @@ def cgne_core(mv, rmv, pre, x, b, tol_t, maxiter):
 
     def step(state):
         x, r, p, zr = state
-        alpha = zr / _guard(torch.vdot(p, p))
+        alpha = zr / _guard(dot(p, p))
         x = x + alpha * p
         r = r - alpha * mv(p)
         z = pre(r)
-        zr_new = torch.vdot(z, r)
+        zr_new = dot(z, r)
         return (x, r, rmv(z) + (zr_new / _guard(zr)) * p, zr_new), r
 
-    return _iterate(step, (x, r, rmv(z), torch.vdot(z, r)), r, b, tol_t,
-                    maxiter)
+    return _iterate(step, (x, r, rmv(z), dot(z, r)), r, b, tol_t,
+                    maxiter, dot)
 
 
-def steepest_descent_core(mv, pre, x, b, tol_t, maxiter):
+def steepest_descent_core(mv, pre, x, b, tol_t, maxiter,
+                          dot=torch.vdot):
     """Preconditioned steepest-descent core."""
     r = b - mv(x)
 
@@ -113,28 +117,30 @@ def steepest_descent_core(mv, pre, x, b, tol_t, maxiter):
         x, r = state
         z = pre(r)
         Az = mv(z)
-        alpha = torch.vdot(z, r) / _guard(torch.vdot(z, Az))
+        alpha = dot(z, r) / _guard(dot(z, Az))
         r = r - alpha * Az
         return (x + alpha * z, r), r
 
-    return _iterate(step, (x, r), r, b, tol_t, maxiter)
+    return _iterate(step, (x, r), r, b, tol_t, maxiter, dot)
 
 
-def minimal_residual_core(mv, pre, x, b, tol_t, maxiter):
+def minimal_residual_core(mv, pre, x, b, tol_t, maxiter,
+                          dot=torch.vdot):
     """Minimal-residual core (on the preconditioned residual)."""
     r0 = b - mv(x)
 
     def step(state):
         x, r = state
         Ar = pre(mv(r))
-        alpha = torch.vdot(Ar, r) / _guard(torch.vdot(Ar, Ar))
+        alpha = dot(Ar, r) / _guard(dot(Ar, Ar))
         r_new = r - alpha * Ar
         return (x + alpha * r, r_new), r_new
 
-    return _iterate(step, (x, pre(r0)), r0, b, tol_t, maxiter)
+    return _iterate(step, (x, pre(r0)), r0, b, tol_t, maxiter, dot)
 
 
-def bicgstab_core(mv, pre, x, b, tol_t, maxiter):
+def bicgstab_core(mv, pre, x, b, tol_t, maxiter,
+                  dot=torch.vdot):
     """BiCGStab core; the shadow residual is the starting residual."""
     r = b - mv(x)
     rhat = r
@@ -143,19 +149,19 @@ def bicgstab_core(mv, pre, x, b, tol_t, maxiter):
         x, r, p, rho = state
         phat = pre(p)
         v = mv(phat)
-        alpha = rho / _guard(torch.vdot(rhat, v))
+        alpha = rho / _guard(dot(rhat, v))
         s = r - alpha * v
         shat = pre(s)
         t = mv(shat)
-        omega = torch.vdot(t, s) / _guard(torch.vdot(t, t))
+        omega = dot(t, s) / _guard(dot(t, t))
         x = x + alpha * phat + omega * shat
         r = s - omega * t
-        rho_new = torch.vdot(rhat, r)
+        rho_new = dot(rhat, r)
         beta = (rho_new / _guard(rho)) * (alpha / _guard(omega))
         return (x, r, r + beta * (p - omega * v), rho_new), r
 
-    return _iterate(step, (x, r, r, torch.vdot(rhat, r)), r, b, tol_t,
-                    maxiter)
+    return _iterate(step, (x, r, r, dot(rhat, r)), r, b, tol_t,
+                    maxiter, dot)
 
 
 def _solve(core, A, b, x0, tol, maxiter, M, callback, residuals, device,

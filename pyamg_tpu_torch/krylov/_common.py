@@ -7,7 +7,9 @@ Port of ``make_matvec``, ``make_rmatvec``, ``identity_M``, ``prepare``,
 package compiles each method into one ``while_loop`` program and needs
 machinery to pass operators into it; here every method is a Python loop
 over tensors that reads one scalar per iteration for its stopping test, so
-that machinery has no counterpart.
+that machinery has no counterpart.  The cores take the inner product as
+``dot`` (``torch.vdot`` by default): a row-sharded solve passes one that
+sums over the ranks.
 """
 
 from __future__ import annotations
@@ -139,9 +141,10 @@ def prepare(A, b, x0, maxiter, M, device="cuda"):
             int(maxiter))
 
 
-def norm(v: torch.Tensor) -> torch.Tensor:
-    """2-norm as a 0-d tensor on v's device: sqrt(real(v^H v))."""
-    return torch.sqrt(torch.vdot(v, v).real)
+def norm(v: torch.Tensor, dot=torch.vdot) -> torch.Tensor:
+    """2-norm as a 0-d tensor on v's device: sqrt(real(v^H v)), with
+    ``dot`` the inner product (a global one for row-sharded vectors)."""
+    return torch.sqrt(dot(v, v).real)
 
 
 def tolerance(tol, b):

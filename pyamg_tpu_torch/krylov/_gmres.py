@@ -49,7 +49,8 @@ def gmres(A, b, x0=None, tol=1e-5, restrt=None, maxiter=None, xtype=None,
               callback=callback, residuals=residuals, device=device)
 
 
-def _arnoldi_cycle(mv, pre, x, b, m, tol_t, flexible=False):
+def _arnoldi_cycle(mv, pre, x, b, m, tol_t, flexible=False,
+                   dot=torch.vdot):
     """One restart cycle of at most ``m`` Arnoldi steps from ``x``: returns
     ``(x_new, res_hist, beta)``, ``res_hist`` the projected residual after
     each step taken (at least one) and ``beta`` the norm the cycle started
@@ -58,11 +59,11 @@ def _arnoldi_cycle(mv, pre, x, b, m, tol_t, flexible=False):
     Left-preconditioned GMRES on M A: the tracked residual is ``||M r||``.
     With ``flexible`` the preconditioned vectors Z are kept and the update
     uses them (right-preconditioned FGMRES): the tracked residual is the
-    true ``||r||``."""
+    true ``||r||``.  ``dot`` is the inner product."""
     n, dtype = b.shape[0], b.dtype
     npdt = torch.empty(0, dtype=dtype).numpy().dtype
     r = b - mv(x) if flexible else pre(b - mv(x))
-    beta = float(norm(r).item())
+    beta = float(norm(r, dot).item())
     if beta == 0:           # nothing to correct (and no direction to take)
         return x, [0.0], beta
 
@@ -86,10 +87,10 @@ def _arnoldi_cycle(mv, pre, x, b, m, tol_t, flexible=False):
         # modified Gram-Schmidt against V[0..j]
         dots = []
         for i in range(j + 1):
-            hi = torch.vdot(V[i], w)
+            hi = dot(V[i], w)
             w = w - hi * V[i]
             dots.append(hi)
-        hj1 = norm(w)
+        hj1 = norm(w, dot)
         V[j + 1] = w / torch.where(hj1 == 0, 1, hj1)
         # the step's one device-to-host copy: the Hessenberg column
         h = torch.stack(dots + [hj1.to(dtype)]).cpu().numpy()
@@ -120,7 +121,7 @@ def _arnoldi_cycle(mv, pre, x, b, m, tol_t, flexible=False):
 
 
 def restart_loop(mv, pre, b, carry, tol_t, maxiter, restrt, max_outer,
-                  flexible):
+                  flexible, dot=torch.vdot):
     """Restart cycles from ``carry = (x, it, res_buf, outer, last)`` until
     the tracked residual meets ``tol_t``, ``max_outer`` cycles ran or
     ``maxiter`` iterations were taken.  A later call continues the same
@@ -128,7 +129,7 @@ def restart_loop(mv, pre, b, carry, tol_t, maxiter, restrt, max_outer,
     x, it, res_buf, outer, last = carry
     while last > tol_t and outer < max_outer and it < maxiter:
         x, res_hist, _beta = _arnoldi_cycle(mv, pre, x, b, restrt, tol_t,
-                                            flexible=flexible)
+                                            flexible=flexible, dot=dot)
         for k, res in enumerate(res_hist):
             # the last cycle may overrun maxiter: its tail shares one slot
             res_buf[min(it + 1 + k, maxiter)] = res
@@ -138,22 +139,26 @@ def restart_loop(mv, pre, b, carry, tol_t, maxiter, restrt, max_outer,
     return x, it, res_buf, outer, last
 
 
-def restart_start(mv, x, b, maxiter):
+def restart_start(mv, x, b, maxiter, dot=torch.vdot):
     """The carry of :func:`restart_loop` before the first cycle."""
     res_buf = np.zeros(maxiter + 1, dtype=real_dtype(b.dtype))
-    res_buf[0] = norm(b - mv(x)).item()
+    res_buf[0] = norm(b - mv(x), dot).item()
     return x, 0, res_buf, 0, float(res_buf[0])
 
 
-def gmres_core(mv, pre, x, b, tol_t, maxiter, restrt=30, flexible=False):
+def gmres_core(mv, pre, x, b, tol_t, maxiter, restrt=30, flexible=False,
+               dot=torch.vdot, n=None):
     """Restarted GMRES core with the contract of ``cg_core``: returns
     ``(x, n_iters, res_buf)``.  ``res_buf[0]`` is the true starting
-    residual, the later entries the tracked one."""
-    restrt = int(min(restrt, b.shape[0], maxiter))
+    residual, the later entries the tracked one.  The restart length is
+    at most ``n``, the size of the system (b's length by default; the
+    whole vector's where b holds one rank's rows)."""
+    n = b.shape[0] if n is None else int(n)
+    restrt = int(min(restrt, n, maxiter))
     max_outer = max(1, -(-int(maxiter) // restrt))
     x, it, res_buf, _outer, _last = restart_loop(
-        mv, pre, b, restart_start(mv, x, b, maxiter), float(tol_t),
-        maxiter, restrt, max_outer, flexible)
+        mv, pre, b, restart_start(mv, x, b, maxiter, dot), float(tol_t),
+        maxiter, restrt, max_outer, flexible, dot)
     return x, it, res_buf
 
 

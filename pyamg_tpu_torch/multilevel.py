@@ -8,7 +8,12 @@ and the Krylov loop reads one scalar per iteration for its stopping test.
 The cycle only needs each level's operators to have a ``matvec``: DIA,
 dense, grid and embedded operators, or padded-ELL operators with a coarse
 pseudoinverse padded to the coarsest level's padded size
-(``parallel.sharding.ShardedSolver``).  V, W, F and AMLI cycles; dense
+(``parallel.sharding.ShardedSolver``).  A level may carry a ``layout``
+(``parallel.mesh.Layout``): its vectors are then this rank's rows of a
+vector row-sharded over a mesh of ranks, or the whole vector on every
+rank, and the level's inner products, coarse solve and public vectors go
+through it; the entry points take and return whole vectors on every
+rank.  V, W, F and AMLI cycles; dense
 (pinv, lu, cholesky, splu), host-iterative and callable coarse solvers;
 stand-alone cycling, every Krylov method of ``krylov`` as accelerator, the
 mixed-precision ``solve_mp``, and ``MultilevelSolverSet`` (several
@@ -25,8 +30,8 @@ import numpy as np
 import torch
 
 from .krylov._cg import cg_core
-from .krylov._cgs_family import (bicgstab_core, cr_core,
-                                 minimal_residual_core,
+from .krylov._cgs_family import (bicgstab_core, cgne_core, cgnr_core,
+                                 cr_core, minimal_residual_core,
                                  steepest_descent_core)
 from .krylov._common import finalize, norm, real_dtype
 from .krylov._gmres import gmres_core, restart_loop, restart_start
@@ -313,7 +318,42 @@ class MultilevelSolver:
             self._coarse_mat = state[0]
         return self._coarse_mat
 
+    def _layout(self, i):
+        """Level i's layout over a mesh of ranks, or None."""
+        return getattr(self.levels[i], "layout", None)
+
+    def _dot(self, i):
+        """The inner product of level i's vectors."""
+        lay = self._layout(i)
+        return torch.vdot if lay is None else lay.dot
+
+    def _local(self, v):
+        """This rank's part of a whole fine-level vector."""
+        lay = self._layout(0)
+        return v if lay is None else lay.local(v)
+
+    def _full(self, v):
+        """The whole fine-level vector from this rank's part."""
+        lay = self._layout(0)
+        return v if lay is None else lay.full(v)
+
+    def _smooth(self, level, sm, x, b):
+        """``sm``'s sweeps on ``level``: a ``SmootherData``, or an object
+        with its own ``apply(A, x, b)`` (a sharded level's smoother that
+        reads whole vectors)."""
+        if sm is not None and hasattr(sm, "apply"):
+            return sm.apply(level.A, x, b)
+        return apply_smoother(sm, level.A, x, b)
+
     def _solve_coarse(self, b):
+        """The coarse solve; on a sharded coarsest level the right-hand
+        side is gathered, solved on every rank, and each keeps its rows."""
+        lay = self._layout(-1)
+        if lay is not None and lay.sharded:
+            return lay.local(self._coarse_solve(lay.full(b)))
+        return self._coarse_solve(b)
+
+    def _coarse_solve(self, b):
         if self._coarse_fn is None:
             pinv = self._coarse_solver.name in ("pinv", "pinv2")
             self._coarse_fn = self._coarse_solver.prepare(
@@ -329,7 +369,7 @@ class MultilevelSolver:
             return self._solve_coarse(b)
         level = levels[lvl]
         A = level.A
-        x = apply_smoother(level.presmoother, A, x, b)
+        x = self._smooth(level, level.presmoother, x, b)
         bc = level.R.matvec(b - A.matvec(x))
         below = lvl + 1
 
@@ -347,24 +387,25 @@ class MultilevelSolver:
         else:
             # AMLI: two coarse iterations along A-conjugate directions
             Ac = levels[below].A
+            vdot = self._dot(below)
 
             def guard(d):
                 return torch.where(d == 0, 1, d)
 
             p0 = descend(torch.zeros_like(bc), bc, "AMLI")
             Ap0 = Ac.matvec(p0)
-            p0Ap0 = guard(torch.vdot(p0, Ap0))
-            alpha0 = torch.vdot(p0, bc) / p0Ap0
+            p0Ap0 = guard(vdot(p0, Ap0))
+            alpha0 = vdot(p0, bc) / p0Ap0
             xc = alpha0 * p0
             rc = bc - alpha0 * Ap0
             p1 = descend(torch.zeros_like(bc), rc, "AMLI")
-            beta = torch.vdot(p0, Ac.matvec(p1)) / p0Ap0
+            beta = vdot(p0, Ac.matvec(p1)) / p0Ap0
             p1 = p1 - beta * p0
             Ap1 = Ac.matvec(p1)
-            alpha1 = torch.vdot(p1, rc) / guard(torch.vdot(p1, Ap1))
+            alpha1 = vdot(p1, rc) / guard(vdot(p1, Ap1))
             xc = xc + alpha1 * p1
         x = x + level.P.matvec(xc)
-        return apply_smoother(level.postsmoother, A, x, b)
+        return self._smooth(level, level.postsmoother, x, b)
 
     def cycle_fn(self, cycle="V"):
         """``f(x, b)``: one V, W, F or AMLI cycle from ``x`` for right-hand
@@ -381,19 +422,21 @@ class MultilevelSolver:
         ``M``; a tensor in is a plain call that returns a tensor."""
         from scipy.sparse.linalg import LinearOperator
 
-        fn = self.cycle_fn(cycle)
+        cyc = self.cycle_fn(cycle)
         op_dtype = self.levels[0].A.dtype
-        as_tensor = self._as_tensor
+        as_tensor, local, full = self._as_tensor, self._local, self._full
+
+        def fn(b):
+            b_d = local(as_tensor(b, op_dtype))
+            return full(cyc(torch.zeros_like(b_d), b_d))
 
         class _CyclePreconditioner(LinearOperator):
             def _matvec(self, b):
-                b_d = as_tensor(b, op_dtype)
-                return fn(torch.zeros_like(b_d), b_d).cpu().numpy()
+                return fn(b).cpu().numpy()
 
             def matvec(self, b):
                 if isinstance(b, torch.Tensor):
-                    b_d = as_tensor(b, op_dtype)
-                    return fn(torch.zeros_like(b_d), b_d)
+                    return fn(b)
                 return super().matvec(b)
 
         return _CyclePreconditioner(dtype=numpy_dtype(op_dtype),
@@ -437,8 +480,14 @@ class MultilevelSolver:
         return self
 
     def _accel_core(self, accel, maxiter):
-        """The Krylov core ``f(mv, pre, x, b, tol_t, maxiter)`` of a
-        built-in accelerator name; GMRES restarts every 30 iterations."""
+        """The Krylov core ``f(mv, pre, x, b, tol_t, maxiter, dot=)`` of a
+        built-in accelerator name; GMRES restarts every 30 iterations, and
+        ``cgnr``/``cgne`` apply A^H by :meth:`_with_rmatvec`."""
+        if accel in _NE_ACCELS:
+            rmv = self._with_rmatvec(self.levels[0].A).rmatvec
+            core = cgnr_core if accel == "cgnr" else cgne_core
+            return lambda mv, *args, **kw: core(mv, rmv, *args, **kw)
+        n = self.levels[0].A.shape[0]
         cores = {
             "cg": cg_core,
             "bicgstab": bicgstab_core,
@@ -446,9 +495,9 @@ class MultilevelSolver:
             "steepest_descent": steepest_descent_core,
             "minimal_residual": minimal_residual_core,
             "gmres": functools.partial(gmres_core,
-                                       restrt=min(30, maxiter)),
+                                       restrt=min(30, maxiter), n=n),
             "fgmres": functools.partial(gmres_core, restrt=min(30, maxiter),
-                                        flexible=True),
+                                        flexible=True, n=n),
         }
         return cores[accel]
 
@@ -459,7 +508,7 @@ class MultilevelSolver:
         cyc = self.cycle_fn(cycle)
         return self._accel_core(accel, maxiter)(
             A.matvec, lambda r: cyc(torch.zeros_like(r), r), x, b, tol_t,
-            maxiter)
+            maxiter, dot=self._dot(0))
 
     def _with_rmatvec(self, A):
         """A with ``rmatvec`` for the normal-equation methods: the
@@ -493,24 +542,35 @@ class MultilevelSolver:
         Krylov function calls it in an accelerated one (once, with the
         result).  Returns ``x`` as a tensor on the hierarchy's device, with
         the residual history (a numpy array) when ``return_residuals``,
-        else with ``info`` when ``return_info``."""
+        else with ``info`` when ``return_info``.
+
+        On a hierarchy sharded over ranks every rank calls it with the
+        whole b and gets the whole x; ``callback`` gets the whole iterate,
+        and ``accel`` is a name of a core above or ``"cgnr"``/``"cgne"``."""
         A = self.levels[0].A
         dtype = A.dtype
-        b_d = self._as_tensor(b, dtype)
+        dot = self._dot(0)
+        b_d = self._local(self._as_tensor(b, dtype))
         x = torch.zeros_like(b_d) if x0 is None \
-            else self._as_tensor(x0, dtype)
+            else self._local(self._as_tensor(x0, dtype))
         maxiter = 100 if maxiter is None else int(maxiter)
         if return_residuals and residuals is None:
             residuals = []
         first = 0 if residuals is None else len(residuals)
 
-        if isinstance(accel, str) and accel in _CORE_ACCELS \
-                and callback is None:
-            normb = norm(b_d)
+        sharded = self._layout(0) is not None
+        names = _CORE_ACCELS + _NE_ACCELS if sharded else _CORE_ACCELS
+        if isinstance(accel, str) and accel in names \
+                and (callback is None or sharded):
+            normb = norm(b_d, dot)
             tol_t = float(tol * torch.where(normb == 0, 1, normb))
             xk, it, res_buf = self._run_accel(accel, b_d, x, tol_t, maxiter,
                                               cycle)
-            xk, info = finalize(xk, res_buf, it + 1, tol_t, None, residuals)
+            xk, info = finalize(self._full(xk), res_buf, it + 1, tol_t,
+                                callback, residuals)
+        elif sharded and accel is not None:
+            raise ValueError(f"over several ranks, accel takes a name in "
+                             f"{names}; got {accel!r}")
         elif accel is not None:
             from . import krylov
 
@@ -528,18 +588,19 @@ class MultilevelSolver:
                 xk = self._as_tensor(xk, dtype)
         else:
             cyc = self.cycle_fn(cycle)
-            normb = float(norm(b_d))
+            normb = float(norm(b_d, dot))
             tol_t = real_dtype(dtype).type(
                 tol * (normb if normb != 0.0 else 1.0))
-            res = [float(norm(b_d - A.matvec(x)))]
+            res = [float(norm(b_d - A.matvec(x), dot))]
             it = 0
             while res[-1] > tol_t and it < maxiter:
                 x = cyc(x, b_d)
-                res.append(float(norm(b_d - A.matvec(x))))
+                res.append(float(norm(b_d - A.matvec(x), dot)))
                 it += 1
                 if callback is not None:
-                    callback(x)
-            xk, info = finalize(x, res, it + 1, tol_t, None, residuals)
+                    callback(self._full(x))
+            xk, info = finalize(self._full(x), res, it + 1, tol_t, None,
+                                residuals)
         if return_residuals:
             return xk, np.asarray(residuals[first:])
         if return_info:
@@ -587,14 +648,18 @@ class MultilevelSolver:
                              f"{known}; got {accel!r}")
         dt64 = torch.complex128 if op_dt.is_complex else torch.float64
 
+        dot = self._dot(0)
+        if self._A64 is None and self._layout(0) is not None:
+            # a sharded fine operator: its own values, in float64
+            self._A64 = self.levels[0].A.astype(dt64)
         if self._A64 is None:
             from .sparse.device_op import device_operator
 
             self._A64 = device_operator(self.levels[0].host_A(), dtype=dt64,
                                         device=self.device)
         A64 = self._A64
-        b64 = self._as_tensor(b, dt64)
-        normb = float(norm(b64))
+        b64 = self._local(self._as_tensor(b, dt64))
+        normb = float(norm(b64, dot))
         tol_abs = tol * (normb if normb != 0 else 1.0)
         cyc = self.cycle_fn(cycle)
 
@@ -602,7 +667,7 @@ class MultilevelSolver:
             def pre(r64):
                 # scale to O(1) before the f32 cast: late-stage residuals
                 # (~1e-10*||b||) underflow f32 otherwise
-                s = norm(r64)
+                s = norm(r64, dot)
                 s = torch.where(s == 0, 1, s)
                 r32 = (r64 / s).to(op_dt)
                 return cyc(torch.zeros_like(r32), r32).to(dt64) * s
@@ -611,17 +676,17 @@ class MultilevelSolver:
             x0 = torch.zeros_like(b64)
             rounds = 1
             if accel in ("gmres", "fgmres"):
-                restrt = min(30, maxiter, b64.shape[0])
+                restrt = min(30, maxiter, A64.shape[0])
                 loop = functools.partial(
                     restart_loop, A64.matvec, pre, b64, maxiter=maxiter,
                     restrt=restrt, max_outer=max(1, -(-maxiter // restrt)),
-                    flexible=accel == "fgmres")
-                carry = loop(restart_start(A64.matvec, x0, b64, maxiter),
+                    flexible=accel == "fgmres", dot=dot)
+                carry = loop(restart_start(A64.matvec, x0, b64, maxiter, dot),
                              tol_abs)
                 for _ in range(4 if accel == "gmres" else 0):
                     if carry[1] >= maxiter:
                         break
-                    r_true = float(norm(b64 - A64.matvec(carry[0])))
+                    r_true = float(norm(b64 - A64.matvec(carry[0]), dot))
                     if r_true <= tol_abs or r_true == 0:
                         break
                     ratio = max(carry[-1] / r_true, 1e-12)
@@ -630,7 +695,8 @@ class MultilevelSolver:
                 x64, it = carry[0], carry[1]
             else:
                 core = cg_core if accel == "cg" else bicgstab_core
-                x64, it, _ = core(A64.matvec, pre, x0, b64, tol_abs, maxiter)
+                x64, it, _ = core(A64.matvec, pre, x0, b64, tol_abs, maxiter,
+                                  dot=dot)
             info = {"rounds": rounds, "inner_iterations": it}
         elif method == "defect":
             x64 = torch.zeros_like(b64)
@@ -638,7 +704,7 @@ class MultilevelSolver:
             while rounds < int(max_rounds):
                 r64 = b64 - A64.matvec(x64)
                 r32 = r64.to(op_dt)
-                tol_t = float(inner_tol_factor) * float(norm(r64))
+                tol_t = float(inner_tol_factor) * float(norm(r64, dot))
                 dx32, it, res_buf = self._run_accel(
                     accel, r32, torch.zeros_like(r32), tol_t,
                     int(inner_maxiter), cycle)
@@ -651,6 +717,7 @@ class MultilevelSolver:
             info = {"rounds": rounds, "inner_iterations": iters}
         else:
             raise ValueError(f"unknown solve_mp method {method!r}")
+        x64 = self._full(x64)
         if return_info:
             return x64, info
         return x64
@@ -658,6 +725,7 @@ class MultilevelSolver:
 
 # accelerators that run their core on the hierarchy directly; the others go
 # through the public Krylov function
+_NE_ACCELS = ("cgnr", "cgne")
 _CORE_ACCELS = ("cg", "bicgstab", "gmres", "fgmres", "cr",
                 "steepest_descent", "minimal_residual")
 _MP_ACCELS = ("cg", "bicgstab", "gmres", "fgmres")

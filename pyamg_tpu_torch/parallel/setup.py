@@ -1,10 +1,10 @@
 """Smoothed-aggregation setups with their numeric phase on the device.
 
-Port of ``pyamg_tpu/parallel/setup.py`` on one device.
+Port of ``pyamg_tpu/parallel/setup.py``.
 
 * ``structured_sa_setup_sharded``: the structured SA setup of
   ``aggregation/device_setup.py`` (every numeric step on the device, the
-  Galerkin product by comb probes).
+  Galerkin product by comb probes), over a mesh of ranks.
 * ``general_sa_setup_sharded``: the host keeps the integer graph stages
   (strength, aggregation, the tentative fit, the graph coloring and the
   symbolic product patterns, in numpy/scipy); the device runs every
@@ -46,6 +46,7 @@ from ..relaxation.device import SmootherData
 from ..sparse.ell import SparseELL, ell_matvec
 from ..sparse.spgemm_device import ell_transpose_onto, masked_spgemm_auto
 from ..util.utils import not_ported, unpack_arg
+from .mesh import make_mesh
 from .sharding import ShardedSolver, _pad_ell, pad_to
 
 __all__ = ["structured_sa_setup_sharded", "general_sa_setup_sharded",
@@ -62,17 +63,18 @@ def _one_device(mesh, n_devices, what):
 
 
 def structured_sa_setup_sharded(A, grid, mesh=None, n_devices=None,
-                                axis_name: str = "rows", device="cuda",
-                                **kw):
-    """Structured SA setup with every numeric step on ``device``: on one
-    device, :func:`~pyamg_tpu_torch.aggregation.device_setup.
-    structured_sa_setup` itself (the remaining keywords are its own).
-    ``mesh`` other than None, or ``n_devices`` other than None or 1, is
-    not ported."""
+                                axis_name: str = "rows", device=None, **kw):
+    """Structured SA setup with every numeric step on the device, spread
+    over a mesh of ranks: :func:`~pyamg_tpu_torch.aggregation.
+    device_setup.structured_sa_setup` on ``mesh``, by default the ranks
+    of the process group (or its first ``n_devices``; without a group,
+    one device: ``device``, "cuda" by default).  The remaining keywords
+    are its own."""
     from ..aggregation.device_setup import structured_sa_setup
 
-    _one_device(mesh, n_devices, "structured_sa_setup_sharded")
-    return structured_sa_setup(A, grid, device=device, **kw)
+    if mesh is None:
+        mesh = make_mesh(n_devices, axis_name, device=device)
+    return structured_sa_setup(A, grid, mesh=mesh, **kw)
 
 
 def _ell_power_rho(data, cols, dinv, v0, n_iter=30):

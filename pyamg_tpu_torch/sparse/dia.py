@@ -5,7 +5,10 @@ under grid-block aggregation, have entries on a handful of fixed diagonals.
 One dense vector per diagonal turns the SpMV into shifted multiply-adds, run
 on the card by the hand-written kernel in ``dia_kernel``.
 
-Port of ``pyamg_tpu/sparse/dia.py``.
+Port of ``pyamg_tpu/sparse/dia.py``.  :class:`ShardedDIA` is one rank's
+row slab of a square DIA operator row-sharded over a mesh of ranks: the
+matvec exchanges ``max|offset|`` entries with the neighbours its offsets
+reach and runs the same kernel on the rectangular slab.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ from ..amg_core import csr_to_dia_native
 from ..util.utils import numpy_dtype, torch_dtype
 from . import dia_kernel
 
-__all__ = ["SparseDIA"]
+__all__ = ["SparseDIA", "ShardedDIA"]
 
 
 class SparseDIA:
@@ -178,6 +181,109 @@ class SparseDIA:
                          self.shape,
                          offsets_dev=self.offsets_dev)
 
+    def like(self, diags, offsets) -> "SparseDIA":
+        """An operator of this one's shape and placement with other
+        diagonals."""
+        return SparseDIA(diags, offsets, self.shape)
+
     def __repr__(self):
         return (f"SparseDIA(shape={self.shape}, n_offsets={self.n_offsets}, "
                 f"dtype={self.dtype}, device={self.device})")
+
+
+class ShardedDIA:
+    """This rank's rows of a square DIA operator row-sharded over a mesh:
+    ``diags`` is ``(k, nl)``, the rows ``layout.start ..`` of the whole
+    operator's diagonals (zero where the column falls outside it).
+
+    ``matvec`` takes this rank's rows of x, receives the ``lo = max(0,
+    -min(offsets))`` entries before them and the ``hi = max(0,
+    max(offsets))`` after them from the ranks that hold them (zeros beyond
+    the first and last row), and runs the DIA kernel on the rectangular
+    ``(nl, lo + nl + hi)`` slab with every offset shifted by ``lo``: the
+    products and their order are the whole operator's.  ``shape`` is the
+    whole operator's."""
+
+    def __init__(self, diags: torch.Tensor, offsets, layout, nnz=None):
+        self.diags = diags
+        self.offsets: Tuple[int, ...] = tuple(int(o) for o in offsets)
+        self.layout = layout
+        self.shape: Tuple[int, int] = (layout.n, layout.n)
+        self.lo = max(0, -min(self.offsets))
+        self.hi = max(0, max(self.offsets))
+        self.ext_offsets = tuple(o + self.lo for o in self.offsets)
+        self.offsets_dev = torch.tensor(self.ext_offsets, dtype=torch.int32,
+                                        device=diags.device)
+        self.halo = layout.halo(self.lo, self.hi)
+        self._nnz = nnz
+
+    @property
+    def dtype(self):
+        return self.diags.dtype
+
+    @property
+    def device(self):
+        return self.diags.device
+
+    @property
+    def n_offsets(self) -> int:
+        return len(self.offsets)
+
+    @property
+    def nnz(self) -> int:
+        """Nonzeros of the whole operator (a collective at the first
+        call)."""
+        if self._nnz is None:
+            count = torch.count_nonzero(self.diags).reshape(1)
+            self._nnz = int(self.layout.mesh.all_reduce(count).item())
+        return self._nnz
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of ``A x`` from this rank's rows of x."""
+        xe = self.halo.extend(x)
+        return dia_kernel.dia_matvec(self.diags, self.offsets_dev, xe,
+                                     xe.shape[0])
+
+    def matvec_plain(self, x: torch.Tensor) -> torch.Tensor:
+        xe = self.halo.extend(x)
+        return dia_kernel.dia_matvec_plain(self.diags, self.ext_offsets, xe,
+                                           xe.shape[0])
+
+    def diagonal(self) -> torch.Tensor:
+        if 0 in self.offsets:
+            return self.diags[self.offsets.index(0)]
+        return self.diags.new_zeros(self.diags.shape[1])
+
+    def astype(self, dtype) -> "ShardedDIA":
+        return ShardedDIA(self.diags.to(torch_dtype(dtype)), self.offsets,
+                          self.layout, self._nnz)
+
+    def like(self, diags, offsets) -> "ShardedDIA":
+        """An operator of this one's shape and placement with other
+        diagonals."""
+        return ShardedDIA(diags, offsets, self.layout)
+
+    def transpose(self) -> "ShardedDIA":
+        """``A^T`` row-sharded as A: the (o) diagonal of A^T at row j is
+        A's (-o) diagonal at row j + o, read from the neighbours' rows."""
+        m = max(abs(o) for o in self.offsets)
+        nl = self.diags.shape[1]
+        ext = self.layout.halo(m, m).extend(self.diags.T.contiguous())
+        offsets = tuple(-o for o in reversed(self.offsets))
+        rows = [ext[m + o:m + o + nl, self.offsets.index(-o)]
+                for o in offsets]
+        return ShardedDIA(torch.stack(rows), offsets, self.layout)
+
+    def full_diags(self) -> torch.Tensor:
+        """The whole operator's ``(k, n)`` diagonals (a collective)."""
+        return self.layout.full(self.diags.T.contiguous()).T.contiguous()
+
+    def to_scipy(self):
+        """The whole operator as a host CSR matrix (a collective)."""
+        return SparseDIA(self.full_diags(), self.offsets,
+                         self.shape).to_scipy()
+
+    def __repr__(self):
+        return (f"ShardedDIA(shape={self.shape}, rows={self.layout.start}.."
+                f"{self.layout.start + self.layout.nl}, "
+                f"n_offsets={self.n_offsets}, dtype={self.dtype})")

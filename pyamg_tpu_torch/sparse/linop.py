@@ -17,6 +17,14 @@ operator, ``CptRestrictOp`` applies one and gathers them.
 
 Each operator exposes ``matvec``, ``shape``, ``dtype`` and ``astype``.
 Port of ``pyamg_tpu/sparse/linop.py``.
+
+Over a mesh of ranks (``parallel.mesh.Layout``: a level's vectors
+row-sharded or whole on every rank), :class:`ShardedGridRepeatOp` and
+:class:`ShardedGridPoolOp` are the tentative transfers of a row-sharded
+fine level, whose shards do not align with the blocks: the repeat reads
+the whole coarse vector, the pool sums this rank's part of every coarse
+node and adds the parts over the ranks.  :class:`GatheredOp` applies any
+operator to whole vectors on every rank.
 """
 
 from __future__ import annotations
@@ -31,7 +39,8 @@ import torch.nn.functional as F
 from ..util.utils import torch_dtype
 
 __all__ = ["ComposedOp", "GridRepeatOp", "GridPoolOp", "DenseOp",
-           "CptProlongOp", "CptRestrictOp"]
+           "CptProlongOp", "CptRestrictOp", "ShardedGridRepeatOp",
+           "ShardedGridPoolOp", "GatheredOp"]
 
 
 class ComposedOp:
@@ -281,3 +290,130 @@ class CptRestrictOp:
     def to_scipy(self):
         RfT = self.dia.to_scipy().tocsr()
         return RfT[self.cpts.cpu().numpy(), :].tocsr()
+
+
+def _coarse_index(fine_grid, block, start, count):
+    """The coarse node of fine nodes ``start .. start + count`` (row-major
+    grids), as an int64 numpy array."""
+    coords = np.unravel_index(np.arange(start, start + count), fine_grid)
+    return np.ravel_multi_index(
+        tuple(c // b for c, b in zip(coords, block)),
+        _coarse_grid(fine_grid, block)).astype(np.int64)
+
+
+class ShardedGridRepeatOp:
+    """The one-candidate :class:`GridRepeatOp` onto a row-sharded fine
+    level: ``wmap`` holds this rank's fine rows; the coarse vector is
+    gathered whole (when its level is sharded) and read at each row's
+    coarse node."""
+
+    def __init__(self, wmap, fine_grid, block, fine_layout, coarse_layout,
+                 cidx=None):
+        self.wmap = wmap
+        self.fine_grid = tuple(int(g) for g in fine_grid)
+        self.block = tuple(int(b) for b in block)
+        self.layout, self.in_layout = fine_layout, coarse_layout
+        self.shape = (fine_layout.n, coarse_layout.n)
+        if cidx is None:
+            cidx = torch.as_tensor(_coarse_index(
+                self.fine_grid, self.block, fine_layout.start,
+                fine_layout.nl), device=wmap.device)
+        self.cidx = cidx
+
+    @property
+    def dtype(self):
+        return self.wmap.dtype
+
+    def with_wmap(self, wmap):
+        """The same transfer with weights ``wmap`` (the index table is
+        kept)."""
+        return ShardedGridRepeatOp(wmap, self.fine_grid, self.block,
+                                   self.layout, self.in_layout, self.cidx)
+
+    def astype(self, dtype):
+        return self.with_wmap(self.wmap.to(torch_dtype(dtype)))
+
+    def matvec(self, xc):
+        return self.wmap * self.in_layout.full(xc)[self.cidx]
+
+
+class ShardedGridPoolOp:
+    """The one-candidate :class:`GridPoolOp` from a row-sharded fine
+    level: this rank sums the weighted entries of its rows into every
+    coarse node they touch (a gather table, so the sums have a fixed
+    order), the parts are added over the ranks, and this rank keeps its
+    coarse rows."""
+
+    def __init__(self, wmap, fine_grid, block, fine_layout, coarse_layout,
+                 conj=True, tables=None):
+        self.wmap = wmap
+        self.fine_grid = tuple(int(g) for g in fine_grid)
+        self.block = tuple(int(b) for b in block)
+        self.in_layout, self.layout = fine_layout, coarse_layout
+        self.shape = (coarse_layout.n, fine_layout.n)
+        self.conj = bool(conj)
+        if tables is None:
+            nl = fine_layout.nl
+            cidx = _coarse_index(self.fine_grid, self.block,
+                                 fine_layout.start, nl)
+            order = np.argsort(cidx, kind="stable")
+            nodes, first, counts = np.unique(cidx[order], return_index=True,
+                                             return_counts=True)
+            table = np.full((len(nodes), int(counts.max())), nl,
+                            dtype=np.int64)
+            group = np.repeat(np.arange(len(nodes)), counts)
+            table[group, np.arange(nl) - first[group]] = order
+            tables = (torch.as_tensor(nodes, device=wmap.device),
+                      torch.as_tensor(table, device=wmap.device))
+        self.tables = tables
+
+    @property
+    def dtype(self):
+        return self.wmap.dtype
+
+    def with_wmap(self, wmap):
+        """The same transfer with weights ``wmap`` (the gather table is
+        kept)."""
+        return ShardedGridPoolOp(wmap, self.fine_grid, self.block,
+                                 self.in_layout, self.layout, self.conj,
+                                 self.tables)
+
+    def astype(self, dtype):
+        return self.with_wmap(self.wmap.to(torch_dtype(dtype)))
+
+    def matvec(self, xf):
+        wmap = torch.conj(self.wmap) if self.conj else self.wmap
+        w = wmap * xf
+        w = torch.cat([w, w.new_zeros(1)])
+        nodes, table = self.tables
+        part = w.new_zeros(self.shape[0])
+        part[nodes] = w[table].sum(dim=1)
+        return self.layout.local(self.in_layout.mesh.all_reduce(part))
+
+
+class GatheredOp:
+    """Any operator over a mesh, applied to whole vectors on every rank:
+    x is gathered (where ``in_layout`` is sharded), ``op`` applied, and
+    this rank's rows of the result kept (where ``out_layout`` is)."""
+
+    def __init__(self, op, out_layout, in_layout):
+        self.op = op
+        self.layout, self.in_layout = out_layout, in_layout
+        self.shape: Tuple[int, int] = tuple(op.shape)
+
+    @property
+    def dtype(self):
+        return self.op.dtype
+
+    @property
+    def nnz(self) -> int:
+        return self.op.nnz
+
+    def astype(self, dtype):
+        return GatheredOp(self.op.astype(dtype), self.layout, self.in_layout)
+
+    def matvec(self, x):
+        return self.layout.local(self.op.matvec(self.in_layout.full(x)))
+
+    def to_scipy(self):
+        return self.op.to_scipy()

@@ -29,13 +29,10 @@ from test_api_surface import REFERENCE_SURFACE
 
 ROADMAP = (Path(__file__).resolve().parents[1] / "ROADMAP.md").read_text()
 
-DISTRIBUTED = "the distributed path"
 BY_DESIGN = "Not ported by design"
 
 # (reference module, name) -> the ROADMAP.md item that ports it
 TO_PORT = {
-    **{("pyamg_tpu.parallel", n): DISTRIBUTED
-       for n in ("make_mesh", "shard_solver")},
     ("pyamg_tpu.util", "pinv_array_jax"): BY_DESIGN,
 }
 

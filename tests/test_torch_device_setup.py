@@ -321,20 +321,27 @@ def test_shard_structured_solver_refuses_other_accels(structured):
         parallel.shard_structured_solver(ml).solve(b, accel="cr")
 
 
-@pytest.mark.parametrize("call", [
-    lambda A: parallel.structured_sa_setup_sharded(A, (10, 10), n_devices=2,
-                                                   device="cpu"),
-    lambda A: parallel.structured_sa_setup_sharded(A, (10, 10),
-                                                   mesh=object(),
-                                                   device="cpu"),
-    lambda A: tds.structured_sa_setup(A, (10, 10), mesh=object(),
-                                      device="cpu"),
-    lambda A: parallel.shard_structured_solver(None, n_devices=2),
-    lambda A: parallel.StructuredShardedSolver(None, mesh=object()),
+@pytest.mark.parametrize("call,error,match", [
+    (lambda A: parallel.structured_sa_setup_sharded(A, (10, 10), n_devices=2,
+                                                    device="cpu"),
+     ValueError, "requested 2 devices, have 1.*launch"),
+    (lambda A: parallel.structured_sa_setup_sharded(A, (10, 10),
+                                                    mesh=object(),
+                                                    device="cpu"),
+     TypeError, "mesh must be"),
+    (lambda A: tds.structured_sa_setup(A, (10, 10), mesh=object(),
+                                       device="cpu"),
+     TypeError, "mesh must be"),
+    (lambda A: parallel.shard_structured_solver(None, n_devices=2),
+     ValueError, "requested 2 devices, have 1.*launch"),
+    (lambda A: parallel.StructuredShardedSolver(None, mesh=object()),
+     TypeError, "mesh must be"),
 ], ids=["sharded n_devices", "sharded mesh", "setup mesh",
         "solver n_devices", "solver mesh"])
-def test_structured_forms_over_several_devices_raise(call):
-    with pytest.raises(NotImplementedError, match="the distributed path"):
+def test_structured_forms_over_several_devices_raise(call, error, match):
+    """Several devices need a process group (``parallel.launch``); a mesh
+    is a ``parallel.Mesh``."""
+    with pytest.raises(error, match=match):
         call(poisson((10, 10), format="csr"))
 
 

@@ -119,6 +119,18 @@ computes the same function:
   its host seconds inside collectives; the headline's setup and solve run
   again with rank 0 under ``torch.profiler`` for its device-busy time
   (kernel: dia_matvec on rectangular slabs, offsets shifted by the halo);
+* the ELL-product setups over ranks (phase 38): the sharded suite's
+  anisotropic classical cell (``benchmarks/suite.py:289-311``, evolution
+  strength, RS, standard interpolation, float32) at 1024^2 built slab by
+  slab over 4 gloo ranks sharing the card and on one NCCL rank, held to
+  phase 23's one-card build; ``general_sa_setup_sharded`` on the
+  plain-CSR 1024^2 Poisson problem and the energy, root-node and adaptive
+  setups over the same 4 ranks, held to phases 5 and 34; every rank holds
+  only its rows of each level's A, P and R, gets the same pattern hashes,
+  launches the SpGEMM kernels on its slabs (B's rows that its rows of A
+  name fetched from the other ranks) and holds each product against the
+  twin, and makes no twin call on CUDA (kernels: masked_spgemm_banded and
+  masked_spgemm_gather on rank slabs, timed at the largest);
 * dia_matvec at every DIA shape that the phases' hierarchies hold or
   their paths launched, with its launches there: both of the kernel's
   routes (a thread a row; threads over (row, offset) pairs for short,
@@ -357,6 +369,15 @@ SHAPE_SOURCES = {}
 # the ranks of phase 37 launched dia_matvec on
 PHASE33 = {}
 RANK_SLABS = set()
+# phase 38: the ELL-product setups over ranks (4 gloo ranks sharing the
+# card, one NCCL rank), held to phase 23's one-card classical build
+# (PHASE23: its float32 levels, opc and CG count), phase 5's general
+# hierarchy, phase 34's pins and phase 34's adaptive setup (PHASE34: its
+# candidate and its first CG residuals)
+ELL_RANKS = dict(ranks=4, timeout=900, adaptive_iters=20, res_rel=1e-3,
+                 cand_rel=1e-6)
+PHASE23 = {}
+PHASE34 = {}
 
 
 def phase(name):
@@ -2392,11 +2413,11 @@ def classical_sharded(torch, ml_host):
                "evolution_strength_of_connection"),
               ("splitting", split, "RS"),
               ("masked products", cs, "masked_spgemm_auto"),
-              ("transposes onto patterns", cs, "ell_transpose_onto"),
+              ("transposes onto patterns", cs, "transpose_onto_mesh"),
               ("symbolic patterns", cs, "_pattern_csr"),
-              ("coarse read-back", SparseELL, "to_scipy"),
-              ("ELL slabs from scipy (host) and uploads", SparseELL,
-               "from_scipy"),
+              ("coarse read-back", cs, "host_values"),
+              ("ELL slabs from scipy (host) and uploads", cs,
+               "upload_rows"),
               ("slot maps (host)", cs, "_enc_csr"),
               ("slot maps (host)", cs, "_slab_from_csr"),
               ("smoothers (coloring)", cs, "_ell_smoother")]
@@ -2446,6 +2467,8 @@ def classical_sharded(torch, ml_host):
 
     want = levels(ml_host)
     got32, split32 = levels(sol), same_splits(sol)
+    PHASE23.update(levels=got32, opc=sol.inner.operator_complexity(),
+                   iters=len(res) - 1)
     equal32 = next((i for i, (g, w, s) in enumerate(
         zip(got32, want, split32 + [True])) if g != w or not s),
         len(want))
@@ -3374,6 +3397,26 @@ def recording_energy_products(store, name):
             mod.masked_spgemm_auto = real
 
 
+@contextlib.contextmanager
+def keeping_candidates(store):
+    """Keep in ``store["B"]`` the first candidates that the adaptive setup
+    hands the general setup (``parallel.setup``), passing the call on."""
+    from pyamg_tpu_torch.parallel import setup
+
+    real = setup.general_sa_setup_sharded
+
+    def keep(A, B=None, **kw):
+        if B is not None and "B" not in store:
+            store["B"] = np.array(B)
+        return real(A, B=B, **kw)
+
+    setup.general_sa_setup_sharded = keep
+    try:
+        yield
+    finally:
+        setup.general_sa_setup_sharded = real
+
+
 def _device_sa_stages():
     """``stage_timer`` stages of the device SA setups: the host integer
     stages, the device CG and candidate relaxation, the products."""
@@ -3383,7 +3426,6 @@ def _device_sa_stages():
     import pyamg_tpu_torch.strength as strength
     import pyamg_tpu_torch.util.utils as utils
     from pyamg_tpu_torch.parallel import energy, setup
-    from pyamg_tpu_torch.sparse import SparseELL
 
     return [("strength (host)", strength,
              "symmetric_strength_of_connection"),
@@ -3402,10 +3444,10 @@ def _device_sa_stages():
             ("Jacobi S values (device)", setup, "_jacobi_smoothing_vals"),
             ("Galerkin products (device, K4'/K5')", setup,
              "masked_spgemm_auto"),
-            ("R = P^T (device)", setup, "ell_transpose_onto"),
+            ("R = P^T (device)", setup, "transpose_onto_mesh"),
             ("symbolic patterns (host)", setup, "_pattern_csr"),
-            ("coarse values to the host", SparseELL, "to_scipy"),
-            ("ELL from scipy (host, upload)", SparseELL, "from_scipy"),
+            ("coarse values to the host", setup, "host_values"),
+            ("ELL from scipy (host, upload)", setup, "upload_rows"),
             ("coloring (host)", setup, "_ell_smoother")]
 
 
@@ -3450,7 +3492,8 @@ def device_energy_phase(torch):
         before = dict(spgemm_kernel.launches)
         mine = []
         with counting_twin_calls(torch, twin):
-            with recording_energy_products(mine, name):
+            with recording_energy_products(mine, name), \
+                    keeping_candidates(PHASE34):
                 sol, _ = timed_setup(torch, build, _device_sa_stages())
             got = {k: spgemm_kernel.launches[k] - before[k]
                    for k in launches}
@@ -3464,8 +3507,11 @@ def device_energy_phase(torch):
                   f"device kernels and copies {busy_ms:.2f} ms in {n_dev} "
                   f"launches: {100 * busy_ms / (wall * 1e3):.2f}% busy")
             print_levels(sol.inner)
-            _, relres_cg, _ = timed_solve(torch, sol, A, b,
-                                          **DEVICE_SA["cg"].get(name, {}))
+            res_cg, relres_cg, _ = timed_solve(
+                torch, sol, A, b, **DEVICE_SA["cg"].get(name, {}))
+            if name == "adaptive SA (device)":
+                PHASE34["residuals"] = np.asarray(
+                    res_cg[:ELL_RANKS["adaptive_iters"] + 1])
             info, relres, _, _ = classical_solve(
                 torch, sol.inner, A, b, **DEVICE_SA["mp"].get(name, {}))
         for k in launches:
@@ -4059,6 +4105,425 @@ def sharded_phase(torch):
     return launches, worst
 
 
+def _ell_rank_stages():
+    """``stage_timer`` stages of the ELL-product setups over ranks: the
+    host integer stages every rank runs on the whole level, the host
+    tables of the exchanges, the products and transposes on the rank's
+    slab (their exchanges inside), the read-backs.  A stage that a setup
+    module imported by name is wrapped in each such module."""
+    import pyamg_tpu_torch.aggregation.aggregate as aggregate
+    import pyamg_tpu_torch.aggregation.smooth as smooth
+    import pyamg_tpu_torch.aggregation.tentative as tentative
+    import pyamg_tpu_torch.classical.split as split
+    import pyamg_tpu_torch.parallel.classical_setup as cs
+    import pyamg_tpu_torch.strength as strength
+    import pyamg_tpu_torch.util.utils as utils
+    from pyamg_tpu_torch.parallel import energy, products, setup
+
+    stages = [("evolution strength (host, squarings on the ranks)",
+               strength, "evolution_strength_of_connection"),
+              ("symmetric strength (host)", strength,
+               "symmetric_strength_of_connection"),
+              ("RS splitting (host)", split, "RS"),
+              ("aggregation (host)", aggregate, "standard_aggregation"),
+              ("tentative fit, Cpt_params (host)", tentative,
+               "fit_candidates"),
+              ("tentative fit, Cpt_params (host)", utils, "get_Cpt_params"),
+              ("energy pattern, BtBinv (host)", smooth, "_grow_pattern"),
+              ("energy pattern, BtBinv (host)", utils, "compute_BtBinv"),
+              ("slot maps (host)", cs, "_enc_csr"),
+              ("energy CG (device, K4'/K5', D's rows fetched)", energy,
+               "_energy_cg"),
+              ("power rho, candidates (device, halo)", setup,
+               "_ell_power_rho"),
+              ("power rho, candidates (device, halo)", setup,
+               "_mesh_candidate_relax"),
+              ("halo tables of the solve's operators (host)", products,
+               "place_rows"),
+              ("coloring (host)", setup, "_ell_smoother")]
+    for label, name in (
+            ("symbolic patterns (host)", "_pattern_csr"),
+            ("fetch tables (host)", "fetch_for"),
+            ("row slabs from scipy (host, upload)", "upload_rows"),
+            ("masked products (device, B's rows fetched)",
+             "masked_spgemm_mesh"),
+            ("R = P^T (device, P's rows fetched)", "transpose_onto_mesh"),
+            ("read-backs to every rank (all-gather)", "host_values")):
+        stages += [(label, mod, name) for mod in (setup, cs, energy, products)
+                   if name in vars(mod)]
+    return stages
+
+
+@contextlib.contextmanager
+def recording_rank_products(store):
+    """Keep ``(kind, A, B, pattern)`` of every masked product a setup over
+    ranks runs on this rank's slab -- the operands its kernel sees: A's
+    slab on the fetched rows' coordinates, B's fetched rows -- while
+    passing each call on."""
+    import pyamg_tpu_torch.parallel.classical_setup as cs
+    from pyamg_tpu_torch.parallel import energy, setup
+
+    saved = [(mod, mod.masked_spgemm_auto) for mod in (setup, energy, cs)]
+
+    def recorder(real, kind):
+        def record(A, B, pattern, **kw):
+            store.append((kind, A, B, pattern))
+            return real(A, B, pattern, **kw)
+        return record
+
+    for (mod, real), kind in zip(saved, ("Galerkin", "A*D", "classical")):
+        mod.masked_spgemm_auto = recorder(real, kind)
+    try:
+        yield
+    finally:
+        for mod, real in saved:
+            mod.masked_spgemm_auto = real
+
+
+def _ell_case(case):
+    """``(build(mesh), A, b, solve keywords)`` of a phase-38 case."""
+    from pyamg_tpu_torch.gallery import poisson
+    from pyamg_tpu_torch.parallel import (adaptive_sa_setup_sharded,
+                                          classical_setup_sharded,
+                                          general_sa_setup_sharded,
+                                          rootnode_setup_sharded)
+
+    f32 = np.float32
+    if case.startswith("aniso"):
+        A = _aniso(SHARDED_GRID)
+        return (lambda m: classical_setup_sharded(
+            A, mesh=m, strength=ANISO["strength"], CF="RS",
+            interpolation="standard", dtype=f32), A,
+            A @ np.random.default_rng(0).random(A.shape[0]),
+            dict(tol=1e-6, maxiter=60))
+    import scipy.sparse as sp
+
+    A = poisson(GRID, format="csr")
+    b = A @ np.random.default_rng(0).random(A.shape[0])
+    builds = {
+        "general": lambda m: general_sa_setup_sharded(
+            sp.csr_matrix(A.tocoo()), mesh=m, dtype=f32),
+        "energy": lambda m: general_sa_setup_sharded(
+            A, mesh=m, smooth=("energy", {"maxiter": 4}), dtype=f32),
+        "rootnode": lambda m: rootnode_setup_sharded(A, mesh=m, dtype=f32),
+        "adaptive": lambda m: adaptive_sa_setup_sharded(A, mesh=m,
+                                                        dtype=f32),
+    }
+    solve = dict(tol=1e-8, maxiter=100) if case != "adaptive" else \
+        dict(tol=1e-8, maxiter=ELL_RANKS["adaptive_iters"])
+    return builds[case], A, b, solve
+
+
+def _host_copy(E):
+    """A SparseELL's slabs on the host (picklable)."""
+    return (E.data.cpu(), E.cols.cpu(), E.row_nnz.cpu(), E.shape)
+
+
+def _rank_ell_case(torch, mesh, case):
+    """One rank's part of a phase-38 case: the setup over the ranks stage
+    by stage with its exchanges counted, its levels and pattern hashes,
+    the rows of each level's operators on this rank's device, its solve
+    (aniso: a warm-up and best of 3), and each masked product's kernel
+    held against the twin on the same operands (outside the counts)."""
+    from profile_general import stage_timer
+    from pyamg_tpu_torch.parallel import mesh as mesh_mod, products
+    from pyamg_tpu_torch.sparse import spgemm_kernel
+    from pyamg_tpu_torch.sparse.spgemm_device import (masked_spgemm_auto,
+                                                      sentinel_cols)
+
+    build, A, b, solve_kw = _ell_case(case)
+    stages = _ell_rank_stages()
+    secs = {label: 0.0 for label, _, _ in stages}
+    calls = {label: 0 for label, _, _ in stages}
+    store, cands = [], {}
+    products.routes.clear()
+    spgemm_kernel.plain_cuda_calls = 0
+    before = dict(spgemm_kernel.launches)
+    twin = [0]
+    with counting_twin_calls(torch, twin):
+        torch.cuda.synchronize()
+        mesh_mod.reset_counters()
+        t0 = time.perf_counter()
+        with recording_rank_products(store), keeping_candidates(cands), \
+                stage_timer(torch.device("cuda"), secs, calls, stages):
+            sol = build(mesh)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        setup_exchange = dict(mesh_mod.counters)
+        launches = {k: spgemm_kernel.launches[k] - before[k] for k in before}
+        routes = list(products.routes)
+        runs, res = [], []
+        repeats = 3 if case.startswith("aniso") else 1
+        if case.startswith("aniso"):
+            sol.solve(b, accel="cg", **solve_kw)        # warm-up
+        mesh_mod.reset_counters()
+        for _ in range(repeats):
+            res = []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x = sol.solve(b, accel="cg", residuals=res, **solve_kw)
+            torch.cuda.synchronize()
+            runs.append(time.perf_counter() - t0)
+        solve_exchange = dict(mesh_mod.counters)
+    plain_calls = spgemm_kernel.plain_cuda_calls
+    slabs = []
+    for lvl in sol.levels:
+        row = dict(nl=lvl.layout.nl, A=lvl.A.data.shape[0])
+        for name in ("P", "R"):
+            op = getattr(lvl, name, None)
+            if op is not None:
+                row[name] = op.data.shape[0]
+        slabs.append(row)
+    hashes = mesh.all_gather_object(_pattern_hashes(sol))
+    worst, worst_rel = {}, 0.0
+    for kind, Ap, Bp, pat in store:
+        out = masked_spgemm_auto(Ap, Bp, pat).data
+        ref = spgemm_kernel.masked_matmul_vals_plain(
+            Ap.data, Ap.cols, Bp.data, Bp.cols, sentinel_cols(pat))
+        err = float((out - ref).abs().max())
+        scale = max(float(ref.abs().max()), 1e-300)
+        worst[kind] = max(worst.get(kind, 0.0), err)
+        worst_rel = max(worst_rel, err / scale)
+    spgemm_kernel.plain_cuda_calls = 0
+    for k, v in launches.items():
+        spgemm_kernel.launches[k] = before[k] + v
+    out = dict(case=case, rank=mesh.rank, size=mesh.size,
+               backend=mesh.backend,
+               levels=[(lvl.A_csr.shape[0], lvl.A_csr.nnz)
+                       for lvl in sol.levels],
+               opc=sol.inner.operator_complexity(), iters=len(res) - 1,
+               residuals=np.asarray(res), relres=_true_relres(A, b, x),
+               setup_s=setup_s, solve_s=min(runs), runs=runs,
+               setup_exchange=setup_exchange, solve_exchange=solve_exchange,
+               stages=secs, stage_calls=calls, launches=launches,
+               plain_calls=plain_calls, twin=twin[0], slabs=slabs,
+               hashes=hashes, routes=routes, held=len(store),
+               hold_abs=worst, hold_rel=worst_rel)
+    if mesh.rank == 0:
+        if "B" in cands:
+            out["candidate"] = cands["B"]
+        # the largest slab products, for timing on the card alone
+        gal = [(Ap, Bp, pat) for kind, Ap, Bp, pat in store
+               if kind == "Galerkin"]
+        cla = [(Ap, Bp, pat) for kind, Ap, Bp, pat in store
+               if kind == "classical"]
+        picks = {}
+        if case == "general":
+            picks = {"level-0 A*P": gal[1], "level-0 R*AP": gal[2]}
+        elif case == "aniso":
+            picks = {"level-0 evolution squaring": cla[0]}
+        out["timing"] = {label: tuple(_host_copy(E) for E in ops)
+                         for label, ops in picks.items()}
+    del store, sol
+    torch.cuda.empty_cache()
+    return out
+
+
+def _pattern_hashes(sol):
+    """sha256 of each level's host matrix and splitting (equal on every
+    rank when every rank's host stages agree)."""
+    import hashlib
+
+    out = []
+    for lvl in sol.levels:
+        h = hashlib.sha256()
+        for a in (lvl.A_csr.indptr, lvl.A_csr.indices, lvl.A_csr.data,
+                  getattr(lvl, "splitting", np.zeros(0)),
+                  getattr(lvl, "Cpts", np.zeros(0))):
+            h.update(np.ascontiguousarray(a).tobytes())
+        out.append(h.hexdigest()[:16])
+    return out
+
+
+def ell_ranks_cases(mesh, cases):
+    """What every rank of phase 38 runs: each case in turn."""
+    import torch
+
+    return {case: _rank_ell_case(torch, mesh, case) for case in cases}
+
+
+def _slab_product(torch, label, ops):
+    """``(label, A, B, pattern)`` on the card from host copies."""
+    from pyamg_tpu_torch.sparse import SparseELL
+
+    ells = [SparseELL(*(t.to("cuda") for t in E[:3]), E[3]) for E in ops]
+    return (label, *ells)
+
+
+def ell_sharded_phase(torch):
+    """The ELL-product setups built over ranks (``torch.distributed``,
+    ``parallel.launch``): (i) the sharded suite's anisotropic classical
+    cell (``benchmarks/suite.py:289-311``: evolution strength, RS,
+    standard interpolation, float32, CG to 1e-6 in 60) at 1024^2 over 4
+    gloo ranks sharing the card, held to phase 23's one-card build
+    (levels, nnz, opc to 6 places, CG +- 1, true relres <= 1e-5), and on
+    one NCCL rank (phase 23's count exactly); (ii)
+    ``general_sa_setup_sharded`` on the plain-CSR 1024^2 Poisson problem
+    over the same 4 ranks, held to phase 5's hierarchy (CG to 1e-8 in 9 +-
+    1, relres <= 5e-7); (iii) the energy, root-node and adaptive setups
+    over the 4 ranks, held to ``HIERARCHY_PINS`` (CG to 1e-8, relres <=
+    5e-7; the adaptive setup: its first 20 CG residuals against phase
+    34's to 1e-3 and its candidate against phase 34's to 1e-6).  Every
+    rank: the same pattern hashes, no level's A, P or R with more rows on
+    its device than its slab, both SpGEMM kernels launched on slabs and
+    held against the twin (1e-5 rel), no twin call on CUDA; its
+    collectives, bytes and host seconds inside them, its host seconds by
+    stage, each product's route.  Then K4' and K5' timed at the largest
+    slab shapes.  Returns ``(launches, worst)``."""
+    phase("38. the ELL-product setups over ranks (torch.distributed)")
+    from pyamg_tpu_torch.parallel import launch
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    groups = [(("aniso", "general", "energy", "rootnode", "adaptive"),
+               ELL_RANKS["ranks"], "gloo"),
+              (("aniso_nccl",), 1, "nccl")]
+    runs = {}
+    for group, nprocs, backend in groups:
+        t0 = time.perf_counter()
+        outs = launch(ell_ranks_cases, nprocs, backend, "cuda:0",
+                      args=(group,), timeout=ELL_RANKS["timeout"])
+        print(f"{nprocs} {backend} ranks for {', '.join(group)}: launch wall "
+              f"{time.perf_counter() - t0:.1f} s (process start and group "
+              f"included)")
+        for case in group:
+            runs[case] = [records[case] for records in outs]
+
+    failures, launches, worst = [], {}, {}
+    for case, outs in runs.items():
+        o = outs[0]
+        print(f"-- {case}: {o['size']} {o['backend']} ranks")
+        for i, (rows, nnz) in enumerate(o["levels"]):
+            held = [tuple(r["slabs"][i].get(k, 0) for k in "APR")
+                    for r in outs]
+            print(f"level {i}: rows {rows:8d} nnz {nnz:9d}  rows on each "
+                  f"rank's device (A, P, R) {held} of slabs "
+                  f"{o['slabs'][i]['nl']}")
+        print(f"opc {o['opc']:.6f}  CG iterations {o['iters']}  true f64 "
+              f"relres {o['relres']:.3e}  setup_s a rank "
+              f"{[round(r['setup_s'], 3) for r in outs]}  solve_s "
+              f"{o['solve_s']:.4f} (runs {[round(t, 3) for t in o['runs']]})")
+        for stage in ("setup", "solve"):
+            ex = [r[f"{stage}_exchange"] for r in outs]
+            print(f"{stage}: collectives a rank "
+                  f"{[e['collectives'] for e in ex]}, bytes received "
+                  f"{[e['bytes'] for e in ex]}, host seconds in collectives "
+                  f"{[round(e['seconds'], 3) for e in ex]}")
+        print("host seconds by stage, rank 0: " + ", ".join(
+            f"{label} {sec:.3f} ({o['stage_calls'][label]})"
+            for label, sec in o["stages"].items() if o["stage_calls"][label])
+            + f";  largest over the ranks: setup "
+            f"{max(r['setup_s'] for r in outs):.3f}")
+        kinds = {}
+        for r in o["routes"]:
+            key = (r["rows"], r["w_a"], r["b_rows"], r["b_total"],
+                   r["fetch"], r["kernel"])
+            kinds[key] = kinds.get(key, 0) + 1
+        print(f"rank 0's {len(o['routes'])} products by route (rows, A's "
+              f"width, B rows on the slab, of all, fetch, kernel): "
+              + "; ".join(f"{k} x{n}" for k, n in kinds.items()))
+        print(f"SpGEMM launches a rank {[r['launches'] for r in outs]};  "
+              f"plain twin calls on CUDA (SpGEMM, DIA) "
+              f"{[(r['plain_calls'], r['twin']) for r in outs]};  kernels vs "
+              f"twin on {[r['held'] for r in outs]} products a rank: max rel "
+              f"{max(r['hold_rel'] for r in outs):.1e}")
+        for r in outs:
+            for k, v in r["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+            for k, v in r["hold_abs"].items():
+                worst[k] = max(worst.get(k, 0.0), v)
+            if r["hashes"] != o["hashes"] or len(set(map(tuple,
+                                                         r["hashes"]))) != 1:
+                failures.append(f"{case}: pattern hashes differ over the "
+                                f"ranks")
+            if r["plain_calls"] or r["twin"] or r["hold_rel"] > 1e-5:
+                failures.append(f"{case} rank {r['rank']}: twin calls "
+                                f"{r['plain_calls']}/{r['twin']}, kernel vs "
+                                f"twin {r['hold_rel']}")
+            if any(s["A"] > s["nl"] or s.get("P", 0) > s["nl"]
+                   or s.get("R", 0) > s["nl"] for s in r["slabs"]):
+                failures.append(f"{case} rank {r['rank']}: an operator "
+                                f"holds more rows than its slab")
+            if r["relres"] != o["relres"]:
+                failures.append(f"{case}: ranks disagree on x")
+
+    p23, aniso = PHASE23, runs["aniso"][0]
+    print(f"(i) levels {aniso['levels']} opc {aniso['opc']:.6f} CG "
+          f"{aniso['iters']};  phase 23's one-card build {p23['levels']} "
+          f"{p23['opc']:.6f} CG {p23['iters']};  one NCCL rank "
+          f"{runs['aniso_nccl'][0]['levels']} CG "
+          f"{runs['aniso_nccl'][0]['iters']}")
+    nccl = runs["aniso_nccl"][0]
+    if not (aniso["levels"] == p23["levels"]
+            and f"{aniso['opc']:.6f}" == f"{p23['opc']:.6f}"
+            and abs(aniso["iters"] - p23["iters"]) <= 1
+            and aniso["relres"] <= 1e-5):
+        failures.append(f"(i) aniso over 4 ranks: {aniso['levels']} "
+                        f"{aniso['opc']} CG {aniso['iters']} relres "
+                        f"{aniso['relres']}")
+    if not (nccl["levels"] == p23["levels"] and nccl["iters"] == p23["iters"]
+            and nccl["relres"] <= 1e-5):
+        failures.append(f"(i) one NCCL rank: {nccl['levels']} CG "
+                        f"{nccl['iters']} relres {nccl['relres']}")
+    gen = runs["general"][0]
+    opc_gen = sum(z for _, z in GENERAL_LEVELS) / GENERAL_LEVELS[0][1]
+    if not (gen["levels"] == [tuple(x) for x in GENERAL_LEVELS]
+            and f"{gen['opc']:.6f}" == f"{opc_gen:.6f}"
+            and abs(gen["iters"] - 9) <= 1 and gen["relres"] <= 5e-7):
+        failures.append(f"(ii) general: {gen['levels']} {gen['opc']} CG "
+                        f"{gen['iters']} relres {gen['relres']}")
+    for case, pin in (("energy", "energy SA (device)"),
+                      ("rootnode", "root-node SA (device)"),
+                      ("adaptive", "adaptive SA (device)")):
+        r = runs[case][0]
+        want = HIERARCHY_PINS[pin]
+        if (len(r["levels"]), f"{r['opc']:.6f}") != (want[0],
+                                                      f"{want[1]:.6f}"):
+            failures.append(f"(iii) {case}: {len(r['levels'])} levels opc "
+                            f"{r['opc']} (pin {want})")
+        if case != "adaptive" and not r["relres"] <= 5e-7:
+            failures.append(f"(iii) {case}: relres {r['relres']}")
+    ad = runs["adaptive"][0]
+    k = ELL_RANKS["adaptive_iters"] + 1
+    ref_res, ref_b = PHASE34.get("residuals"), PHASE34.get("B")
+    if ref_res is None or ref_b is None:
+        failures.append("(iii) adaptive: phase 34's residuals or candidate "
+                        "missing")
+    else:
+        res_rel = float(np.max(np.abs(ad["residuals"][:k] - ref_res[:k])
+                               / ref_res[:k]))
+        cand_rel = float(np.abs(ad["candidate"] - ref_b).max()
+                         / np.abs(ref_b).max())
+        print(f"(iii) adaptive over 4 ranks: first {k - 1} CG residuals "
+              f"against phase 34's, max rel {res_rel:.2e};  candidate "
+              f"against phase 34's, max rel {cand_rel:.2e}")
+        if not (len(ad["residuals"]) == k
+                and res_rel <= ELL_RANKS["res_rel"]
+                and cand_rel <= ELL_RANKS["cand_rel"]):
+            failures.append(f"(iii) adaptive: residuals {res_rel} "
+                            f"candidate {cand_rel}")
+    if min(launches.get(k, 0) for k in ("masked_spgemm_banded",
+                                        "masked_spgemm_gather")) <= 0:
+        failures.append(f"a SpGEMM kernel never launched on a slab: "
+                        f"{launches}")
+
+    timing = [_slab_product(torch, f"{case} {label}", ops)
+              for case in ("general", "aniso")
+              for label, ops in runs[case][0]["timing"].items()]
+    print("K4' and K5' at the largest slab shapes (rank 0 of 4), on the card "
+          "alone:")
+    time_classical_products(
+        torch, timing,
+        (("masked_spgemm_banded", "general level-0 A*P"),
+         ("masked_spgemm_gather", "general level-0 R*AP"),
+         ("masked_spgemm_banded", "aniso level-0 evolution squaring")))
+    print(f"SpGEMM launches over the ranks of phase 38: {launches};  phase "
+          f"38 seconds {time.perf_counter() - t_phase:.1f}")
+    if failures:
+        raise AssertionError("phase 38: " + "; ".join(failures))
+    return launches, worst
+
+
 def dia_shapes(torch, launches):
     """dia_matvec at every DIA shape the smoke ran: the shapes (rows,
     cols, offsets, dtype) of every hierarchy's DIA operators and of every
@@ -4306,6 +4771,10 @@ def main():
     n_ranks, err_ranks = sharded_phase(torch)
     launches["dia_matvec"] += n_ranks
     worst["dia_matvec"] = max(worst["dia_matvec"], err_ranks)
+    ell_launches, ell_worst = ell_sharded_phase(torch)
+    for name, count in ell_launches.items():
+        launches[name] += count
+        worst[name] = max(worst[name], ell_worst.get(name, 0.0))
     times["dia_matvec"].update(dia_shapes(torch, launches))
     print(f"chip_smoke seconds: {time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": [dict(

@@ -33,7 +33,6 @@ import pyamg_tpu_torch.relaxation.smoothing as smoothing
 import pyamg_tpu_torch.strength as strength
 from pyamg_tpu_torch import amg_core
 from pyamg_tpu_torch.gallery import poisson
-from pyamg_tpu_torch.sparse.ell import SparseELL
 
 # (label, owner, attribute): the stages, each a callable the setup reaches
 # through ``owner.attribute`` at call time
@@ -47,14 +46,14 @@ STAGES = [
      "_color_masks"),
     ("symbolic Galerkin patterns (host, scipy products)", setup,
      "_galerkin_patterns"),
-    ("ELL from scipy (host slabs, copy to device)", SparseELL, "from_scipy"),
-    ("ELL padding (device)", setup, "_pad_ell"),
+    ("row slabs from scipy (host slabs, copy to device)", setup,
+     "upload_rows"),
     ("power rho (device)", setup, "_ell_power_rho"),
     ("Jacobi smoothing values (device)", setup, "_jacobi_smoothing_vals"),
     ("masked products: plans + kernels (device)", setup,
      "masked_spgemm_auto"),
-    ("R = P^T onto its pattern (device)", setup, "ell_transpose_onto"),
-    ("coarse values back to the host", SparseELL, "to_scipy"),
+    ("R = P^T onto its pattern (device)", setup, "transpose_onto_mesh"),
+    ("coarse values back to the host", setup, "host_values"),
     ("stored diagonals (host)", setup, "_ensure_stored_diagonal"),
 ]
 

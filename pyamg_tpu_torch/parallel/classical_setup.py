@@ -1,18 +1,22 @@
-"""Classical (Ruge-Stuben) AMG setup with its numeric phase on the device.
+"""Classical (Ruge-Stuben) AMG setup with its numeric phase on the device,
+row-sharded over a mesh of ranks.
 
 Port of ``classical_setup_sharded`` from
-``pyamg_tpu/parallel/classical_setup.py`` on one device.  The host keeps
-the integer graph stages in numpy/scipy: strength thresholding, the C/F
-splitting, the interpolation pattern with its map onto A's ELL slots, and
-every symbolic product pattern.  The device runs the O(nnz)
-floating-point stages over padded-ELL slabs: the squarings of the
-evolution measure, the direct or standard interpolation values, R = P^T
-onto its host-symbolic pattern and the Galerkin product R (A P), every
-masked product on the hand-written kernels
-(``sparse/spgemm_device.masked_spgemm_auto``: the banded kernel for A of
-at most 64 offsets, the gather kernel otherwise).  Per level the host
-reads back one numeric array: the coarse operator's values, which the next
-level's strength and splitting need.
+``pyamg_tpu/parallel/classical_setup.py``.  Every rank runs the host
+integer stages on the whole level in numpy/scipy: strength thresholding,
+the C/F splitting, the interpolation pattern with its map onto A's ELL
+slots, and every symbolic product pattern.  Each rank's device runs the
+O(nnz) floating-point stages on its rows of padded-ELL slabs: the
+squarings of the evolution measure, the direct or standard interpolation
+values, R = P^T onto its host-symbolic pattern and the Galerkin product
+R (A P), every masked product on the hand-written kernels
+(``parallel/products.masked_spgemm_mesh`` over
+``sparse/spgemm_device.masked_spgemm_auto``: the banded kernel for A of
+at most 64 offsets, the gather kernel otherwise), reading the rows of B
+its rows of A name from the other ranks.  Per level the host reads back
+one numeric array, onto every rank: the coarse operator's values, which
+the next level's strength and splitting need (and one a squaring of the
+evolution measure).
 
 Examples
 --------
@@ -34,14 +38,14 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
-from ..multilevel import Level
-from ..relaxation.device import SmootherData
-from ..sparse.ell import SparseELL
-from ..sparse.spgemm_device import (ell_transpose_onto, masked_spgemm_auto,
-                                    masked_spgemm_ell)
-from ..util.utils import not_ported, unpack_arg
-from .setup import _DISTRIBUTED, _ell_smoother, _pattern_csr
-from .sharding import ShardedSolver, _pad_ell, pad_to
+from ..sparse.spgemm_device import masked_spgemm_auto, masked_spgemm_ell
+from ..util.utils import unpack_arg
+from .mesh import Layout
+from .products import (host_values, masked_spgemm_mesh, operator,
+                       transpose_onto_mesh, upload_rows)
+from .setup import (_dinv, _ell_smoother, _level, _pattern_csr,
+                    _pattern_rows, _setup_mesh, _with_coarsest)
+from .sharding import pad_to
 
 __all__ = ["classical_setup_sharded"]
 
@@ -50,18 +54,21 @@ __all__ = ["classical_setup_sharded"]
 # device stages (slabs on A's, or a pattern's, ELL layout)
 # ---------------------------------------------------------------------------
 
-def _isdiag(Ac, valid):
-    rows = torch.arange(Ac.shape[0], dtype=Ac.dtype, device=Ac.device)
+def _isdiag(Ac, valid, row0=0):
+    """The diagonal slots of a slab of rows ``row0 ..`` (global columns)."""
+    rows = torch.arange(row0, row0 + Ac.shape[0], dtype=Ac.dtype,
+                        device=Ac.device)
     return valid & (Ac == rows[:, None])
 
 
-def _direct_interp_slab(Ad, Ac, valid, strongC):
-    """Direct-interpolation weights on A's own ELL layout: per row, alpha
+def _direct_interp_slab(Ad, Ac, valid, strongC, row0=0):
+    """Direct-interpolation weights on A's own ELL layout (a slab of rows
+    ``row0 ..``): per row, alpha
     (beta) = the sum of all negative (positive) off-diagonal entries over
     the strong C ones, the positive mass lumped into the diagonal when no
     strong C entry is positive; a strong C slot holds ``-(alpha or beta) /
     a_ii * a_ij``, every other slot 0."""
-    isdiag = _isdiag(Ac, valid)
+    isdiag = _isdiag(Ac, valid, row0)
     offd = valid & ~isdiag
     neg = Ad < 0
 
@@ -97,9 +104,10 @@ def _std_distribute(SFd, denomd, validSF):
     return B, torch.where(validSF & ~nz, SFd, 0).sum(dim=1)
 
 
-def _std_diag(Ad, Ac, validA, SCd, SFd, lump):
-    """``d_i = a_ii + weak off-diagonal mass + lumped mass``."""
-    isdiag = _isdiag(Ac, validA)
+def _std_diag(Ad, Ac, validA, SCd, SFd, lump, row0=0):
+    """``d_i = a_ii + weak off-diagonal mass + lumped mass`` (A's slab of
+    rows ``row0 ..``)."""
+    isdiag = _isdiag(Ac, validA, row0)
     offsum_A = torch.where(validA & ~isdiag, Ad, 0).sum(dim=1)
     offsum_S = SCd.sum(dim=1) + SFd.sum(dim=1)
     return torch.where(isdiag, Ad, 0).sum(dim=1) + (offsum_A - offsum_S) \
@@ -157,24 +165,26 @@ def _enc_csr(rows, cols, slots, shape):
     return M
 
 
-def _device_masked_power(mm, device):
+def _mesh_masked_power(mm, mesh):
     """``strength._masked_power`` with every squaring of ``(I - c D^-1
-    A)^T`` a masked product on ``device`` (the host builds the symbolic
-    patterns only); one read-back per squaring."""
+    A)^T`` a masked product over ``mesh``'s ranks (``mm(A_s, B_s,
+    pattern_s)`` on row slabs; the host builds the symbolic patterns
+    only); each squaring's values are read back onto every rank."""
     def impl(Atilde_T, nsquare, mask):
         M = sp.csr_matrix(Atilde_T)
         M.sort_indices()
         n = M.shape[0]
+        n_pad = pad_to(n, mesh.size)
+        rows = Layout(mesh, n_pad, True)
         for step in range(nsquare):
             if step == nsquare - 1:
-                pat = _pattern_csr(mask, (n, n))
+                pat = _pattern_csr(mask, (n_pad, n_pad))
             else:
                 pm = _pattern_csr(M)
-                pat = _pattern_csr(pm @ pm, (n, n))
-            M_ell = SparseELL.from_scipy(M, device=device)
-            out = mm(M_ell, M_ell, SparseELL.from_scipy(
-                pat, dtype=np.float32, device=device))
-            M = out.to_scipy()[:n, :n].tocsr()
+                pat = _pattern_csr(pm @ pm, (n_pad, n_pad))
+            M_s = upload_rows(M, rows, n_pad)
+            out = mm(M_s, M_s, _pattern_rows(pat, rows, np.float32))
+            M = host_values(out)[:n, :n].tocsr()
             M.sort_indices()
         if nsquare == 0:
             pat = _pattern_csr(mask)
@@ -193,6 +203,7 @@ def _device_masked_power(mm, device):
 # ---------------------------------------------------------------------------
 
 def classical_setup_sharded(A, mesh=None, n_devices=None,
+                            axis_name: str = "rows",
                             strength=("classical", {"theta": 0.25}),
                             CF="RS", interpolation="direct",
                             smoother=("multicolor_gauss_seidel",
@@ -200,37 +211,38 @@ def classical_setup_sharded(A, mesh=None, n_devices=None,
                                        "sweep": "symmetric"}),
                             dtype=None, max_levels=10, max_coarse=500,
                             spgemm="auto", device="cuda"):
-    """Ruge-Stuben setup with the numeric phase on ``device``.
+    """Ruge-Stuben setup with the numeric phase on the device, row-sharded
+    over a mesh of ranks.
 
-    Arguments as in the JAX package, on one device (``mesh=None``,
-    ``n_devices`` None or 1).  ``strength``: "classical", "symmetric",
-    "evolution" (its squarings on the device) or None; ``CF``: "RS",
-    "PMIS", "PMISc", "CLJP", "CLJPc" or "MIS"; ``interpolation``: "direct"
-    or "standard".  ``spgemm="auto"`` runs every masked product on the
-    hand-written kernels (in plain PyTorch on a CPU device); ``"xla"``
-    runs the plain form ``masked_spgemm_ell`` on any device.  ``dtype``
-    (default float32) is the type of the host operators and of every
-    device array.  Returns a
+    Arguments as in the JAX package.  ``mesh``: a :class:`~.mesh.Mesh`;
+    by default :func:`~.mesh.make_mesh` over the process group's ranks
+    (or its first ``n_devices``), and without a group one rank on
+    ``device``.  ``strength``: "classical", "symmetric", "evolution" (its
+    squarings over the ranks) or None; ``CF``: "RS", "PMIS", "PMISc",
+    "CLJP", "CLJPc" or "MIS"; ``interpolation``: "direct" or "standard".
+    ``spgemm="auto"`` runs every masked product on the hand-written
+    kernels (in plain PyTorch on a CPU device); ``"xla"`` runs the plain
+    form ``masked_spgemm_ell`` on any device.  ``dtype`` (default
+    float32) is the type of the host operators and of every device
+    array.  Returns a
     :class:`~pyamg_tpu_torch.parallel.sharding.ShardedSolver`."""
     from ..classical import split as split_mod
     from ..strength import (classical_strength_of_connection,
                             evolution_strength_of_connection,
                             symmetric_strength_of_connection)
 
-    if mesh is not None or n_devices not in (None, 1):
-        raise not_ported("a classical setup over a mesh of several devices",
-                         _DISTRIBUTED)
-    nd = 1
+    mesh = _setup_mesh(mesh, n_devices, axis_name, device)
+    nd = mesh.size
     dt = np.dtype(dtype or np.float32)
     if spgemm not in ("auto", "xla"):
         raise ValueError(f"spgemm must be 'auto' or 'xla'; got {spgemm!r}")
 
-    def mm(A_op, B_op, pattern):
+    def mm(A_s, B_s, pattern_s):
         # the module's names are looked up at each call, so that a wrapper
         # a caller puts in their place sees every product
-        if spgemm == "auto":
-            return masked_spgemm_auto(A_op, B_op, pattern)
-        return masked_spgemm_ell(A_op, B_op, pattern)
+        return masked_spgemm_mesh(
+            A_s, B_s, pattern_s, product=masked_spgemm_auto
+            if spgemm == "auto" else masked_spgemm_ell)
 
     s_name, s_kw = unpack_arg(strength)
     cf_name, cf_kw = unpack_arg(CF)
@@ -260,20 +272,21 @@ def classical_setup_sharded(A, mesh=None, n_devices=None,
             return symmetric_strength_of_connection(A_h, **s_kw)
         if s_name in ("evolution", "ode"):
             return evolution_strength_of_connection(
-                A_h, _masked_power_impl=_device_masked_power(mm, device),
+                A_h, _masked_power_impl=_mesh_masked_power(mm, mesh),
                 **s_kw)
         return A_h.copy()
 
-    def ell(M, rows=None, cols=None, dtype=dt):
-        E = SparseELL.from_scipy(M, dtype=dtype, device=device)
-        return E if rows is None else _pad_ell(E, rows, cols)
+    def slab(Q, vals, rows, width, fill):
+        """This rank's rows of per-entry values of the CSR Q."""
+        full = _slab_from_csr(Q, vals, rows.n, width, fill)
+        return torch.as_tensor(full[rows.start:rows.start + rows.nl],
+                               device=mesh.device)
 
-    def slab(Q, vals, n_pad, width, fill):
-        return torch.as_tensor(_slab_from_csr(Q, vals, n_pad, width, fill),
-                               device=device)
+    def slot_map(enc, rows, width):
+        return slab(enc, enc.data.astype(np.int64) - 2, rows, width, -2)
 
-    def slot_map(enc, n_pad, width):
-        return slab(enc, enc.data.astype(np.int64) - 2, n_pad, width, -2)
+    def width(Q):
+        return max(1, int(np.diff(Q.indptr).max()) if Q.shape[0] else 0)
 
     A_host = sp.csr_matrix(A).astype(dt)
     A_host.sort_indices()
@@ -283,8 +296,9 @@ def classical_setup_sharded(A, mesh=None, n_devices=None,
     while len(levels) < max_levels - 1 and A_host.shape[0] > max_coarse:
         n = A_host.shape[0]
         n_pad = pad_to(n, nd)
+        rows = Layout(mesh, n_pad, True)
 
-        # ---- host: integer graph stage ---------------------------------
+        # ---- host: integer graph stage (the same on every rank) --------
         C = sp.csr_matrix(strength_matrix(A_host))
         C.sort_indices()
         splitting = np.asarray(splittings[cf_name](C, **cf_kw))
@@ -298,16 +312,18 @@ def classical_setup_sharded(A, mesh=None, n_devices=None,
         offd_e = _in_sorted(kC, kA) & (rowsA != A_host.indices)
         strongC_e = offd_e & (splitting[A_host.indices] == 1)
         slotsA = _slot_positions(A_host)
-
-        # ---- device: numeric stage ---------------------------------------
-        A_ell = ell(A_host, n_pad, n_pad)
-        valid = A_ell.valid_mask()
         nc_pad = pad_to(ncp, nd)
+        crows = Layout(mesh, nc_pad, True)
+
+        # ---- device: numeric stage on this rank's rows --------------------
+        A_s = upload_rows(A_host, rows, n_pad, dt)
+        Ad, Ac, valid = A_s.data, A_s.ell.cols, A_s.valid_mask()
+        row0 = rows.start
+        wA = A_s.ell.width
 
         if i_name == "direct":
-            strong = slab(A_host, strongC_e, n_pad, A_ell.width,
-                          False).bool()
-            W = _direct_interp_slab(A_ell.data, A_ell.cols, valid, strong)
+            strong = slab(A_host, strongC_e, rows, wA, False).bool()
+            W = _direct_interp_slab(Ad, Ac, valid, strong, row0)
             selF = strongC_e & (splitting[rowsA] == 0)
             P_enc = _enc_csr(
                 np.concatenate([rowsA[selF], cpts]),
@@ -316,9 +332,7 @@ def classical_setup_sharded(A, mesh=None, n_devices=None,
                                 np.full(cpts.size, -1, np.int64)]),
                 (n, ncp))
             patP = _pattern_csr(P_enc, (n_pad, nc_pad))
-            patP_ell = ell(patP)
-            P_data = _gather_slots(W, slot_map(P_enc, n_pad,
-                                               patP_ell.width))
+            P_data = _gather_slots(W, slot_map(P_enc, rows, width(patP)))
         else:
             # standard interpolation: its two pair quantities are masked
             # products on the strong F-F and strong C patterns
@@ -330,27 +344,24 @@ def classical_setup_sharded(A, mesh=None, n_devices=None,
             SF_enc = _enc_csr(rowsA[sF_e], A_host.indices[sF_e],
                               slotsA[sF_e], (n, n))
             patSC = _pattern_csr(SC_enc, (n_pad, n_pad))
-            patSF_ell = ell(_pattern_csr(SF_enc, (n_pad, n_pad)))
-            patSC_ell = ell(patSC)
-            patSCT_ell = ell(_pattern_csr(patSC.T, (n_pad, n_pad)))
+            patSF = _pattern_csr(SF_enc, (n_pad, n_pad))
+            patSC_s = _pattern_rows(patSC, rows, dt)
+            patSF_s = _pattern_rows(patSF, rows, dt)
+            patSCT_s = _pattern_rows(_pattern_csr(patSC.T, (n_pad, n_pad)),
+                                     rows, dt)
 
-            SCd = _gather_slots(A_ell.data, slot_map(
-                SC_enc, n_pad, patSC_ell.width), identity=0.0)
-            SFd = _gather_slots(A_ell.data, slot_map(
-                SF_enc, n_pad, patSF_ell.width), identity=0.0)
-            SC_ell = SparseELL(SCd, patSC_ell.cols, patSC_ell.row_nnz,
-                               patSC_ell.shape)
-            Pind = SparseELL(patSC_ell.valid_mask().to(SCd.dtype),
-                             patSC_ell.cols, patSC_ell.row_nnz,
-                             patSC_ell.shape)
-            denom = mm(Pind, ell_transpose_onto(SC_ell, patSCT_ell),
-                       patSF_ell)
+            SCd = _gather_slots(Ad, slot_map(SC_enc, rows, width(patSC)),
+                                identity=0.0)
+            SFd = _gather_slots(Ad, slot_map(SF_enc, rows, width(patSF)),
+                                identity=0.0)
+            SC_s = patSC_s.with_data(SCd)
+            Pind = patSC_s.with_data(patSC_s.valid_mask().to(SCd.dtype))
+            denom = mm(Pind, transpose_onto_mesh(SC_s, patSCT_s), patSF_s)
             Bd, lump = _std_distribute(SFd, denom.data,
-                                       patSF_ell.valid_mask())
-            contrib = mm(SparseELL(Bd, patSF_ell.cols, patSF_ell.row_nnz,
-                                   patSF_ell.shape), SC_ell, patSC_ell)
+                                       patSF_s.valid_mask())
+            contrib = mm(patSF_s.with_data(Bd), SC_s, patSC_s)
             w = SCd + contrib.data
-            diag = _std_diag(A_ell.data, A_ell.cols, valid, SCd, SFd, lump)
+            diag = _std_diag(Ad, Ac, valid, SCd, SFd, lump, row0)
 
             rows_sc = np.repeat(np.arange(n), np.diff(SC_enc.indptr))
             keepP = splitting[rows_sc] == 0
@@ -361,42 +372,34 @@ def classical_setup_sharded(A, mesh=None, n_devices=None,
                                 np.full(cpts.size, -1, np.int64)]),
                 (n, ncp))
             patP = _pattern_csr(P_enc, (n_pad, nc_pad))
-            patP_ell = ell(patP)
-            P_data = _std_final_P(w, diag, slot_map(P_enc, n_pad,
-                                                    patP_ell.width))
+            P_data = _std_final_P(w, diag, slot_map(P_enc, rows,
+                                                    width(patP)))
 
-        P_ell = SparseELL(P_data, patP_ell.cols, patP_ell.row_nnz,
-                          patP_ell.shape)
+        P_s = _pattern_rows(patP, rows, dt).with_data(P_data)
 
-        # ---- Galerkin triple product on the device -----------------------
+        # ---- Galerkin triple product over the ranks -----------------------
         patA = _pattern_csr(A_host, (n_pad, n_pad))
         patR = _pattern_csr(patP.T)
         patAP = _pattern_csr(patA @ patP)
-        R_ell = ell_transpose_onto(P_ell, ell(patR))
-        AP = mm(A_ell, P_ell, ell(patAP))
-        Ac_ell = mm(R_ell, AP, ell(_pattern_csr(patR @ patAP)))
+        R_s = transpose_onto_mesh(P_s, _pattern_rows(patR, crows, dt))
+        AP = mm(A_s, P_s, _pattern_rows(patAP, rows, dt))
+        Ac_s = mm(R_s, AP, _pattern_rows(_pattern_csr(patR @ patAP), crows,
+                                         dt))
 
         # ---- the one numeric read-back: coarse values for the next level
-        Ac_host = Ac_ell.to_scipy()[:ncp, :ncp].tocsr()
+        Ac_host = host_values(Ac_s)[:ncp, :ncp].tocsr()
         Ac_host.eliminate_zeros()
         Ac_host.sort_indices()
 
-        d = A_ell.diagonal()
-        dinv = torch.where(d != 0, 1.0 / torch.where(d != 0, d, 1), 0)
-        lvl = Level(A_csr=A_host, A=A_ell, P=P_ell, R=R_ell,
-                    splitting=splitting)
+        lvl = _level(A_host, operator(A_s, rows), P_s, R_s, rows, crows,
+                     splitting=splitting)
         lvl.presmoother = lvl.postsmoother = _ell_smoother(
-            sm_name, sm_kw, patA[:n, :n].tocsr(), dinv, n_pad, dt, device)
+            sm_name, sm_kw, patA[:n, :n].tocsr(), _dinv(A_s.diagonal()),
+            rows, dt)
         levels.append(lvl)
         sizes.append(n_pad)
         if Ac_host.shape[0] == n:
             break                                  # coarsening stalled
         A_host = Ac_host
 
-    # coarsest level: solved by the padded dense pseudoinverse
-    n_pad = pad_to(A_host.shape[0], nd)
-    last = Level(A_csr=A_host, A=ell(A_host, n_pad, n_pad))
-    last.presmoother = last.postsmoother = SmootherData(kind="none")
-    levels.append(last)
-    sizes.append(n_pad)
-    return ShardedSolver.from_sharded_levels(levels, sizes, n_orig, device)
+    return _with_coarsest(levels, sizes, A_host, mesh, n_orig, dt)

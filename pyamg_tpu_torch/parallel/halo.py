@@ -27,7 +27,8 @@ from ..sparse.ell import ell_matvec
 from ..util.utils import torch_dtype
 from .mesh import Exchange, Layout
 
-__all__ = ["HaloELL", "GatherELL", "build_halo_ell", "gather_ell"]
+__all__ = ["HaloELL", "GatherELL", "build_halo_ell", "gather_ell",
+           "place_rows", "host_ell_rows"]
 
 
 def _scipy_rows(data, gcols, nnz, row0, shape):
@@ -186,6 +187,47 @@ def _layouts(E, mesh, n_cols):
     return Layout(mesh, n, True), Layout(mesh, m, True)
 
 
+def _exchange_tables(rows_e, cols_e, mesh, n, m, max_halo_frac, force):
+    """The per-pair exchange of a row-sharded operator of ``(n, m)`` whose
+    stored entries are ``(rows_e, cols_e)`` (every rank's; host arrays):
+    ``(exchange, recv_cols)``, or None where the JAX package's rule
+    declines it (see :func:`build_halo_ell`)."""
+    nd, r = mesh.size, mesh.rank
+    nl, ml = n // nd, m // nd
+    rs = rows_e // nl
+    owner = cols_e // ml
+    outside = owner != rs
+
+    # need[p][q]: the sorted columns of rank q's slab that rank p reads
+    keys = (rs * nd + owner)[outside]
+    uniq = np.unique(keys * m + cols_e[outside])
+    pair, col = uniq // m, uniq % m
+    reader, own = pair // nd, pair % nd
+    H = max(1, max(len(np.unique(col[own == q])) for q in range(nd)))
+    if not force and (nd - 1) * H >= max_halo_frac * (m - ml):
+        return None
+
+    recv_cols = col[reader == r]               # ascending: by owner, column
+    recv_counts = [int(((reader == r) & (own == q)).sum()) for q in range(nd)]
+    mine = own == r
+    send = col[mine] - r * ml                  # ordered by reader, column
+    send_counts = [int((mine & (reader == p)).sum()) for p in range(nd)]
+    exchange = Exchange(mesh, torch.as_tensor(send, device=mesh.device),
+                        send_counts, recv_counts)
+    return exchange, recv_cols
+
+
+def _remap(c, valid, recv_cols, r, ml):
+    """This rank's column slab ``c`` (global columns) in
+    ``concat([x_local, halo])`` coordinates; padding slots at 0."""
+    remap = c - r * ml
+    out = valid & (c // ml != r)
+    if out.any():
+        remap[out] = ml + np.searchsorted(recv_cols, c[out])
+    remap[~valid] = 0
+    return remap
+
+
 def build_halo_ell(E, mesh, axis=None, n_cols=None,
                    max_halo_frac: float = 0.9, force: bool = False):
     """A :class:`HaloELL` of this rank's rows of the padded SparseELL
@@ -199,40 +241,18 @@ def build_halo_ell(E, mesh, axis=None, n_cols=None,
     when ``(nd - 1) * H >= max_halo_frac * (m - m / nd)``, unless
     ``force``."""
     rows, cols_layout = _layouts(E, mesh, n_cols)
-    nd, r = mesh.size, mesh.rank
+    r = mesh.rank
     n, m = rows.n, cols_layout.n
-    nl, ml = n // nd, m // nd
     data, cols, nnz, valid = _host_slab(E)
-    rs = (np.arange(n) // nl)[:, None]
-    owner = np.where(valid, cols // ml, rs)
-    outside = valid & (owner != rs)
-
-    # need[p][q]: the sorted columns of rank q's slab that rank p reads
-    keys = (rs * nd + owner)[outside]
-    uniq = np.unique(keys * m + cols[outside])
-    pair, col = uniq // m, uniq % m
-    reader, own = pair // nd, pair % nd
-    H = max(1, max(len(np.unique(col[own == q])) for q in range(nd)))
-    if not force and (nd - 1) * H >= max_halo_frac * (m - ml):
+    rows_e, _ = np.nonzero(valid)
+    tables = _exchange_tables(rows_e, cols[valid], mesh, n, m,
+                              max_halo_frac, force)
+    if tables is None:
         return None
-
-    recv_cols = col[reader == r]               # ascending: by owner, column
-    recv_counts = [int(((reader == r) & (own == q)).sum()) for q in range(nd)]
-    mine = own == r
-    send = col[mine] - r * ml                  # ordered by reader, column
-    send_counts = [int((mine & (reader == p)).sum()) for p in range(nd)]
-
-    lo, hi = r * nl, (r + 1) * nl
-    c = cols[lo:hi]
-    remap = c - r * ml
-    out = outside[lo:hi]
-    if out.any():
-        remap[out] = ml + np.searchsorted(recv_cols, c[out])
-    remap[~valid[lo:hi]] = 0
-
+    exchange, recv_cols = tables
+    lo, hi = rows.start, rows.start + rows.nl
+    remap = _remap(cols[lo:hi], valid[lo:hi], recv_cols, r, cols_layout.nl)
     dev = mesh.device
-    exchange = Exchange(mesh, torch.as_tensor(send, device=dev), send_counts,
-                        recv_counts)
     return HaloELL(torch.as_tensor(data[lo:hi], device=dev),
                    torch.as_tensor(remap, device=dev),
                    torch.as_tensor(nnz[lo:hi], device=dev), (n, m), rows,
@@ -251,3 +271,47 @@ def gather_ell(E, mesh, n_cols=None) -> GatherELL:
                      torch.as_tensor(nnz[lo:hi], device=dev),
                      (rows.n, cols_layout.n), rows, cols_layout,
                      int(nnz.sum()))
+
+
+def host_ell_rows(M, lo, hi, width):
+    """Rows ``lo .. hi`` of the sorted host CSR ``M`` as ELL slabs
+    ``(cols, nnz, valid)``: ``width`` wide, global columns, padding slots
+    at column 0."""
+    ptr = M.indptr[lo:hi + 1]
+    nnz = np.diff(ptr).astype(np.int32)
+    rows = np.repeat(np.arange(hi - lo), nnz)
+    slot = np.arange(ptr[-1] - ptr[0]) - np.repeat(ptr[:-1] - ptr[0], nnz)
+    cols = np.zeros((hi - lo, width), dtype=np.int64)
+    cols[rows, slot] = M.indices[ptr[0]:ptr[-1]]
+    valid = np.arange(width)[None, :] < nnz[:, None]
+    return cols, nnz, valid
+
+
+def place_rows(pattern, data, rows: Layout, cols_layout: Layout):
+    """This rank's rows of a row-sharded operator from its whole host
+    pattern (``pattern``: a sorted CSR of ``(rows.n, cols_layout.n)``,
+    the same on every rank) and this rank's value slab ``data`` (its rows
+    in the pattern's slot order, on this rank's device): a
+    :class:`HaloELL` where the exchange pays (the rule of
+    :func:`build_halo_ell`), else the full-gather :class:`GatherELL`.
+    Only the exchange tables are built: every column table comes from the
+    host pattern, and no value moves."""
+    mesh = rows.mesh
+    n, m = rows.n, cols_layout.n
+    if pattern.shape != (n, m):
+        raise ValueError(f"pattern {pattern.shape} is not the operator's "
+                         f"({n}, {m})")
+    lo, hi = rows.start, rows.start + rows.nl
+    cols, nnz, valid = host_ell_rows(pattern, lo, hi, data.shape[1])
+    dev = data.device
+    rows_e = np.repeat(np.arange(n), np.diff(pattern.indptr))
+    tables = _exchange_tables(rows_e, pattern.indices.astype(np.int64), mesh,
+                              n, m, 0.9, False)
+    nnz_d = torch.as_tensor(nnz, device=dev)
+    if tables is None:
+        return GatherELL(data, torch.as_tensor(cols, device=dev), nnz_d,
+                         (n, m), rows, cols_layout, pattern.nnz)
+    exchange, recv_cols = tables
+    remap = _remap(cols, valid, recv_cols, mesh.rank, cols_layout.nl)
+    return HaloELL(data, torch.as_tensor(remap, device=dev), nnz_d, (n, m),
+                   rows, cols_layout, exchange, recv_cols, pattern.nnz)

@@ -46,8 +46,8 @@ import traceback
 import torch
 import torch.distributed as dist
 
-__all__ = ["Mesh", "Layout", "Exchange", "make_mesh", "launch", "counters",
-           "reset_counters"]
+__all__ = ["Mesh", "Layout", "Exchange", "make_mesh", "one_rank_mesh",
+           "launch", "counters", "reset_counters"]
 
 # collectives issued, payload bytes received and seconds spent in them by
 # this rank
@@ -111,11 +111,13 @@ class Mesh:
             return h
         return t
 
-    def _back(self, w, like):
-        """``w`` off the wire, on ``like``'s device and in its dtype kind."""
+    def _back(self, w, like, device=None):
+        """``w`` off the wire, on ``device`` (by default ``like``'s) and in
+        ``like``'s dtype kind."""
         if like.is_complex():
             w = torch.view_as_complex(w)
-        return w.to(like.device) if w.device != like.device else w
+        device = like.device if device is None else device
+        return w.to(device) if w.device != device else w
 
     def _empty(self, shape, like):
         """An empty wire buffer shaped for ``like``'s kind."""
@@ -132,25 +134,28 @@ class Mesh:
             torch.cuda.current_stream(t.device).synchronize()
         return time.perf_counter()
 
-    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
-        """The sum of ``t`` over the ranks (a new tensor)."""
+    def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """The sum (``op="max"``: the largest) of ``t`` over the ranks (a
+        new tensor)."""
         if not self.distributed:
             return t
         t0 = self._clock(t)
         w = self._wire(t)
         w = w.clone() if w is t or w.data_ptr() == t.data_ptr() else w
-        dist.all_reduce(w, group=self.group)
+        dist.all_reduce(w, op={"sum": dist.ReduceOp.SUM,
+                               "max": dist.ReduceOp.MAX}[op],
+                        group=self.group)
         out = self._back(w, t)
         _count(w.numel() * w.element_size(), t0)
         return out
 
-    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+    def all_gather(self, t: torch.Tensor, host: bool = False) -> torch.Tensor:
         """Every rank's ``t`` (one shape on all), concatenated along dim 0
-        in rank order.  NCCL gathers into one tensor; gloo sends the slab
-        to every rank in one all-to-all (its ring all-gather takes a round
-        trip per rank)."""
+        in rank order, on ``t``'s device (``host``: on the CPU).  NCCL
+        gathers into one tensor; gloo sends the slab to every rank in one
+        all-to-all (its ring all-gather takes a round trip per rank)."""
         if not self.distributed:
-            return t
+            return t.cpu() if host else t
         t0 = self._clock(t)
         w = self._wire(t)
         if self.backend == "nccl":
@@ -163,7 +168,7 @@ class Mesh:
             dist.all_to_all_single(out, w.repeat((self.size,)
                                                  + (1,) * (w.dim() - 1)),
                                    group=self.group)
-        out = self._back(out, t)
+        out = self._back(out, t, torch.device("cpu") if host else None)
         _count((self.size - 1) * w.numel() * w.element_size(), t0)
         return out
 
@@ -366,8 +371,13 @@ def make_mesh(n_devices=None, axis_name: str = "rows", device=None) -> Mesh:
             f"requested {n_devices} devices, have 1: no process group is "
             "initialized; start the ranks with pyamg_tpu_torch.parallel."
             "launch (or torch.distributed.init_process_group)")
-    return Mesh(None, 0, 1, axis_name,
-                device if device is not None else "cuda", None)
+    return one_rank_mesh(device if device is not None else "cuda", axis_name)
+
+
+def one_rank_mesh(device="cuda", axis_name: str = "rows") -> Mesh:
+    """The one-rank mesh on ``device`` whose collectives are identities,
+    in or outside a process group."""
+    return Mesh(None, 0, 1, axis_name, device, None)
 
 
 def _rank_main(rank, nprocs, backend, device, init, timeout, call, q):

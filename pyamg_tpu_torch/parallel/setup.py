@@ -43,23 +43,24 @@ import torch
 
 from ..multilevel import Level
 from ..relaxation.device import SmootherData
-from ..sparse.ell import SparseELL, ell_matvec
-from ..sparse.spgemm_device import ell_transpose_onto, masked_spgemm_auto
-from ..util.utils import not_ported, unpack_arg
-from .mesh import make_mesh
-from .sharding import ShardedSolver, _pad_ell, pad_to
+from ..sparse.spgemm_device import masked_spgemm_auto
+from ..util.utils import unpack_arg
+from .mesh import Layout, make_mesh
+from .products import (host_values, masked_spgemm_mesh, operator,
+                       transpose_onto_mesh, upload_rows, vector_norm)
+from .sharding import ShardedSolver, _check_mesh, pad_to
 
 __all__ = ["structured_sa_setup_sharded", "general_sa_setup_sharded",
            "rootnode_setup_sharded", "adaptive_sa_setup_sharded"]
 
-_DISTRIBUTED = "the distributed path"
 
-
-def _one_device(mesh, n_devices, what):
-    """Raise for a setup over several devices (not ported)."""
-    if mesh is not None or n_devices not in (None, 1):
-        raise not_ported(f"{what} over a mesh of several devices",
-                         _DISTRIBUTED)
+def _setup_mesh(mesh, n_devices, axis_name, device):
+    """The mesh a setup runs on: ``mesh`` (a :class:`~.mesh.Mesh`), else
+    :func:`~.mesh.make_mesh` over the process group's ranks (or its first
+    ``n_devices``; without a group, one rank on ``device``)."""
+    if mesh is None:
+        mesh = make_mesh(n_devices, axis_name, device=device)
+    return _check_mesh(mesh)
 
 
 def structured_sa_setup_sharded(A, grid, mesh=None, n_devices=None,
@@ -77,21 +78,25 @@ def structured_sa_setup_sharded(A, grid, mesh=None, n_devices=None,
     return structured_sa_setup(A, grid, mesh=mesh, **kw)
 
 
-def _ell_power_rho(data, cols, dinv, v0, n_iter=30):
-    """rho(D^-1 A) by ``n_iter`` steps of power iteration on the ELL
-    operator, from ``v0`` (the Jacobi smoothing weight's estimate)."""
+def _ell_power_rho(A_op, dinv, v0, rows, n_iter=30):
+    """rho(D^-1 A) by ``n_iter`` steps of power iteration on this rank's
+    rows of the operator ``A_op``, from ``v0`` (this rank's rows; the
+    Jacobi smoothing weight's estimate), the norms summed over the
+    ranks."""
     v, lam = v0, torch.ones((), dtype=v0.dtype, device=v0.device)
     for _ in range(n_iter):
-        w = dinv * ell_matvec(data, cols, v)
-        lam = torch.linalg.vector_norm(w)
+        w = dinv * A_op.matvec(v)
+        lam = vector_norm(w, rows)
         v = w / torch.clamp(lam, min=1e-30)
     return lam
 
 
-def _jacobi_smoothing_vals(Ad, Ac, valid, c):
+def _jacobi_smoothing_vals(Ad, Ac, valid, c, row0=0):
     """Value slab of S = I - c D^-1 A on A's own ELL structure, and D^-1
-    (0 where the diagonal is 0)."""
-    rows = torch.arange(Ad.shape[0], dtype=Ac.dtype, device=Ac.device)
+    (0 where the diagonal is 0); the slab's rows are rows ``row0 ..`` of
+    A, its columns global."""
+    rows = torch.arange(row0, row0 + Ad.shape[0], dtype=Ac.dtype,
+                        device=Ac.device)
     isdiag = valid & (Ac == rows[:, None])
     diag = torch.where(isdiag, Ad, 0).sum(dim=1)
     dinv = torch.where(diag != 0, 1.0 / torch.where(diag != 0, diag, 1), 0)
@@ -177,18 +182,10 @@ def _graph_stages(strength, aggregate):
             (lambda C: agg_fn(C, **agg_kw)))
 
 
-def _ell_maker(dt, device):
-    """``ell(M, rows=None, cols=None)``: a scipy matrix as a ``dt``
-    padded ELL on ``device``, padded to ``(rows, cols)`` when given."""
-    def ell(M, rows=None, cols=None):
-        E = SparseELL.from_scipy(M, dtype=dt, device=device)
-        return E if rows is None else _pad_ell(E, rows, cols)
-    return ell
-
-
-def _ell_smoother(sm_name, sm_kw, A_pat_csr, dinv, n_pad, dt, device):
-    """SmootherData of a padded-ELL level: Jacobi, or multicolor
-    Gauss-Seidel with masks from a host coloring of A's pattern."""
+def _ell_smoother(sm_name, sm_kw, A_pat_csr, dinv, rows, dt):
+    """SmootherData of a padded-ELL level on this rank's rows: Jacobi, or
+    multicolor Gauss-Seidel with masks from a host coloring of A's
+    pattern (every rank colors the whole pattern and keeps its rows)."""
     from ..relaxation.smoothing import _color_masks
 
     if sm_name == "jacobi":
@@ -196,15 +193,56 @@ def _ell_smoother(sm_name, sm_kw, A_pat_csr, dinv, n_pad, dt, device):
                             omega=float(sm_kw.get("omega", 1.0)),
                             iterations=int(sm_kw.get("iterations", 1)))
     masks = _color_masks(A_pat_csr, dtype=dt)
-    m = np.zeros((masks.shape[0], n_pad), dtype=masks.dtype)
+    m = np.zeros((masks.shape[0], rows.n), dtype=masks.dtype)
     m[:, :masks.shape[1]] = masks
+    m = m[:, rows.start:rows.start + rows.nl]
     return SmootherData(kind="multicolor_gauss_seidel", dinv=dinv,
-                        color_masks=torch.as_tensor(m, device=device),
+                        color_masks=torch.as_tensor(
+                            np.ascontiguousarray(m), device=dinv.device),
                         iterations=int(sm_kw.get("iterations", 1)),
                         sweep=sm_kw.get("sweep", "symmetric"))
 
 
+def _dinv(d):
+    return torch.where(d != 0, 1.0 / torch.where(d != 0, d, 1), 0)
+
+
+def _pattern_rows(pattern, rows, dt):
+    """This rank's rows of an output pattern (values unused)."""
+    return upload_rows(pattern, rows, dtype=dt, values=False)
+
+
+def _galerkin(A_s, P_s, patterns, rows, crows, nc, dt):
+    """R = P^T, A P and R (A P) over the mesh on their host-symbolic
+    ``patterns`` (of R, A P and R A P); returns ``(R_s, Ac_host)``, the
+    coarse operator read back onto every rank's host (stored zeros
+    dropped)."""
+    patR, patAP, patAc = patterns
+    # the one-device product is this module's name, looked up at each
+    # call, so that a wrapper put in its place sees each product
+    R_s = transpose_onto_mesh(P_s, _pattern_rows(patR, crows, dt))
+    AP = masked_spgemm_mesh(A_s, P_s, _pattern_rows(patAP, rows, dt),
+                            product=masked_spgemm_auto)
+    Ac_s = masked_spgemm_mesh(R_s, AP, _pattern_rows(patAc, crows, dt),
+                              product=masked_spgemm_auto)
+    Ac_host = host_values(Ac_s)[:nc, :nc].tocsr()
+    Ac_host.eliminate_zeros()
+    Ac_host.sort_indices()
+    return R_s, Ac_host
+
+
+def _level(A_host, A_op, P_s, R_s, rows, crows, **kw):
+    """A level of the solver: the operators over the mesh's layouts
+    (whole SparseELLs on a one-rank mesh without a group)."""
+    lvl = Level(A_csr=A_host, A=A_op, P=operator(P_s, crows),
+                R=operator(R_s, rows), **kw)
+    if rows.mesh.distributed:
+        lvl.layout = rows
+    return lvl
+
+
 def general_sa_setup_sharded(A, B=None, mesh=None, n_devices=None,
+                             axis_name: str = "rows",
                              strength=("symmetric", {"theta": 0.0}),
                              aggregate="standard", omega=4.0 / 3.0,
                              smooth=("jacobi", {}),
@@ -213,19 +251,25 @@ def general_sa_setup_sharded(A, B=None, mesh=None, n_devices=None,
                                        {"iterations": 1,
                                         "sweep": "symmetric"}),
                              dtype=None, rho_iters=30, device="cuda"):
-    """Smoothed-aggregation setup with the numeric phase on ``device``.
+    """Smoothed-aggregation setup with the numeric phase on the device,
+    row-sharded over a mesh of ranks.
 
-    Arguments as in the JAX package, on one device (``mesh=None``,
-    ``n_devices`` None or 1).  ``smooth``: ``"jacobi"`` or ``("energy",
-    {"degree", "maxiter", "tol", "weighting"})``, the energy CG on the
-    device (``parallel/energy.py``).  The masked products run on the
-    hand-written kernels (in plain PyTorch on a CPU device).  ``dtype``
-    (default float32) is the type of every device array.  Returns a
+    Arguments as in the JAX package.  ``mesh``: a :class:`~.mesh.Mesh`;
+    by default :func:`~.mesh.make_mesh` over the process group's ranks
+    (or its first ``n_devices``), and without a group one rank on
+    ``device``.  Every rank runs the host integer stages on the whole
+    matrix and keeps, on its device, its rows of each level's A, S, T, P,
+    A P, R and coarse A; the masked products run on the hand-written
+    kernels on the rank's slab (``parallel/products.py``; plain PyTorch
+    on a CPU device).  ``smooth``: ``"jacobi"`` or ``("energy",
+    {"degree", "maxiter", "tol", "weighting"})``, the energy CG over the
+    ranks (``parallel/energy.py``).  ``dtype`` (default float32) is the
+    type of every device array.  Returns a
     :class:`~pyamg_tpu_torch.parallel.sharding.ShardedSolver`."""
     from ..aggregation.tentative import fit_candidates
 
-    _one_device(mesh, n_devices, "general_sa_setup_sharded")
-    nd = 1
+    mesh = _setup_mesh(mesh, n_devices, axis_name, device)
+    nd = mesh.size
     dt = np.dtype(dtype or np.float32)
 
     p_name, p_kw = unpack_arg(smooth)
@@ -237,7 +281,6 @@ def general_sa_setup_sharded(A, B=None, mesh=None, n_devices=None,
         raise ValueError("the device setup supports smoother in ('jacobi', "
                          f"'multicolor_gauss_seidel'); got {sm_name!r}")
     strength_of, aggregate_of = _graph_stages(strength, aggregate)
-    ell = _ell_maker(dt, device)
 
     A_host = _ensure_stored_diagonal(sp.csr_matrix(A).astype(dt))
     A_host.sort_indices()
@@ -249,8 +292,9 @@ def general_sa_setup_sharded(A, B=None, mesh=None, n_devices=None,
     while len(levels) < max_levels - 1 and A_host.shape[0] > max_coarse:
         n = A_host.shape[0]
         n_pad = pad_to(n, nd)
+        rows = Layout(mesh, n_pad, True)
 
-        # ---- host: integer graph stage ---------------------------------
+        # ---- host: integer graph stage (the same on every rank) --------
         C = strength_of(A_host)
         AggOp, _roots = aggregate_of(C)
         if AggOp.shape[1] == 0:
@@ -259,46 +303,40 @@ def general_sa_setup_sharded(A, B=None, mesh=None, n_devices=None,
         T = sp.csr_matrix(T).astype(dt)
         nc = T.shape[1]
         nc_pad = pad_to(max(nc, 1), nd)
+        crows = Layout(mesh, nc_pad, True)
         patA = _pattern_csr(A_host, (n_pad, n_pad))
 
-        # ---- device: numeric stage ---------------------------------------
-        A_ell = ell(A_host, n_pad, n_pad)
-        d = A_ell.diagonal()          # padded rows: 0 -> dinv 0 -> inert
-        dinv = torch.where(d != 0, 1.0 / torch.where(d != 0, d, 1), 0)
+        # ---- device: numeric stage on this rank's rows --------------------
+        A_s = upload_rows(A_host, rows, n_pad, dt)
+        A_op = operator(A_s, rows)
+        dinv = _dinv(A_s.diagonal())  # padded rows: 0 -> dinv 0 -> inert
         if p_name == "energy":
             from .energy import energy_smooth_sharded
 
-            P_ell, patP = energy_smooth_sharded(
-                A_ell, T, C, Bc, dt=dt, **_energy_kw(p_kw))
-            patR, patAP, patAc = _transfer_patterns(
+            P_s, patP = energy_smooth_sharded(
+                A_s, T, C, Bc, mesh=mesh, dt=dt, **_energy_kw(p_kw))
+            patterns = _transfer_patterns(
                 patA, _pattern_csr(patP, (n_pad, nc_pad)))
         else:
-            v0 = torch.as_tensor(np.sin(np.arange(1, n_pad + 1)),
-                                 device=device)
-            rho = float(_ell_power_rho(A_ell.data, A_ell.cols, dinv,
-                                       v0.to(A_ell.dtype), n_iter=rho_iters))
+            lo, hi = rows.start, rows.start + rows.nl
+            v0 = torch.as_tensor(np.sin(np.arange(lo + 1, hi + 1)),
+                                 device=mesh.device)
+            rho = float(_ell_power_rho(A_op, dinv, v0.to(A_s.data.dtype),
+                                       rows, n_iter=rho_iters))
             S_data, dinv = _jacobi_smoothing_vals(
-                A_ell.data, A_ell.cols, A_ell.valid_mask(),
-                torch.tensor(omega / max(rho, 1e-30), dtype=A_ell.dtype,
-                             device=device))
-            S_ell = SparseELL(S_data, A_ell.cols, A_ell.row_nnz, A_ell.shape)
-            patP, patR, patAP, patAc = _galerkin_patterns(
+                A_s.data, A_s.ell.cols, A_s.valid_mask(),
+                torch.tensor(omega / max(rho, 1e-30), dtype=A_s.data.dtype,
+                             device=mesh.device), row0=lo)
+            patP, *patterns = _galerkin_patterns(
                 patA, _pattern_csr(T, (n_pad, nc_pad)))
-            P_ell = masked_spgemm_auto(S_ell, ell(T, n_pad, nc_pad),
-                                       ell(patP))
-        R_ell = ell_transpose_onto(P_ell, ell(patR))
-        AP = masked_spgemm_auto(A_ell, P_ell, ell(patAP))
-        Ac_ell = masked_spgemm_auto(R_ell, AP, ell(patAc))
+            P_s = masked_spgemm_mesh(
+                A_s.with_data(S_data), upload_rows(T, rows, nc_pad, dt),
+                _pattern_rows(patP, rows, dt), product=masked_spgemm_auto)
+        R_s, Ac_host = _galerkin(A_s, P_s, patterns, rows, crows, nc, dt)
 
-        # ---- the one numeric read-back: coarse values for the next level
-        Ac_host = Ac_ell.to_scipy()[:nc, :nc].tocsr()
-        Ac_host.eliminate_zeros()
-        Ac_host.sort_indices()
-
-        lvl = Level(A_csr=A_host, A=A_ell, P=P_ell, R=R_ell)
-        sm = _ell_smoother(sm_name, sm_kw, patA[:n, :n].tocsr(), dinv,
-                           n_pad, dt, device)
-        lvl.presmoother = lvl.postsmoother = sm
+        lvl = _level(A_host, A_op, P_s, R_s, rows, crows)
+        lvl.presmoother = lvl.postsmoother = _ell_smoother(
+            sm_name, sm_kw, patA[:n, :n].tocsr(), dinv, rows, dt)
         levels.append(lvl)
         sizes.append(n_pad)
 
@@ -308,7 +346,7 @@ def general_sa_setup_sharded(A, B=None, mesh=None, n_devices=None,
         Ac_host.sort_indices()
         A_host, Bcur = Ac_host, Bc
 
-    return _with_coarsest(levels, sizes, A_host, nd, n_orig, ell, device)
+    return _with_coarsest(levels, sizes, A_host, mesh, n_orig, dt)
 
 
 def rootnode_setup_sharded(A, B=None, mesh=None, n_devices=None,
@@ -321,24 +359,25 @@ def rootnode_setup_sharded(A, B=None, mesh=None, n_devices=None,
                                      {"iterations": 1,
                                       "sweep": "symmetric"}),
                            dtype=None, device="cuda"):
-    """Root-node SA setup with the numeric phase on ``device``.
+    """Root-node SA setup with the numeric phase on the device,
+    row-sharded over a mesh of ranks.
 
     The host-integer / device-numeric split of
     :func:`general_sa_setup_sharded`, applied to root-node SA: the host
     keeps strength, aggregation with its roots, the tentative fit,
     ``get_Cpt_params``/``scale_T`` and the injected coarse candidates; the
-    device runs the root-constrained energy CG (``parallel/energy.py``,
+    ranks run the root-constrained energy CG (``parallel/energy.py``,
     with the F-row mask and the C-point identity block of ``Cpt_params``)
-    and the Galerkin product.  Scalar operators; ``smooth`` must be
-    ``'energy'``, as in the JAX package.  Arguments as there, on one
-    device; returns a :class:`~pyamg_tpu_torch.parallel.sharding.
-    ShardedSolver`."""
+    and the Galerkin product on their rows.  Scalar operators; ``smooth``
+    must be ``'energy'``, as in the JAX package.  Arguments as there, the
+    mesh as in :func:`general_sa_setup_sharded`; returns a
+    :class:`~pyamg_tpu_torch.parallel.sharding.ShardedSolver`."""
     from ..aggregation.tentative import fit_candidates
     from ..util.utils import get_Cpt_params, scale_T
     from .energy import energy_smooth_sharded
 
-    _one_device(mesh, n_devices, "rootnode_setup_sharded")
-    nd = 1
+    mesh = _setup_mesh(mesh, n_devices, axis_name, device)
+    nd = mesh.size
     dt = np.dtype(dtype or np.float32)
 
     p_name, p_kw = unpack_arg(smooth)
@@ -347,7 +386,6 @@ def rootnode_setup_sharded(A, B=None, mesh=None, n_devices=None,
                          f"smoother (got {p_name!r})")
     sm_name, sm_kw = unpack_arg(smoother)
     strength_of, aggregate_of = _graph_stages(strength, aggregate)
-    ell = _ell_maker(dt, device)
 
     A_host = sp.csr_matrix(A).astype(dt)
     A_host.sort_indices()
@@ -359,8 +397,9 @@ def rootnode_setup_sharded(A, B=None, mesh=None, n_devices=None,
     while len(levels) < max_levels - 1 and A_host.shape[0] > max_coarse:
         n = A_host.shape[0]
         n_pad = pad_to(n, nd)
+        rows = Layout(mesh, n_pad, True)
 
-        # ---- host: integer graph stage ---------------------------------
+        # ---- host: integer graph stage (the same on every rank) --------
         C = strength_of(A_host)
         AggOp, Cnodes = aggregate_of(sp.csr_matrix(C))
         if AggOp.shape[1] == 0 or Cnodes is None:
@@ -374,30 +413,26 @@ def rootnode_setup_sharded(A, B=None, mesh=None, n_devices=None,
             sp.csr_matrix(Cpt_params["I_F"]).diagonal()).real != 0
         nc = T.shape[1]
         nc_pad = pad_to(max(nc, 1), nd)
+        crows = Layout(mesh, nc_pad, True)
 
-        # ---- device: numeric stage ---------------------------------------
-        A_ell = ell(A_host, n_pad, n_pad)
-        d = A_ell.diagonal()
-        dinv = torch.where(d != 0, 1.0 / torch.where(d != 0, d, 1), 0)
-        P_ell, patP = energy_smooth_sharded(
-            A_ell, sp.csr_matrix(T), sp.csr_matrix(C), B_coarse, dt=dt,
-            fmask_host=fmask, PI_host=Cpt_params["P_I"], **_energy_kw(p_kw))
+        # ---- device: numeric stage on this rank's rows --------------------
+        A_s = upload_rows(A_host, rows, n_pad, dt)
+        A_op = operator(A_s, rows)
+        dinv = _dinv(A_s.diagonal())
+        P_s, patP = energy_smooth_sharded(
+            A_s, sp.csr_matrix(T), sp.csr_matrix(C), B_coarse, mesh=mesh,
+            dt=dt, fmask_host=fmask, PI_host=Cpt_params["P_I"],
+            **_energy_kw(p_kw))
         patA = _pattern_csr(A_host, (n_pad, n_pad))
-        patR, patAP, patAc = _transfer_patterns(
-            patA, _pattern_csr(patP, (n_pad, nc_pad)))
-        R_ell = ell_transpose_onto(P_ell, ell(patR))
-        AP = masked_spgemm_auto(A_ell, P_ell, ell(patAP))
-        Ac_ell = masked_spgemm_auto(R_ell, AP, ell(patAc))
+        R_s, Ac_host = _galerkin(
+            A_s, P_s,
+            _transfer_patterns(patA, _pattern_csr(patP, (n_pad, nc_pad))),
+            rows, crows, nc, dt)
 
-        Ac_host = Ac_ell.to_scipy()[:nc, :nc].tocsr()
-        Ac_host.eliminate_zeros()
-        Ac_host.sort_indices()
-
-        lvl = Level(A_csr=A_host, A=A_ell, P=P_ell, R=R_ell,
-                    Cpts=Cpt_params["Cpts"])
-        sm = _ell_smoother(sm_name, sm_kw, patA[:n, :n].tocsr(), dinv,
-                           n_pad, dt, device)
-        lvl.presmoother = lvl.postsmoother = sm
+        lvl = _level(A_host, A_op, P_s, R_s, rows, crows,
+                     Cpts=Cpt_params["Cpts"])
+        lvl.presmoother = lvl.postsmoother = _ell_smoother(
+            sm_name, sm_kw, patA[:n, :n].tocsr(), dinv, rows, dt)
         levels.append(lvl)
         sizes.append(n_pad)
 
@@ -411,25 +446,30 @@ def rootnode_setup_sharded(A, B=None, mesh=None, n_devices=None,
             Ac_host = Ac_host.tocsr()
         A_host, Bcur = Ac_host, B_coarse
 
-    return _with_coarsest(levels, sizes, A_host, nd, n_orig, ell, device)
+    return _with_coarsest(levels, sizes, A_host, mesh, n_orig, dt)
 
 
-def _with_coarsest(levels, sizes, A_host, nd, n_orig, ell, device):
+def _with_coarsest(levels, sizes, A_host, mesh, n_orig, dt):
     """Append the coarsest level (solved by the padded dense
-    pseudoinverse) and assemble the solver."""
-    n_pad = pad_to(A_host.shape[0], nd)
-    last = Level(A_csr=A_host, A=ell(A_host, n_pad, n_pad))
+    pseudoinverse, replicated on every rank) and assemble the solver."""
+    n_pad = pad_to(A_host.shape[0], mesh.size)
+    rows = Layout(mesh, n_pad, True)
+    last = Level(A_csr=A_host,
+                 A=operator(upload_rows(A_host, rows, n_pad, dt), rows))
+    if mesh.distributed:
+        last.layout = rows
     last.presmoother = last.postsmoother = SmootherData(kind="none")
     return ShardedSolver.from_sharded_levels(
-        levels + [last], sizes + [n_pad], n_orig, device)
+        levels + [last], sizes + [n_pad], mesh, mesh.axis_name, n_orig)
 
 
-def _mesh_candidate_relax(Ad, Ac, dinv, x, omega, sweeps=8):
-    """Weighted-Jacobi candidate relaxation on A x = 0, each sweep
-    renormalized so that strong sweeps cannot underflow x to 0."""
+def _mesh_candidate_relax(A_op, dinv, x, omega, rows, sweeps=8):
+    """Weighted-Jacobi candidate relaxation on A x = 0 (this rank's rows),
+    each sweep renormalized over the ranks so that strong sweeps cannot
+    underflow x to 0."""
     for _ in range(int(sweeps)):
-        x = x - omega * dinv * ell_matvec(Ad, Ac, x)
-        x = x / torch.clamp(torch.linalg.vector_norm(x), min=1e-30)
+        x = x - omega * dinv * A_op.matvec(x)
+        x = x / torch.clamp(vector_norm(x, rows), min=1e-30)
     return x
 
 
@@ -439,41 +479,47 @@ def adaptive_sa_setup_sharded(A, mesh=None, n_devices=None,
                               omega=2.0 / 3.0, max_levels=10,
                               max_coarse=100, dtype=None, seed=0,
                               device="cuda", **kw):
-    """Adaptive SA setup with the numeric phase on ``device``.
+    """Adaptive SA setup with the numeric phase on the device,
+    row-sharded over a mesh of ranks.
 
     The initial stage of adaptive SA: ``candidate_iters`` weighted-Jacobi
     sweeps on A x = 0 from ``np.random.default_rng(seed)``'s uniform start
-    in [-0.5, 0.5) (the JAX package's numbers), renormalized every sweep,
-    with rho(D^-1 A) from 20 power steps started at the first candidate;
-    then :func:`general_sa_setup_sharded` on the relaxed candidates, with
-    the remaining keywords.  Arguments as in the JAX package, on one
-    device."""
-    _one_device(mesh, n_devices, "adaptive_sa_setup_sharded")
+    in [-0.5, 0.5) (the JAX package's numbers; every rank draws the whole
+    start and keeps its rows), renormalized every sweep, with rho(D^-1 A)
+    from 20 power steps started at the first candidate; the candidates are
+    gathered onto every rank's host, then :func:`general_sa_setup_sharded`
+    runs on them over the same mesh, with the remaining keywords.
+    Arguments as in the JAX package, the mesh as there."""
+    mesh = _setup_mesh(mesh, n_devices, axis_name, device)
     dt = np.dtype(dtype or np.float32)
 
     A_host = sp.csr_matrix(A).astype(dt)
     A_host.sort_indices()
     n = A_host.shape[0]
-    A_ell = SparseELL.from_scipy(A_host, dtype=dt, device=device)
-    d = A_ell.diagonal()
-    dinv = torch.where(d != 0, 1.0 / torch.where(d != 0, d, 1), 0)
+    n_pad = pad_to(n, mesh.size)
+    rows = Layout(mesh, n_pad, True)
+    lo, hi = rows.start, rows.start + rows.nl
+    A_s = upload_rows(A_host, rows, n_pad, dt)
+    A_op = operator(A_s, rows)
+    dinv = _dinv(A_s.diagonal())
 
     rng = np.random.default_rng(seed)
     cands = []
     rho = None
     for _ in range(max(1, int(num_candidates))):
-        x = torch.as_tensor(rng.random(n).astype(dt) - 0.5, device=device)
+        x0 = np.zeros(n_pad, dtype=dt)
+        x0[:n] = rng.random(n).astype(dt) - 0.5
+        x = torch.as_tensor(x0[lo:hi], device=mesh.device)
         if rho is None:
-            rho = float(_ell_power_rho(A_ell.data, A_ell.cols, dinv, x,
-                                       n_iter=20))
+            rho = float(_ell_power_rho(A_op, dinv, x, rows, n_iter=20))
         x = _mesh_candidate_relax(
-            A_ell.data, A_ell.cols, dinv, x,
-            torch.tensor(omega / max(rho, 1e-30), dtype=A_ell.dtype,
-                         device=device),
-            sweeps=int(candidate_iters))
-        cands.append(x.cpu().numpy())
+            A_op, dinv, x,
+            torch.tensor(omega / max(rho, 1e-30), dtype=A_s.data.dtype,
+                         device=mesh.device),
+            rows, sweeps=int(candidate_iters))
+        cands.append(rows.full(x).cpu().numpy()[:n])
     Bcur = np.column_stack(cands).astype(dt)
 
-    return general_sa_setup_sharded(A_host, B=Bcur, max_levels=max_levels,
-                                    max_coarse=max_coarse, dtype=dt,
-                                    device=device, **kw)
+    return general_sa_setup_sharded(A_host, B=Bcur, mesh=mesh,
+                                    max_levels=max_levels,
+                                    max_coarse=max_coarse, dtype=dt, **kw)

@@ -24,8 +24,10 @@ smoothers read whole vectors: x and b are gathered, the one-device steps
 run on them on every rank (the level's operator applied through its
 shards) and each rank keeps its rows.
 
-``ShardedSolver.from_sharded_levels`` keeps its one-device form: the
-general setups return it on one device.
+``ShardedSolver.from_sharded_levels`` assembles the levels that the
+general, root-node, adaptive and classical setups build over the ranks
+(``setup.py``, ``classical_setup.py``; on one device, whole padded-ELL
+levels).
 
 Examples
 --------
@@ -326,15 +328,22 @@ class ShardedSolver:
         self._finalize(levels, None, ml.coarse_solver_spec)
 
     @classmethod
-    def from_sharded_levels(cls, levels, sizes, n_orig, device, coarse=None):
-        """Assemble from levels whose operators are already padded and on
-        ``device`` (one device).  ``coarse``: the coarsest level's padded
+    def from_sharded_levels(cls, levels, sizes, mesh, axis_name=None,
+                            n_orig=None, coarse=None):
+        """Assemble from levels a setup built on ``mesh`` (the JAX
+        package's signature; ``axis_name`` names the mesh's one axis):
+        each level's operators already padded to ``sizes`` and placed --
+        this rank's rows, as :class:`~.halo.HaloELL` or
+        :class:`~.halo.GatherELL` on the level's ``layout``, over a
+        process group; whole padded SparseELLs on the one-rank mesh
+        without one.  ``coarse``: the coarsest level's padded
         pseudoinverse (a tensor); by default it is computed from that
-        level's ``A_csr``."""
+        level's ``A_csr`` on every rank."""
         self = object.__new__(cls)
         self.sizes, self.n_orig = list(sizes), int(n_orig)
-        self.device = torch.device(device)
-        self.mesh = None
+        self.mesh = mesh if mesh.distributed else None
+        self.axis = axis_name or mesh.axis_name
+        self.device = mesh.device
         self._finalize(levels, coarse)
         return self
 

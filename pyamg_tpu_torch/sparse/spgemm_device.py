@@ -83,14 +83,17 @@ def rap_pattern(R, A, P, dtype=None, device="cuda"):
             SparseELL.from_scipy(pRAP, dtype=dt, device=device))
 
 
-def ell_transpose_onto(A: SparseELL, pattern: SparseELL) -> SparseELL:
+def ell_transpose_onto(A: SparseELL, pattern: SparseELL,
+                       row0: int = 0) -> SparseELL:
     """A^T with values computed on A's device onto a host-symbolic pattern.
 
     Transpose entry (j, i) equals A[i, j]: gather source row i per slot
     (-1 at the pattern's padding) and pick out column j by compare -- the
-    gather-and-match shape of the masked product, no scatters."""
+    gather-and-match shape of the masked product, no scatters.  The
+    pattern's rows may be rows ``row0 ..`` of the transpose (a row slab
+    whose columns index A's rows as given)."""
     tc = sentinel_cols(pattern)
-    rows_t = torch.arange(tc.shape[0], dtype=A.cols.dtype,
+    rows_t = torch.arange(row0, row0 + tc.shape[0], dtype=A.cols.dtype,
                           device=tc.device)
     src = torch.where(tc >= 0, tc, 0)                      # (n_t, w_t)
     hit = A.cols[src] == rows_t[:, None, None]             # (n_t, w_t, w_a)

@@ -55,6 +55,7 @@ import torch
 
 from ..classical.classical import _device_transfers
 from ..multilevel import Level, MultilevelSolver
+from ..parallel.mesh import one_rank_mesh
 from ..parallel.sharding import ShardedSolver
 from ..relaxation.device import SmootherData
 from ..relaxation.smoothing import schwarz_dof_slots
@@ -198,5 +199,6 @@ def ell_hierarchy_from_numpy(levels, sizes, n_orig, coarse, device, dtype):
         lvl.presmoother = _smoother(spec["presmoother"], n, tensor, index)
         lvl.postsmoother = _smoother(spec["postsmoother"], n, tensor, index)
         out.append(lvl)
-    return ShardedSolver.from_sharded_levels(out, sizes, n_orig, device,
-                                             coarse=tensor(coarse))
+    return ShardedSolver.from_sharded_levels(out, sizes,
+                                             one_rank_mesh(device), None,
+                                             n_orig, coarse=tensor(coarse))

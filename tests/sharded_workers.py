@@ -1,5 +1,5 @@
-"""The rank side of ``test_torch_sharded.py`` and
-``test_torch_sharded_setup.py``.
+"""The rank side of ``test_torch_sharded.py``,
+``test_torch_sharded_setup.py`` and ``test_torch_sharded_ell_setup.py``.
 
 Each test file starts one group of gloo CPU ranks with
 ``pyamg_tpu_torch.parallel.launch`` and runs every case of its slice in it;
@@ -247,7 +247,7 @@ def _halo_matvecs(mesh, mats, xs):
     return out
 
 
-# -- slice (b): the structured setup over ranks --------------------------------
+# -- slice (b): the structured setup over ranks -------------------------------
 
 def _diag_report(ml):
     """Per level: the whole diagonals, the offsets and whether the level
@@ -346,3 +346,278 @@ def _sharded_ops(mesh, case):
                                    (nc, n)).matvec(x).numpy()
     out["nnz"] = (S.nnz, int(torch.count_nonzero(diags)))
     return out
+
+
+# -- slices (c) and (d): the ELL-product setups over ranks --------------------
+
+def pattern_hashes(sol):
+    """sha256 of each level's host matrix (structure and values) and C/F
+    splitting: equal on every rank when every rank's host stages agree."""
+    import hashlib
+
+    out = []
+    for lvl in sol.levels:
+        M = lvl.A_csr
+        h = hashlib.sha256()
+        for a in (M.indptr, M.indices, M.data,
+                  getattr(lvl, "splitting", np.zeros(0)),
+                  getattr(lvl, "Cpts", np.zeros(0))):
+            h.update(np.ascontiguousarray(a).tobytes())
+        out.append(h.hexdigest())
+    return out
+
+
+def _slab_rows(sol):
+    """Per level: the layout's rows of this rank and the rows of A, P and
+    R on this rank's device, with their types."""
+    out = []
+    for lvl in sol.levels:
+        row = dict(nl=lvl.layout.nl, n=lvl.layout.n,
+                   A=(type(lvl.A).__name__, lvl.A.data.shape[0]))
+        for name in ("P", "R"):
+            op = getattr(lvl, name, None)
+            if op is not None:
+                row[name] = (type(op).__name__, op.data.shape[0],
+                             op.layout.nl)
+        out.append(row)
+    return out
+
+
+def _ell_record(mesh, sol, b=None, solve=None):
+    """What a case returns: the levels' host matrices and the whole P of
+    each level (collectives, so every rank calls), the slab rows, the
+    pattern hashes of every rank, and a solve's x and residuals."""
+    from pyamg_tpu_torch.parallel import products
+
+    out = dict(A=[lvl.A_csr for lvl in sol.levels],
+               P=[lvl.P.to_scipy() for lvl in sol.levels[:-1]],
+               slabs=_slab_rows(sol), sizes=list(sol.sizes),
+               hashes=mesh.all_gather_object(pattern_hashes(sol)),
+               types=[type(lvl.A).__name__ for lvl in sol.levels],
+               routes=list(products.routes))
+    if solve is not None:
+        out["solve"] = _solved(sol, b, **solve)
+    return out
+
+
+def ell_setup_cases(mesh, inputs):
+    """Every case of ``test_torch_sharded_ell_setup.py`` on this rank: the
+    general, classical, energy, root-node and adaptive setups built over
+    the ranks (``mesh``, or its first 4), each returned with its levels,
+    its slab rows, the pattern hashes of every rank and a solve."""
+    from pyamg_tpu_torch import parallel as par
+    from pyamg_tpu_torch.parallel import products
+    from pyamg_tpu_torch.parallel.energy import energy_smooth_sharded
+    from pyamg_tpu_torch.sparse import SparseELL
+
+    out = {}
+    f64 = np.float64
+    cg8 = dict(tol=1e-8, accel="cg", maxiter=100)
+
+    def case(name, build, b=None, solve=None, on=mesh):
+        products.routes.clear()
+        out[name] = _ell_record(on, build(on), b, solve)
+
+    A = sp.csr_matrix(poisson((48, 48), format="csr"))
+    b48 = A @ np.random.default_rng(0).random(A.shape[0])
+    case("general_48", lambda m: par.general_sa_setup_sharded(
+        A, mesh=m, dtype=f64), b48, cg8)
+
+    An = inputs["nodiag_32"]
+    case("nodiag_32", lambda m: par.general_sa_setup_sharded(
+        An, mesh=m, dtype=f64))
+
+    E, B = linear_elasticity((16, 16))
+    E = E.tocsr()
+    case("elasticity_16", lambda m: par.general_sa_setup_sharded(
+        E, B=B, mesh=m, dtype=f64, max_coarse=40), _rhs(E.shape[0], 0),
+        dict(tol=1e-8, accel="cg", maxiter=200))
+
+    B2 = np.ones((A.shape[0], 2))
+    B2[:, 1] = np.linspace(-1, 1, A.shape[0])
+    case("multicand_48", lambda m: par.general_sa_setup_sharded(
+        A, B=B2, mesh=m, dtype=f64,
+        smoother=("jacobi", {"omega": 0.8, "iterations": 2})),
+        A @ np.random.default_rng(1).random(A.shape[0]),
+        dict(tol=1e-8, accel="cg", maxiter=150))
+
+    P48 = poisson((48, 48), format="csr")
+    case("rs_direct_48", lambda m: par.classical_setup_sharded(
+        P48, mesh=m, dtype=f64, max_coarse=50), b48,
+        dict(tol=1e-8, accel="cg", maxiter=60))
+    S48 = stencil_grid(diffusion_stencil_2d(epsilon=0.01, theta=np.pi / 4,
+                                            type="FD"), (48, 48),
+                       format="csr")
+    case("rs_standard_48", lambda m: par.classical_setup_sharded(
+        S48, mesh=m, dtype=f64, interpolation="standard", max_coarse=50))
+    case("rs_evolution_48", lambda m: par.classical_setup_sharded(
+        S48, mesh=m, dtype=f64, interpolation="standard", max_coarse=50,
+        strength=("evolution", {"k": 2, "epsilon": 4.0})),
+        S48 @ np.random.default_rng(0).random(S48.shape[0]), cg8)
+    P32 = poisson((32, 32), format="csr")
+    case("rs_32", lambda m: par.classical_setup_sharded(
+        P32, mesh=m, dtype=f64, max_coarse=50))
+
+    m4 = make_mesh(4)
+    if m4.rank is None:
+        try:
+            par.general_sa_setup_sharded(P32, n_devices=4, dtype=f64)
+        except ValueError as e:
+            out["outside_mesh"] = str(e)
+    else:
+        ones = np.ones(P32.shape[0])
+        cg10 = dict(tol=1e-10, accel="cg", maxiter=100)
+        case("energy_32", lambda m: par.general_sa_setup_sharded(
+            P32, mesh=m, max_coarse=20, smooth=("energy", {"maxiter": 4}),
+            dtype=f64), ones, cg10, on=m4)
+        case("rootnode_32", lambda m: par.rootnode_setup_sharded(
+            P32, mesh=m, max_coarse=20, dtype=f64), ones, cg10, on=m4)
+        P24 = poisson((24, 24), format="csr")
+        case("rootnode_24", lambda m: par.rootnode_setup_sharded(
+            P24, mesh=m, max_coarse=20, dtype=f64), on=m4)
+        case("adaptive_32", lambda m: par.adaptive_sa_setup_sharded(
+            P32, mesh=m, max_coarse=20, num_candidates=1,
+            candidate_iters=10, dtype=f64), ones,
+            dict(tol=1e-10, accel="cg", maxiter=200), on=m4)
+
+        e = inputs["energy_24"]
+        n_pad = pad_to(e["A"].shape[0], 4)
+        A_ell = _pad_ell(SparseELL.from_scipy(e["A"], dtype=f64,
+                                              device=CPU), n_pad, n_pad)
+        P_ell, pattern = energy_smooth_sharded(
+            A_ell, e["T"], e["C"], e["Bc"], m4, degree=1, maxiter=4,
+            tol=1e-8, weighting="local", dt=f64)
+        rows = Layout(m4, n_pad, True)
+        P_s = products.RowSlab(P_ell, products.upload_rows(
+            pattern, rows, P_ell.shape[1], values=False).pattern, rows)
+        out["energy_P_24"] = dict(P=products.host_values(P_s),
+                                  rows=P_ell.data.shape[0],
+                                  pattern=pattern)
+    return out
+
+
+# -- the JAX package's mesh builds of the same cases --------------------------
+
+def _jax_record(sol, b=None, solve=None):
+    levels = getattr(sol, "inner", sol).levels
+    out = dict(A=[lvl.A_csr for lvl in levels],
+               P=[lvl.P.to_scipy() for lvl in levels[:-1]])
+    if solve is not None:
+        res = []
+        x = sol.solve(b, residuals=res, **solve)
+        out["solve"] = (np.asarray(x, dtype=float), np.asarray(res))
+    return out
+
+
+def _jax_energy_p(e, mesh):
+    """The JAX package's energy P of ``e`` on ``mesh``, and the host flat
+    path's."""
+    from pyamg_tpu.aggregation.smooth import energy_prolongation_smoother
+    from pyamg_tpu.parallel.energy import energy_smooth_sharded
+    from pyamg_tpu.parallel.sharding import _pad_ell, _place_ell, pad_to
+    from pyamg_tpu.sparse import SparseELL as JaxELL
+
+    A = e["A"]
+    n_pad = pad_to(A.shape[0], 4)
+    A_ell = _place_ell(_pad_ell(JaxELL.from_scipy(A, dtype=np.float64),
+                                n_pad, n_pad), mesh, "rows")
+    P_ell, pattern = energy_smooth_sharded(
+        A_ell, e["T"], e["C"], e["Bc"], mesh, "rows", degree=1, maxiter=4,
+        tol=1e-8, weighting="local", dt=np.float64)
+    host = energy_prolongation_smoother(
+        A, e["T"], e["C"], e["Bc"], None, (False, {}), krylov="cg",
+        maxiter=4, tol=1e-8, degree=1, weighting="local")
+    return dict(P=P_ell.to_scipy(), pattern=pattern,
+                host=sp.csr_matrix(host))
+
+
+def jax_mesh_references(names, inputs):
+    """The JAX package's mesh builds (and solves) of the cases ``names`` of
+    :func:`ell_setup_cases`, in a process of their own: JAX on the CPU
+    with 8 virtual devices and float64 (the process inherits the pytest
+    process's ``XLA_FLAGS``), first-fit colors (the JAX package's native
+    library patched in, as the port's tests build every reference)."""
+    import os
+
+    os.environ.setdefault("JAX_PLATFORMS", "cpu")
+    if "device_count" not in os.environ.get("XLA_FLAGS", ""):
+        os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") +
+                                   " --xla_force_host_platform_device_count=8")
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    jax.config.update("jax_enable_x64", True)
+    import pyamg_tpu
+    import pyamg_tpu.amg_core as jax_core
+    from pyamg_tpu import parallel as jpar
+    from pyamg_tpu.gallery import (diffusion_stencil_2d as jstencil,
+                                   linear_elasticity as jelasticity,
+                                   poisson as jpoisson,
+                                   stencil_grid as jgrid)
+
+    f64 = np.float64
+    cg8 = dict(tol=1e-8, accel="cg", maxiter=100)
+    m8, m4 = jpar.make_mesh(8), jpar.make_mesh(4)
+    A = sp.csr_matrix(jpoisson((48, 48), format="csr"))
+    b48 = A @ np.random.default_rng(0).random(A.shape[0])
+    P48 = jpoisson((48, 48), format="csr")
+    S48 = jgrid(jstencil(epsilon=0.01, theta=np.pi / 4, type="FD"),
+                (48, 48), format="csr")
+    P32 = jpoisson((32, 32), format="csr")
+    ones = np.ones(P32.shape[0])
+    cg10 = dict(tol=1e-10, accel="cg", maxiter=100)
+
+    def elasticity():
+        E, B = jelasticity((16, 16))
+        return _jax_record(jpar.general_sa_setup_sharded(
+            E.tocsr(), B=B, mesh=m8, dtype=f64, max_coarse=40),
+            _rhs(E.shape[0], 0), dict(tol=1e-8, accel="cg", maxiter=200))
+
+    def multicand():
+        B2 = np.ones((A.shape[0], 2))
+        B2[:, 1] = np.linspace(-1, 1, A.shape[0])
+        return _jax_record(jpar.general_sa_setup_sharded(
+            A, B=B2, mesh=m8, dtype=f64,
+            smoother=("jacobi", {"omega": 0.8, "iterations": 2})),
+            A @ np.random.default_rng(1).random(A.shape[0]),
+            dict(tol=1e-8, accel="cg", maxiter=150))
+
+    cases = {
+        "general_48": lambda: _jax_record(jpar.general_sa_setup_sharded(
+            A, mesh=m8, dtype=f64), b48, cg8),
+        "nodiag_32": lambda: _jax_record(jpar.general_sa_setup_sharded(
+            inputs["nodiag_32"], mesh=m8, dtype=f64)),
+        "elasticity_16": elasticity,
+        "multicand_48": multicand,
+        "rs_direct_48": lambda: _jax_record(jpar.classical_setup_sharded(
+            P48, mesh=m8, dtype=f64, max_coarse=50), b48,
+            dict(tol=1e-8, accel="cg", maxiter=60)),
+        "rs_standard_48": lambda: _jax_record(jpar.classical_setup_sharded(
+            S48, mesh=m8, dtype=f64, interpolation="standard",
+            max_coarse=50)),
+        "rs_evolution_48": lambda: _jax_record(jpar.classical_setup_sharded(
+            S48, mesh=m8, dtype=f64, interpolation="standard",
+            max_coarse=50, strength=("evolution", {"k": 2, "epsilon": 4.0})),
+            S48 @ np.random.default_rng(0).random(S48.shape[0]), cg8),
+        "rs_32": lambda: _jax_record(jpar.classical_setup_sharded(
+            P32, mesh=m8, dtype=f64, max_coarse=50)),
+        "energy_32": lambda: _jax_record(jpar.general_sa_setup_sharded(
+            P32, mesh=m4, max_coarse=20, smooth=("energy", {"maxiter": 4}),
+            dtype=f64), ones, cg10),
+        "rootnode_32": lambda: _jax_record(jpar.rootnode_setup_sharded(
+            P32, mesh=m4, max_coarse=20, dtype=f64), ones, cg10),
+        "rootnode_24": lambda: _jax_record(jpar.rootnode_setup_sharded(
+            jpoisson((24, 24), format="csr"), mesh=m4, max_coarse=20,
+            dtype=f64)),
+        "adaptive_32": lambda: _jax_record(jpar.adaptive_sa_setup_sharded(
+            P32, mesh=m4, max_coarse=20, num_candidates=1,
+            candidate_iters=10, dtype=f64), ones,
+            dict(tol=1e-10, accel="cg", maxiter=200)),
+        "energy_P_24": lambda: _jax_energy_p(inputs["energy_24"], m4),
+        "rs_evolution_host": lambda: dict(A=[
+            lvl.A_csr for lvl in pyamg_tpu.ruge_stuben_solver(
+                S48, strength=("evolution", {"k": 2, "epsilon": 4.0}),
+                interpolation="standard", max_coarse=50).levels]),
+    }
+    jax_core.have_native = lambda: True
+    return {name: cases[name]() for name in names}

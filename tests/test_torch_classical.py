@@ -674,8 +674,11 @@ def test_classical_setup_sharded_routes_and_refusals(monkeypatch):
         assert la.A_csr.nnz == lh.A_csr.nnz
         if hasattr(lh, "splitting"):
             np.testing.assert_array_equal(la.splitting, lh.splitting)
-    for bad in (dict(n_devices=2), dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="distributed path"):
+    for bad, error, match in ((dict(n_devices=2), ValueError,
+                               "requested 2 devices.*launch"),
+                              (dict(mesh=object()), TypeError,
+                               "mesh must be")):
+        with pytest.raises(error, match=match):
             cs.classical_setup_sharded(A, device="cpu", **bad)
     for bad in (dict(interpolation="x"), dict(smoother="sor"),
                 dict(CF="CR"), dict(strength="distance"),

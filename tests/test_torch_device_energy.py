@@ -216,15 +216,23 @@ def test_rootnode_requires_energy_smoothing():
 @pytest.mark.parametrize("setup", ["energy", "rootnode", "adaptive"])
 @pytest.mark.parametrize("how", ["n_devices", "mesh"])
 def test_setups_over_several_devices_raise(setup, how):
+    """Over several devices the setups need a process group (``launch``;
+    ``test_torch_sharded_ell_setup.py`` runs them over ranks), and a mesh
+    must be a ``Mesh``."""
     fn, _, kw = SETUPS[setup]
-    where = {"n_devices": 2} if how == "n_devices" else {"mesh": object()}
-    with pytest.raises(NotImplementedError, match="the distributed path"):
+    if how == "n_devices":
+        where, error, match = {"n_devices": 2}, ValueError, \
+            "requested 2 devices.*launch"
+    else:
+        where, error, match = {"mesh": object()}, TypeError, "mesh must be"
+    with pytest.raises(error, match=match):
         fn(poisson((10, 10), format="csr"), device="cpu", **where, **kw)
 
 
 def test_energy_smoothing_over_a_mesh_raises(level0):
+    """A mesh that is no ``Mesh`` raises as the sharded solvers do."""
     A, C, T, Bc = level0[:4]
-    with pytest.raises(NotImplementedError, match="the distributed path"):
+    with pytest.raises(TypeError, match="mesh must be"):
         energy_smooth_sharded(
             SparseELL.from_scipy(A, dtype=np.float64, device="cpu"), T, C,
             Bc, object())

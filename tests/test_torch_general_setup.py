@@ -327,21 +327,23 @@ def test_naive_jacobi_setup_matches_jax():
     assert np.linalg.norm(b - A @ x) <= 1e-8 * np.linalg.norm(b)
 
 
-@pytest.mark.parametrize("call", [
-    lambda A: parallel.general_sa_setup_sharded(A, n_devices=2, device="cpu"),
-    lambda A: parallel.general_sa_setup_sharded(A, mesh=object(),
+@pytest.mark.parametrize("call, error, match", [
+    (lambda A: parallel.general_sa_setup_sharded(A, n_devices=2,
+                                                 device="cpu"),
+     ValueError, "requested 2 devices.*launch"),
+    (lambda A: parallel.general_sa_setup_sharded(A, mesh=object(),
+                                                 device="cpu"),
+     TypeError, "mesh must be"),
+    (lambda A: parallel.classical_setup_sharded(A, n_devices=2,
                                                 device="cpu"),
-    lambda A: parallel.classical_setup_sharded(A, n_devices=2,
-                                               device="cpu"),
+     ValueError, "requested 2 devices.*launch"),
 ], ids=["n_devices", "mesh", "classical"])
-def test_setups_off_the_ported_path_raise(call):
-    """(``classical_setup_sharded`` raised on any call until the classical
-    slice ported it on one device, and ``smooth="energy"``,
-    ``rootnode_setup_sharded`` and ``adaptive_sa_setup_sharded`` until the
-    device setups did: over several devices they still raise;
-    ``test_torch_classical.py`` and ``test_torch_device_energy.py`` compare
-    them with the JAX package.)"""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_setups_off_the_ported_path_raise(call, error, match):
+    """The setups run over a mesh of ranks: several devices outside a
+    process group, or a mesh that is no ``Mesh``, raise as ``make_mesh``
+    and the sharded solvers do (``test_torch_sharded_ell_setup.py``
+    compares the setups over ranks with the JAX package's mesh builds)."""
+    with pytest.raises(error, match=match):
         call(poisson((10, 10), format="csr"))
 
 

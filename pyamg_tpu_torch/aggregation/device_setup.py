@@ -53,6 +53,7 @@ from ..sparse import ComposedOp, GridPoolOp, GridRepeatOp, SparseDIA
 from ..sparse.dia import ShardedDIA
 from ..sparse.linop import (GatheredOp, ShardedGridPoolOp,
                             ShardedGridRepeatOp)
+from ..util import profiling
 from ..util.utils import numpy_dtype, torch_dtype
 
 __all__ = ["structured_sa_setup", "device_rap", "device_smoothing_factor",
@@ -174,7 +175,8 @@ def device_rap(P, R, A: SparseDIA, cgrid, layout=None) -> SparseDIA:
     coarse stencils within the 3^d neighbourhood).  ``layout``: the coarse
     level's over a mesh; a row-sharded one gets this rank's rows of the
     probes' tables and of A_c (a :class:`ShardedDIA`)."""
-    combs, offsets, sel, valid = _probe_tables(cgrid)
+    with profiling.span("probe_tables", host=True):
+        combs, offsets, sel, valid = _probe_tables(cgrid)
     nc = combs.shape[1]
     sharded = layout is not None and layout.sharded
     if sharded:
@@ -193,16 +195,17 @@ def device_rap(P, R, A: SparseDIA, cgrid, layout=None) -> SparseDIA:
 def _geometric_masks(grid, two_colors, dtype, device):
     """(ncolors, n) 0/1 color masks of a grid: the checkerboard, or the
     2^d parity classes."""
-    n = int(np.prod(grid))
-    coords = _class_arrays(grid)
-    colors = np.zeros(n, dtype=np.int64)
-    for c in coords:
-        colors = colors + c if two_colors else colors * 2 + (c % 2)
-    if two_colors:
-        colors %= 2
-    nc = 2 if two_colors else 2 ** len(grid)
-    masks = np.zeros((nc, n), dtype=np.float32)
-    masks[colors, np.arange(n)] = 1.0
+    with profiling.span("masks", host=True):
+        n = int(np.prod(grid))
+        coords = _class_arrays(grid)
+        colors = np.zeros(n, dtype=np.int64)
+        for c in coords:
+            colors = colors + c if two_colors else colors * 2 + (c % 2)
+        if two_colors:
+            colors %= 2
+        nc = 2 if two_colors else 2 ** len(grid)
+        masks = np.zeros((nc, n), dtype=np.float32)
+        masks[colors, np.arange(n)] = 1.0
     return torch.as_tensor(masks, device=device).to(dtype)
 
 
@@ -229,29 +232,36 @@ def _build_level(A_l, B_l, cur_grid, blk, deg, omega, dtype, fine=None,
     """One level of the device setup: ``(P, R, A_c, B_c, dinv)``.  Over a
     mesh, ``fine`` and ``coarse`` are the two levels' layouts."""
     n = int(np.prod(cur_grid))
-    dvec = A_l.diagonal()
-    dinv = torch.where(dvec != 0, 1.0 / torch.where(dvec != 0, dvec, 1), 0)
-    rho = device_power_rho(A_l, dinv)
-    S = device_smoothing_factor(A_l, omega / rho)
-    ST = dia_transpose(S)
+    with profiling.span("rho", host=False):
+        dvec = A_l.diagonal()
+        dinv = torch.where(dvec != 0,
+                           1.0 / torch.where(dvec != 0, dvec, 1), 0)
+        rho = device_power_rho(A_l, dinv)
+    with profiling.span("smoothing", host=False):
+        S = device_smoothing_factor(A_l, omega / rho)
+        ST = dia_transpose(S)
 
     cgrid = tuple(-(-g // b) for g, b in zip(cur_grid, blk))
     nc = int(np.prod(cgrid))
-    ones = torch.ones(B_l.shape[0], dtype=dtype, device=A_l.device)
-    rep1, pool1 = _tentative(ones, cur_grid, blk, n, nc, fine, coarse)
-    agg_nrm = torch.sqrt(torch.clamp(pool1.matvec(torch.abs(B_l) ** 2),
-                                     min=1e-30))
-    wmap = B_l * rep1.matvec(1.0 / agg_nrm)
-    T, Tt = _tentative(wmap, cur_grid, blk, n, nc, fine, coarse,
-                       like=(rep1, pool1))
+    with profiling.span("tentative", host=False):
+        ones = torch.ones(B_l.shape[0], dtype=dtype, device=A_l.device)
+        rep1, pool1 = _tentative(ones, cur_grid, blk, n, nc, fine, coarse)
+        agg_nrm = torch.sqrt(torch.clamp(pool1.matvec(torch.abs(B_l) ** 2),
+                                         min=1e-30))
+        wmap = B_l * rep1.matvec(1.0 / agg_nrm)
+        T, Tt = _tentative(wmap, cur_grid, blk, n, nc, fine, coarse,
+                           like=(rep1, pool1))
     if deg > 0:
         P = ComposedOp([S] * deg + [T], (n, nc))
         R = ComposedOp([Tt] + [ST] * deg, (nc, n))
     else:
         P, R = T, Tt
-    return P, R, device_rap(P, R, A_l, cgrid, coarse), agg_nrm, dinv
+    with profiling.span("rap", host=False):
+        Ac = device_rap(P, R, A_l, cgrid, coarse)
+    return P, R, Ac, agg_nrm, dinv
 
 
+@profiling.setup_spans
 def structured_sa_setup(A, grid, block=None, omega=4.0 / 3.0, degree=1,
                         max_levels=10, max_coarse=200,
                         presmoother_sweep="symmetric",
@@ -333,28 +343,32 @@ def structured_sa_setup(A, grid, block=None, omega=4.0 / 3.0, degree=1,
                    device=device)
     cur_grid = grid
     while len(levels) < max_levels - 1 and A_dev.shape[0] > max_coarse:
-        cgrid = tuple(-(-g // b) for g, b in zip(cur_grid, block))
-        clay = layout_of(int(np.prod(cgrid)))
-        P, R, A_c, B_c, dinv = _build_level(A_dev, B, cur_grid, block,
-                                            degree, omega, dtype, lay, clay)
-        strides = [int(np.prod(cur_grid[k + 1:])) for k in range(d)]
-        cross = {0} | set(strides) | {-s for s in strides}
-        masks = _geometric_masks(cur_grid, set(A_dev.offsets) <= cross,
-                                 dtype, device)
-        if lay is not None:
-            masks = lay.local(masks.T).T.contiguous()
-        sm = SmootherData(kind="gauss_seidel", iterations=1,
-                          sweep=presmoother_sweep, dinv=dinv,
-                          color_masks=masks)
-        levels.append(Level(A=A_dev, grid=cur_grid, P=P, R=R,
-                            presmoother=sm, postsmoother=sm, layout=lay))
-        A_dev, B, lay = A_c, B_c, clay
-        cur_grid = cgrid
+        with profiling.span("setup.level", level=len(levels),
+                            rows=A_dev.shape[0]):
+            cgrid = tuple(-(-g // b) for g, b in zip(cur_grid, block))
+            clay = layout_of(int(np.prod(cgrid)))
+            P, R, A_c, B_c, dinv = _build_level(A_dev, B, cur_grid, block,
+                                                degree, omega, dtype, lay,
+                                                clay)
+            strides = [int(np.prod(cur_grid[k + 1:])) for k in range(d)]
+            cross = {0} | set(strides) | {-s for s in strides}
+            masks = _geometric_masks(cur_grid, set(A_dev.offsets) <= cross,
+                                     dtype, device)
+            if lay is not None:
+                masks = lay.local(masks.T).T.contiguous()
+            sm = SmootherData(kind="gauss_seidel", iterations=1,
+                              sweep=presmoother_sweep, dinv=dinv,
+                              color_masks=masks)
+            levels.append(Level(A=A_dev, grid=cur_grid, P=P, R=R,
+                                presmoother=sm, postsmoother=sm, layout=lay))
+            A_dev, B, lay = A_c, B_c, clay
+            cur_grid = cgrid
 
     # the coarsest level's host matrix feeds the dense coarse solve; the
     # finer levels' are rebuilt on demand (Level.host_A)
-    levels.append(Level(A=A_dev, grid=cur_grid, A_csr=A_dev.to_scipy(),
-                        layout=lay))
+    with profiling.span("coarsest_csr", host=True):
+        A_csr = A_dev.to_scipy()
+    levels.append(Level(A=A_dev, grid=cur_grid, A_csr=A_csr, layout=lay))
     ml = MultilevelSolver(levels, coarse_solver=coarse_solver, device=device)
     ml._smoother_config = (("gauss_seidel",
                             {"sweep": presmoother_sweep}),) * 2

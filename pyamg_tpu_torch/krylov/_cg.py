@@ -2,8 +2,9 @@
 
 Port of ``cg_core`` and ``cg`` (``pyamg_tpu/krylov/_cg.py``): a Python loop
 over tensors with the same iterate sequence and the same zero-denominator
-guards.  The stopping test reads one scalar from the device per iteration;
-nothing else synchronizes.
+guards.  The stopping test reads one scalar from the device per iteration,
+through ``util.profiling.read_back``, the one place the solve path reads
+from the device.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..util import profiling
 from ._common import finalize, norm, prepare, real_dtype, tolerance
 
 __all__ = ["cg", "cg_core"]
@@ -30,7 +32,7 @@ def cg_core(mv, pre, x, b, tol_t, maxiter, dot=torch.vdot):
     z = pre(r)
     p = z
     rz = dot(r, z)
-    res_buf[0] = norm(r, dot).item()
+    res_buf[0] = profiling.read_back(norm(r, dot), "cg.res")
     it = 0
     while res_buf[it] > tol and it < maxiter:
         Ap = mv(p)
@@ -44,7 +46,7 @@ def cg_core(mv, pre, x, b, tol_t, maxiter, dot=torch.vdot):
         p = z + beta * p
         rz = rz_new
         it += 1
-        res_buf[it] = norm(r, dot).item()
+        res_buf[it] = profiling.read_back(norm(r, dot), "cg.res")
     return x, it, res_buf
 
 

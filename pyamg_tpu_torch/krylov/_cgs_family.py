@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..util import profiling
 from ._common import (finalize, make_rmatvec, norm, prepare, real_dtype,
                       tolerance)
 
@@ -34,12 +35,12 @@ def _iterate(step, state, res0, b, tol_t, maxiter, dot):
     rdt = real_dtype(b.dtype)
     tol = rdt.type(tol_t)
     res_buf = np.zeros(maxiter + 1, dtype=rdt)
-    res_buf[0] = norm(res0, dot).item()
+    res_buf[0] = profiling.read_back(norm(res0, dot), "krylov.res")
     it = 0
     while res_buf[it] > tol and it < maxiter:
         state, r = step(state)
         it += 1
-        res_buf[it] = norm(r, dot).item()
+        res_buf[it] = profiling.read_back(norm(r, dot), "krylov.res")
     return state[0], it, res_buf
 
 

@@ -17,6 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..util import profiling
+
 __all__ = ["make_matvec", "make_rmatvec", "identity_M", "prepare", "norm",
            "tolerance", "finalize", "real_dtype"]
 
@@ -50,7 +52,8 @@ def _takes_tensors(op):
 def _through_host(mv):
     """Wrap a numpy-only ``matvec`` to take and return tensors."""
     def wrapped(v):
-        out = np.asarray(mv(v.cpu().numpy())).reshape(-1)
+        out = np.asarray(mv(profiling.read_back(v, "host_matvec"))) \
+            .reshape(-1)
         return torch.as_tensor(out, device=v.device).to(v.dtype)
     return wrapped
 
@@ -150,7 +153,8 @@ def norm(v: torch.Tensor, dot=torch.vdot) -> torch.Tensor:
 def tolerance(tol, b):
     """The absolute tolerance ``tol * ||b||`` (``tol`` for a zero b), as a
     host scalar of b's real dtype."""
-    normb = real_dtype(b.dtype).type(norm(b).item())
+    normb = real_dtype(b.dtype).type(profiling.read_back(norm(b),
+                                                         "krylov.normb"))
     return tol * (normb if normb != 0 else real_dtype(b.dtype).type(1))
 
 

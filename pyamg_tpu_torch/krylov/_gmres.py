@@ -16,6 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..util import profiling
 from ._common import norm, prepare, real_dtype
 
 __all__ = ["gmres", "gmres_mgs", "gmres_householder", "fgmres",
@@ -63,7 +64,7 @@ def _arnoldi_cycle(mv, pre, x, b, m, tol_t, flexible=False,
     n, dtype = b.shape[0], b.dtype
     npdt = torch.empty(0, dtype=dtype).numpy().dtype
     r = b - mv(x) if flexible else pre(b - mv(x))
-    beta = float(norm(r, dot).item())
+    beta = float(profiling.read_back(norm(r, dot), "gmres.beta"))
     if beta == 0:           # nothing to correct (and no direction to take)
         return x, [0.0], beta
 
@@ -93,7 +94,8 @@ def _arnoldi_cycle(mv, pre, x, b, m, tol_t, flexible=False,
         hj1 = norm(w, dot)
         V[j + 1] = w / torch.where(hj1 == 0, 1, hj1)
         # the step's one device-to-host copy: the Hessenberg column
-        h = torch.stack(dots + [hj1.to(dtype)]).cpu().numpy()
+        h = profiling.read_back(torch.stack(dots + [hj1.to(dtype)]),
+                                "gmres.hessenberg")
 
         # stored rotations 0..j-1, then the new one that zeroes h[j+1]
         for i in range(j):
@@ -142,7 +144,7 @@ def restart_loop(mv, pre, b, carry, tol_t, maxiter, restrt, max_outer,
 def restart_start(mv, x, b, maxiter, dot=torch.vdot):
     """The carry of :func:`restart_loop` before the first cycle."""
     res_buf = np.zeros(maxiter + 1, dtype=real_dtype(b.dtype))
-    res_buf[0] = norm(b - mv(x), dot).item()
+    res_buf[0] = profiling.read_back(norm(b - mv(x), dot), "gmres.res")
     return x, 0, res_buf, 0, float(res_buf[0])
 
 
@@ -174,12 +176,12 @@ def _gmres_like(A, b, x0, tol, restrt, maxiter, M, callback, residuals,
     restrt = int(min(restrt, n))
     max_outer = max(1, -(-int(maxiter) // restrt))
 
-    normb = float(norm(b).item())
+    normb = float(profiling.read_back(norm(b), "gmres.normb"))
     if normb == 0:
         normb = 1.0
     tol_t = tol * normb
 
-    all_res = [float(norm(b - mv(x)).item())]
+    all_res = [float(profiling.read_back(norm(b - mv(x)), "gmres.res"))]
     for _ in range(max_outer):
         x, res_hist, beta = _arnoldi_cycle(mv, pre, x, b, restrt, tol_t,
                                            flexible=flexible)
@@ -187,7 +189,7 @@ def _gmres_like(A, b, x0, tol, restrt, maxiter, M, callback, residuals,
         if res_hist[-1] <= tol_t or beta <= tol_t:
             break
 
-    true_res = float(norm(b - mv(x)).item())
+    true_res = float(profiling.read_back(norm(b - mv(x)), "gmres.res"))
     if residuals is not None:
         residuals.extend(all_res)
     if callback is not None:
@@ -225,14 +227,16 @@ def gmres_householder(A, b, x0=None, tol=1e-5, restrt=None, maxiter=None,
     dev = b_t.device
 
     def amv(v):
-        return mv(torch.as_tensor(v, device=dev)).cpu().numpy().copy()
+        return profiling.read_back(mv(torch.as_tensor(v, device=dev)),
+                                   "householder.matvec")
 
     def mop(v):
-        return pre(torch.as_tensor(v, device=dev)).cpu().numpy().copy()
+        return profiling.read_back(pre(torch.as_tensor(v, device=dev)),
+                                   "householder.precond")
 
-    b = b_t.cpu().numpy()
+    b = profiling.read_back(b_t, "householder.b")
     n = b.shape[0]
-    x = x_t.cpu().numpy().copy()
+    x = profiling.read_back(x_t, "householder.x")
     if maxiter is None:
         maxiter = n
     if restrt is None:

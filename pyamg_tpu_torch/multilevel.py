@@ -36,6 +36,7 @@ from .krylov._cgs_family import (bicgstab_core, cgne_core, cgnr_core,
 from .krylov._common import finalize, norm, real_dtype
 from .krylov._gmres import gmres_core, restart_loop, restart_start
 from .relaxation.device import apply_smoother
+from .util import profiling
 from .util.utils import numpy_dtype, torch_dtype, unpack_arg
 
 __all__ = ["Level", "MultilevelSolver", "MultilevelSolverSet",
@@ -73,7 +74,8 @@ class Level:
         """The host CSR matrix of A (rebuilt from the device operator for
         hierarchies that came without one)."""
         if not hasattr(self, "A_csr"):
-            self.A_csr = self.A.to_scipy()
+            with profiling.span("host_A", rows=self.A.shape[0]):
+                self.A_csr = self.A.to_scipy()
         return self.A_csr
 
 
@@ -197,7 +199,7 @@ class _CoarseSolver:
                                      kwargs.get("maxiter", None))
 
         def fn(b):
-            x = host(b.cpu().numpy())
+            x = host(profiling.read_back(b, "coarse.host"))
             return torch.as_tensor(np.asarray(x), device=b.device) \
                 .to(b.dtype)
         return fn
@@ -258,6 +260,9 @@ class MultilevelSolver:
         self._A64 = None
         self.symmetry = getattr(levels[0], "symmetry", "hermitian") \
             if levels else "hermitian"
+        # the records of the constructor's spans and of the solves'
+        # (util.profiling); a constructor that times itself puts its own
+        self.span_log = profiling.SpanLog()
 
     # -- introspection ----------------------------------------------------
     def __repr__(self):
@@ -348,64 +353,69 @@ class MultilevelSolver:
     def _solve_coarse(self, b):
         """The coarse solve; on a sharded coarsest level the right-hand
         side is gathered, solved on every rank, and each keeps its rows."""
-        lay = self._layout(-1)
-        if lay is not None and lay.sharded:
-            return lay.local(self._coarse_solve(lay.full(b)))
-        return self._coarse_solve(b)
+        with profiling.fine("coarse_solve"):
+            lay = self._layout(-1)
+            if lay is not None and lay.sharded:
+                return lay.local(self._coarse_solve(lay.full(b)))
+            return self._coarse_solve(b)
 
     def _coarse_solve(self, b):
         if self._coarse_fn is None:
-            pinv = self._coarse_solver.name in ("pinv", "pinv2")
-            self._coarse_fn = self._coarse_solver.prepare(
-                self.levels[-1].host_A(), getattr(self, "_op_dtype", None),
-                device=self.device,
-                dense=self._coarse() if pinv else self._coarse_mat)
+            with profiling.span("coarse.prepare", into=self.span_log.setup):
+                pinv = self._coarse_solver.name in ("pinv", "pinv2")
+                self._coarse_fn = self._coarse_solver.prepare(
+                    self.levels[-1].host_A(),
+                    getattr(self, "_op_dtype", None), device=self.device,
+                    dense=self._coarse() if pinv else self._coarse_mat)
         return self._coarse_fn(b)
 
     def _cycle(self, lvl, x, b, kind):
         """One cycle of ``kind`` from level ``lvl`` down, from ``x``."""
-        levels = self.levels
-        if lvl == len(levels) - 1:
-            return self._solve_coarse(b)
-        level = levels[lvl]
-        A = level.A
-        x = self._smooth(level, level.presmoother, x, b)
-        bc = level.R.matvec(b - A.matvec(x))
-        below = lvl + 1
+        with profiling.fine("cycle", level=lvl):
+            levels = self.levels
+            if lvl == len(levels) - 1:
+                return self._solve_coarse(b)
+            level = levels[lvl]
+            A = level.A
+            with profiling.fine("smooth", level=lvl, side="pre"):
+                x = self._smooth(level, level.presmoother, x, b)
+            bc = level.R.matvec(b - A.matvec(x))
+            below = lvl + 1
 
-        def descend(xc, rhs, kind):
-            return self._cycle(below, xc, rhs, kind)
+            def descend(xc, rhs, kind):
+                return self._cycle(below, xc, rhs, kind)
 
-        if below == len(levels) - 1:
-            xc = self._solve_coarse(bc)
-        elif kind == "V":
-            xc = descend(torch.zeros_like(bc), bc, "V")
-        elif kind == "W":
-            xc = descend(descend(torch.zeros_like(bc), bc, "W"), bc, "W")
-        elif kind == "F":
-            xc = descend(descend(torch.zeros_like(bc), bc, "F"), bc, "V")
-        else:
-            # AMLI: two coarse iterations along A-conjugate directions
-            Ac = levels[below].A
-            vdot = self._dot(below)
+            if below == len(levels) - 1:
+                xc = self._solve_coarse(bc)
+            elif kind == "V":
+                xc = descend(torch.zeros_like(bc), bc, "V")
+            elif kind == "W":
+                xc = descend(descend(torch.zeros_like(bc), bc, "W"), bc, "W")
+            elif kind == "F":
+                xc = descend(descend(torch.zeros_like(bc), bc, "F"), bc, "V")
+            else:
+                # AMLI: two coarse iterations along A-conjugate directions
+                Ac = levels[below].A
+                vdot = self._dot(below)
 
-            def guard(d):
-                return torch.where(d == 0, 1, d)
+                def guard(d):
+                    return torch.where(d == 0, 1, d)
 
-            p0 = descend(torch.zeros_like(bc), bc, "AMLI")
-            Ap0 = Ac.matvec(p0)
-            p0Ap0 = guard(vdot(p0, Ap0))
-            alpha0 = vdot(p0, bc) / p0Ap0
-            xc = alpha0 * p0
-            rc = bc - alpha0 * Ap0
-            p1 = descend(torch.zeros_like(bc), rc, "AMLI")
-            beta = vdot(p0, Ac.matvec(p1)) / p0Ap0
-            p1 = p1 - beta * p0
-            Ap1 = Ac.matvec(p1)
-            alpha1 = vdot(p1, rc) / guard(vdot(p1, Ap1))
-            xc = xc + alpha1 * p1
-        x = x + level.P.matvec(xc)
-        return self._smooth(level, level.postsmoother, x, b)
+                p0 = descend(torch.zeros_like(bc), bc, "AMLI")
+                Ap0 = Ac.matvec(p0)
+                p0Ap0 = guard(vdot(p0, Ap0))
+                alpha0 = vdot(p0, bc) / p0Ap0
+                xc = alpha0 * p0
+                rc = bc - alpha0 * Ap0
+                p1 = descend(torch.zeros_like(bc), rc, "AMLI")
+                beta = vdot(p0, Ac.matvec(p1)) / p0Ap0
+                p1 = p1 - beta * p0
+                Ap1 = Ac.matvec(p1)
+                alpha1 = vdot(p1, rc) / guard(vdot(p1, Ap1))
+                xc = xc + alpha1 * p1
+            x = x + level.P.matvec(xc)
+            with profiling.fine("smooth", level=lvl, side="post"):
+                return self._smooth(level, level.postsmoother, x, b)
 
     def cycle_fn(self, cycle="V"):
         """``f(x, b)``: one V, W, F or AMLI cycle from ``x`` for right-hand
@@ -432,7 +442,7 @@ class MultilevelSolver:
 
         class _CyclePreconditioner(LinearOperator):
             def _matvec(self, b):
-                return fn(b).cpu().numpy()
+                return profiling.read_back(fn(b), "aspreconditioner")
 
             def matvec(self, b):
                 if isinstance(b, torch.Tensor):
@@ -563,7 +573,8 @@ class MultilevelSolver:
         if isinstance(accel, str) and accel in names \
                 and (callback is None or sharded):
             normb = norm(b_d, dot)
-            tol_t = float(tol * torch.where(normb == 0, 1, normb))
+            tol_t = profiling.read_back(
+                tol * torch.where(normb == 0, 1, normb), "solve.tol")
             xk, it, res_buf = self._run_accel(accel, b_d, x, tol_t, maxiter,
                                               cycle)
             xk, info = finalize(self._full(xk), res_buf, it + 1, tol_t,
@@ -588,14 +599,16 @@ class MultilevelSolver:
                 xk = self._as_tensor(xk, dtype)
         else:
             cyc = self.cycle_fn(cycle)
-            normb = float(norm(b_d, dot))
+            normb = profiling.read_back(norm(b_d, dot), "solve.normb")
             tol_t = real_dtype(dtype).type(
                 tol * (normb if normb != 0.0 else 1.0))
-            res = [float(norm(b_d - A.matvec(x), dot))]
+            res = [profiling.read_back(norm(b_d - A.matvec(x), dot),
+                                       "solve.res")]
             it = 0
             while res[-1] > tol_t and it < maxiter:
                 x = cyc(x, b_d)
-                res.append(float(norm(b_d - A.matvec(x), dot)))
+                res.append(profiling.read_back(norm(b_d - A.matvec(x), dot),
+                                               "solve.res"))
                 it += 1
                 if callback is not None:
                     callback(self._full(x))
@@ -627,19 +640,34 @@ class MultilevelSolver:
 
         Returns ``x`` (float64 tensor; complex128 for a complex
         hierarchy), or ``(x, info)`` with ``info = {"rounds",
-        "inner_iterations"}`` when ``return_info`` is set; in the defect
-        method ``inner_iterations`` counts one more per round than the
-        Krylov iterations (the round's starting residual), as the JAX
-        package does."""
+        "inner_iterations", "host_syncs"}`` when ``return_info`` is set;
+        in the defect method ``inner_iterations`` counts one more per
+        round than the Krylov iterations (the round's starting residual),
+        as the JAX package does, and ``host_syncs``, the device reads of
+        the call (``util.profiling.read_back``), is 1 + ``rounds`` +
+        ``inner_iterations`` with ``accel="cg"``.  Each call is a span
+        ``solve_mp`` of ``span_log``; the first builds the float64
+        operator (``solve_mp.operator64``) and the coarse solver
+        (``coarse.prepare``), spans of its set-up part."""
+        with profiling.span("solve_mp", into=self.span_log.solves) as sp:
+            syncs = profiling.counters["host_syncs"]
+            x, info = self._solve_mp(b, tol, accel, cycle, inner_maxiter,
+                                     max_rounds, inner_tol_factor, method)
+            info["host_syncs"] = profiling.counters["host_syncs"] - syncs
+            sp.attrs.update(info)
+        if return_info:
+            return x, info
+        return x
+
+    def _solve_mp(self, b, tol, accel, cycle, inner_maxiter, max_rounds,
+                  inner_tol_factor, method):
+        """:meth:`solve_mp`'s ``(x, info)``."""
         op_dt = self.levels[0].A.dtype
         if op_dt in (torch.float64, torch.complex128):
             res = []
             x = self.solve(b, tol=tol, accel=accel, cycle=cycle,
                            maxiter=inner_maxiter * max_rounds, residuals=res)
-            if return_info:
-                return x, {"rounds": 1,
-                           "inner_iterations": max(len(res) - 1, 0)}
-            return x
+            return x, {"rounds": 1, "inner_iterations": max(len(res) - 1, 0)}
         # the defect method runs any accelerator whose core takes the
         # hierarchy directly; the float64 Krylov loop has these four
         known = _CORE_ACCELS if method == "defect" else _MP_ACCELS
@@ -649,17 +677,21 @@ class MultilevelSolver:
         dt64 = torch.complex128 if op_dt.is_complex else torch.float64
 
         dot = self._dot(0)
-        if self._A64 is None and self._layout(0) is not None:
-            # a sharded fine operator: its own values, in float64
-            self._A64 = self.levels[0].A.astype(dt64)
         if self._A64 is None:
-            from .sparse.device_op import device_operator
+            with profiling.span("solve_mp.operator64",
+                                into=self.span_log.setup):
+                if self._layout(0) is not None:
+                    # a sharded fine operator: its own values, in float64
+                    self._A64 = self.levels[0].A.astype(dt64)
+                else:
+                    from .sparse.device_op import device_operator
 
-            self._A64 = device_operator(self.levels[0].host_A(), dtype=dt64,
-                                        device=self.device)
+                    self._A64 = device_operator(self.levels[0].host_A(),
+                                                dtype=dt64,
+                                                device=self.device)
         A64 = self._A64
         b64 = self._local(self._as_tensor(b, dt64))
-        normb = float(norm(b64, dot))
+        normb = profiling.read_back(norm(b64, dot), "solve_mp.normb")
         tol_abs = tol * (normb if normb != 0 else 1.0)
         cyc = self.cycle_fn(cycle)
 
@@ -686,7 +718,9 @@ class MultilevelSolver:
                 for _ in range(4 if accel == "gmres" else 0):
                     if carry[1] >= maxiter:
                         break
-                    r_true = float(norm(b64 - A64.matvec(carry[0]), dot))
+                    r_true = profiling.read_back(
+                        norm(b64 - A64.matvec(carry[0]), dot),
+                        "solve_mp.true_res")
                     if r_true <= tol_abs or r_true == 0:
                         break
                     ratio = max(carry[-1] / r_true, 1e-12)
@@ -704,7 +738,8 @@ class MultilevelSolver:
             while rounds < int(max_rounds):
                 r64 = b64 - A64.matvec(x64)
                 r32 = r64.to(op_dt)
-                tol_t = float(inner_tol_factor) * float(norm(r64, dot))
+                tol_t = float(inner_tol_factor) * profiling.read_back(
+                    norm(r64, dot), "solve_mp.round_res")
                 dx32, it, res_buf = self._run_accel(
                     accel, r32, torch.zeros_like(r32), tol_t,
                     int(inner_maxiter), cycle)
@@ -717,10 +752,7 @@ class MultilevelSolver:
             info = {"rounds": rounds, "inner_iterations": iters}
         else:
             raise ValueError(f"unknown solve_mp method {method!r}")
-        x64 = self._full(x64)
-        if return_info:
-            return x64, info
-        return x64
+        return self._full(x64), info
 
 
 # accelerators that run their core on the hierarchy directly; the others go
@@ -793,7 +825,8 @@ class MultilevelSolverSet:
         M = self._combined(cycle)
 
         def matvec(b):
-            return M(first._as_tensor(b, A.dtype)).cpu().numpy()
+            return profiling.read_back(M(first._as_tensor(b, A.dtype)),
+                                       "aspreconditioner")
 
         return LinearOperator(A.shape, matvec, dtype=numpy_dtype(A.dtype))
 

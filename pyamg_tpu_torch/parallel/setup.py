@@ -44,6 +44,7 @@ import torch
 from ..multilevel import Level
 from ..relaxation.device import SmootherData
 from ..sparse.spgemm_device import masked_spgemm_auto
+from ..util import profiling
 from ..util.utils import unpack_arg
 from .mesh import Layout, make_mesh
 from .products import (host_values, masked_spgemm_mesh, operator,
@@ -192,10 +193,11 @@ def _ell_smoother(sm_name, sm_kw, A_pat_csr, dinv, rows, dt):
         return SmootherData(kind="jacobi", dinv=dinv,
                             omega=float(sm_kw.get("omega", 1.0)),
                             iterations=int(sm_kw.get("iterations", 1)))
-    masks = _color_masks(A_pat_csr, dtype=dt)
-    m = np.zeros((masks.shape[0], rows.n), dtype=masks.dtype)
-    m[:, :masks.shape[1]] = masks
-    m = m[:, rows.start:rows.start + rows.nl]
+    with profiling.span("coloring", host=True):
+        masks = _color_masks(A_pat_csr, dtype=dt)
+        m = np.zeros((masks.shape[0], rows.n), dtype=masks.dtype)
+        m[:, :masks.shape[1]] = masks
+        m = m[:, rows.start:rows.start + rows.nl]
     return SmootherData(kind="multicolor_gauss_seidel", dinv=dinv,
                         color_masks=torch.as_tensor(
                             np.ascontiguousarray(m), device=dinv.device),
@@ -220,14 +222,17 @@ def _galerkin(A_s, P_s, patterns, rows, crows, nc, dt):
     patR, patAP, patAc = patterns
     # the one-device product is this module's name, looked up at each
     # call, so that a wrapper put in its place sees each product
-    R_s = transpose_onto_mesh(P_s, _pattern_rows(patR, crows, dt))
-    AP = masked_spgemm_mesh(A_s, P_s, _pattern_rows(patAP, rows, dt),
-                            product=masked_spgemm_auto)
-    Ac_s = masked_spgemm_mesh(R_s, AP, _pattern_rows(patAc, crows, dt),
-                              product=masked_spgemm_auto)
-    Ac_host = host_values(Ac_s)[:nc, :nc].tocsr()
-    Ac_host.eliminate_zeros()
-    Ac_host.sort_indices()
+    with profiling.span("galerkin", host=False):
+        R_s = transpose_onto_mesh(P_s, _pattern_rows(patR, crows, dt))
+        AP = masked_spgemm_mesh(A_s, P_s, _pattern_rows(patAP, rows, dt),
+                                product=masked_spgemm_auto)
+        Ac_s = masked_spgemm_mesh(R_s, AP, _pattern_rows(patAc, crows, dt),
+                                  product=masked_spgemm_auto)
+    # the wait for the products, then host work on the coarse operator
+    with profiling.span("readback", host=None):
+        Ac_host = host_values(Ac_s)[:nc, :nc].tocsr()
+        Ac_host.eliminate_zeros()
+        Ac_host.sort_indices()
     return R_s, Ac_host
 
 
@@ -241,6 +246,7 @@ def _level(A_host, A_op, P_s, R_s, rows, crows, **kw):
     return lvl
 
 
+@profiling.setup_spans
 def general_sa_setup_sharded(A, B=None, mesh=None, n_devices=None,
                              axis_name: str = "rows",
                              strength=("symmetric", {"theta": 0.0}),
@@ -291,60 +297,78 @@ def general_sa_setup_sharded(A, B=None, mesh=None, n_devices=None,
     levels, sizes = [], []
     while len(levels) < max_levels - 1 and A_host.shape[0] > max_coarse:
         n = A_host.shape[0]
-        n_pad = pad_to(n, nd)
-        rows = Layout(mesh, n_pad, True)
+        with profiling.span("setup.level", level=len(levels), rows=n):
+            n_pad = pad_to(n, nd)
+            rows = Layout(mesh, n_pad, True)
 
-        # ---- host: integer graph stage (the same on every rank) --------
-        C = strength_of(A_host)
-        AggOp, _roots = aggregate_of(C)
-        if AggOp.shape[1] == 0:
-            break
-        T, Bc = fit_candidates(AggOp, Bcur)
-        T = sp.csr_matrix(T).astype(dt)
-        nc = T.shape[1]
-        nc_pad = pad_to(max(nc, 1), nd)
-        crows = Layout(mesh, nc_pad, True)
-        patA = _pattern_csr(A_host, (n_pad, n_pad))
+            # ---- host: integer graph stage (the same on every rank) ----
+            with profiling.span("strength", host=True):
+                C = strength_of(A_host)
+            with profiling.span("aggregate", host=True):
+                AggOp, _roots = aggregate_of(C)
+            if AggOp.shape[1] == 0:
+                break
+            with profiling.span("fit_candidates", host=True):
+                T, Bc = fit_candidates(AggOp, Bcur)
+                T = sp.csr_matrix(T).astype(dt)
+            nc = T.shape[1]
+            nc_pad = pad_to(max(nc, 1), nd)
+            crows = Layout(mesh, nc_pad, True)
+            with profiling.span("patterns", host=True):
+                patA = _pattern_csr(A_host, (n_pad, n_pad))
+                A_pat = patA[:n, :n].tocsr()
+                if p_name != "energy":
+                    patP, *patterns = _galerkin_patterns(
+                        patA, _pattern_csr(T, (n_pad, nc_pad)))
 
-        # ---- device: numeric stage on this rank's rows --------------------
-        A_s = upload_rows(A_host, rows, n_pad, dt)
-        A_op = operator(A_s, rows)
-        dinv = _dinv(A_s.diagonal())  # padded rows: 0 -> dinv 0 -> inert
-        if p_name == "energy":
-            from .energy import energy_smooth_sharded
+            # ---- device: numeric stage on this rank's rows ----------------
+            with profiling.span("upload", host=False):
+                A_s = upload_rows(A_host, rows, n_pad, dt)
+                A_op = operator(A_s, rows)
+                # padded rows: 0 -> dinv 0 -> inert
+                dinv = _dinv(A_s.diagonal())
+            if p_name == "energy":
+                from .energy import energy_smooth_sharded
 
-            P_s, patP = energy_smooth_sharded(
-                A_s, T, C, Bc, mesh=mesh, dt=dt, **_energy_kw(p_kw))
-            patterns = _transfer_patterns(
-                patA, _pattern_csr(patP, (n_pad, nc_pad)))
-        else:
-            lo, hi = rows.start, rows.start + rows.nl
-            v0 = torch.as_tensor(np.sin(np.arange(lo + 1, hi + 1)),
-                                 device=mesh.device)
-            rho = float(_ell_power_rho(A_op, dinv, v0.to(A_s.data.dtype),
-                                       rows, n_iter=rho_iters))
-            S_data, dinv = _jacobi_smoothing_vals(
-                A_s.data, A_s.ell.cols, A_s.valid_mask(),
-                torch.tensor(omega / max(rho, 1e-30), dtype=A_s.data.dtype,
-                             device=mesh.device), row0=lo)
-            patP, *patterns = _galerkin_patterns(
-                patA, _pattern_csr(T, (n_pad, nc_pad)))
-            P_s = masked_spgemm_mesh(
-                A_s.with_data(S_data), upload_rows(T, rows, nc_pad, dt),
-                _pattern_rows(patP, rows, dt), product=masked_spgemm_auto)
-        R_s, Ac_host = _galerkin(A_s, P_s, patterns, rows, crows, nc, dt)
+                with profiling.span("smooth_p", host=False):
+                    P_s, patP = energy_smooth_sharded(
+                        A_s, T, C, Bc, mesh=mesh, dt=dt, **_energy_kw(p_kw))
+                with profiling.span("patterns", host=True):
+                    patterns = _transfer_patterns(
+                        patA, _pattern_csr(patP, (n_pad, nc_pad)))
+            else:
+                lo, hi = rows.start, rows.start + rows.nl
+                with profiling.span("rho", host=False):
+                    v0 = torch.as_tensor(np.sin(np.arange(lo + 1, hi + 1)),
+                                         device=mesh.device)
+                    rho = float(_ell_power_rho(A_op, dinv,
+                                               v0.to(A_s.data.dtype), rows,
+                                               n_iter=rho_iters))
+                with profiling.span("smooth_p", host=False):
+                    S_data, dinv = _jacobi_smoothing_vals(
+                        A_s.data, A_s.ell.cols, A_s.valid_mask(),
+                        torch.tensor(omega / max(rho, 1e-30),
+                                     dtype=A_s.data.dtype,
+                                     device=mesh.device), row0=lo)
+                    P_s = masked_spgemm_mesh(
+                        A_s.with_data(S_data),
+                        upload_rows(T, rows, nc_pad, dt),
+                        _pattern_rows(patP, rows, dt),
+                        product=masked_spgemm_auto)
+            R_s, Ac_host = _galerkin(A_s, P_s, patterns, rows, crows, nc, dt)
 
-        lvl = _level(A_host, A_op, P_s, R_s, rows, crows)
-        lvl.presmoother = lvl.postsmoother = _ell_smoother(
-            sm_name, sm_kw, patA[:n, :n].tocsr(), dinv, rows, dt)
-        levels.append(lvl)
-        sizes.append(n_pad)
+            lvl = _level(A_host, A_op, P_s, R_s, rows, crows)
+            lvl.presmoother = lvl.postsmoother = _ell_smoother(
+                sm_name, sm_kw, A_pat, dinv, rows, dt)
+            levels.append(lvl)
+            sizes.append(n_pad)
 
-        # eliminate_zeros above can drop an exactly-zero coarse diagonal;
-        # the next level's smoothing values need the slot stored
-        Ac_host = _ensure_stored_diagonal(Ac_host)
-        Ac_host.sort_indices()
-        A_host, Bcur = Ac_host, Bc
+            # eliminate_zeros above can drop an exactly-zero coarse
+            # diagonal; the next level's smoothing values need the slot
+            # stored
+            Ac_host = _ensure_stored_diagonal(Ac_host)
+            Ac_host.sort_indices()
+            A_host, Bcur = Ac_host, Bc
 
     return _with_coarsest(levels, sizes, A_host, mesh, n_orig, dt)
 

@@ -1,22 +1,200 @@
-"""Profiling: a device trace, the time of one cycle, a timed solve, and the
-extremal eigenvalues of each level.
+"""Profiling: the program's own spans and counters, a device trace, the
+time of one cycle, a timed solve, and the extremal eigenvalues of each
+level.
 
 Port of ``pyamg_tpu/util/profiling.py``.  ``trace`` records with
 ``torch.profiler`` (CPU activity, and CUDA activity where a card is
 present) and writes a Chrome trace; ``profile_cycles`` times the eager
 cycle, synchronizing the card before each clock read.
+
+Spans and counters (the JAX package compiles a solve into one program and
+has none).  ``span(name, **attrs)`` times a block on
+``time.perf_counter_ns()``; its record is ``(id, parent, name, start_ns,
+end_ns, attrs)``, the parent the innermost span open on this thread.  A
+record goes into the container its span names (``into``), else into that
+of the innermost open span with one, else nowhere.  Two tiers:
+
+* ``span``: coarse spans, always timed -- a constructor's set-up and its
+  stages, ``solve_mp`` (one a call) and its one-off builds; a few dozen a
+  constructor, one a solve, a few microseconds each.
+* ``fine``: fine spans, timed only while a ``torch.profiler`` records or
+  after ``enable()`` -- the cycle's levels, smoothing, the coarse solve
+  and every read-back; otherwise one boolean test that returns a shared
+  null context.
+
+While a profiler records, every span also enters
+``torch.profiler.record_function("pyamg_tpu_torch.<name>")``, so that it
+sits in the profiler's trace beside the device work it launched.  A
+hierarchy keeps its records in its :class:`SpanLog` (``span_log``); a
+constructor wrapped by :func:`setup_spans` puts its set-up's there.
+
+``count(name, n)`` adds to ``counters``.  ``read_back(t, site)`` is the
+one place the solve path reads the device: it counts ``host_syncs`` and
+records a fine ``sync`` span.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import functools
+import itertools
 import os
+import threading
 import time
 
 import numpy as np
 import torch
 
-__all__ = ["profile_cycles", "trace", "hierarchy_spectrum", "solve_timings"]
+__all__ = ["profile_cycles", "trace", "hierarchy_spectrum", "solve_timings",
+           "span", "fine", "enable", "count", "counters", "read_back",
+           "SpanLog", "setup_spans"]
+
+PREFIX = "pyamg_tpu_torch."
+
+counters = {"host_syncs": 0}
+
+_fine_on = False
+_ids = itertools.count(1)
+_local = threading.local()
+_profiler_enabled = torch.autograd._profiler_enabled
+
+
+class _Null:
+    """The context of a fine span that is not timed: does nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NULL = _Null()
+
+
+def _open_spans():
+    """The spans open on this thread, innermost last."""
+    stack = getattr(_local, "stack", None)
+    if stack is None:
+        stack = _local.stack = []
+    return stack
+
+
+class SpanLog:
+    """The span records of one hierarchy: ``setup``, those of its
+    constructor and its one-off builds (the first solve's float64
+    operator, the coarse solver), kept whole; ``solves``, those of its
+    solves, the last ``CAP``."""
+
+    CAP = 16384
+
+    def __init__(self):
+        self.setup = []
+        self.solves = collections.deque(maxlen=self.CAP)
+
+    def records(self):
+        """Every record: the set-up's, then the solves'; each part in the
+        order its spans ended."""
+        return list(self.setup) + list(self.solves)
+
+
+class _Span:
+    """One open span; ``attrs`` may be added to until it ends."""
+
+    __slots__ = ("name", "into", "attrs", "id", "parent", "start", "_rf")
+
+    def __init__(self, name, into, attrs):
+        self.name, self.into, self.attrs = name, into, attrs
+        self._rf = None
+
+    def __enter__(self):
+        stack = _open_spans()
+        self.parent = None
+        if stack:
+            self.parent = stack[-1].id
+            if self.into is None:
+                self.into = stack[-1].into
+        self.id = next(_ids)
+        stack.append(self)
+        # under a profiler, the span runs from the end of its event's
+        # opening to the end of its closing: both sides of the event's
+        # own cost alike, so a shift of the clock lines the two up
+        if _profiler_enabled():
+            self._rf = torch.profiler.record_function(PREFIX + self.name)
+            self._rf.__enter__()
+        self.start = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        if self._rf is not None:
+            self._rf.__exit__(*exc)
+        end = time.perf_counter_ns()
+        _open_spans().pop()
+        if self.into is not None:
+            self.into.append((self.id, self.parent, self.name, self.start,
+                              end, self.attrs))
+        return False
+
+
+def setup_spans(constructor):
+    """``constructor(A, ...)`` timed as the span ``setup`` (attributes its
+    name and A's rows); the records of that span and of those inside it
+    go into a new :class:`SpanLog` that the hierarchy it returns keeps as
+    ``span_log`` (a ``ShardedSolver``'s ``inner`` solver, whose solves
+    its callers run)."""
+    @functools.wraps(constructor)
+    def timed(A, *args, **kwargs):
+        log = SpanLog()
+        with span("setup", into=log.setup, constructor=constructor.__name__,
+                  rows=int(A.shape[0])):
+            built = constructor(A, *args, **kwargs)
+        getattr(built, "inner", built).span_log = log
+        return built
+    return timed
+
+
+def span(name, into=None, **attrs):
+    """A coarse span: always timed.  ``into``: the container of its
+    record (a list, or a :class:`SpanLog`'s part), by default that of the
+    innermost open span."""
+    return _Span(name, into, attrs)
+
+
+def fine(name, **attrs):
+    """A fine span: a :func:`span` while a ``torch.profiler`` records or
+    after :func:`enable`, else a shared null context."""
+    if _fine_on or _profiler_enabled():
+        return _Span(name, None, attrs)
+    return _NULL
+
+
+def enable(on=True):
+    """Time the fine spans also with no profiler recording (``on``), or
+    only under one again; returns the previous setting."""
+    global _fine_on
+    was, _fine_on = _fine_on, bool(on)
+    return was
+
+
+def count(name, n=1):
+    """Add ``n`` to the counter ``name``."""
+    counters[name] = counters.get(name, 0) + n
+
+
+def read_back(t, site):
+    """``t`` on the host: a Python number for a 0-d tensor, else a numpy
+    copy.  Counts ``host_syncs`` and records a fine ``sync`` span whose
+    ``site`` names the caller."""
+    count("host_syncs")
+    with fine("sync", site=site):
+        if t.dim() == 0:
+            return t.item()
+        if t.device.type == "cpu":
+            return t.detach().numpy().copy()
+        return t.detach().cpu().numpy()
 
 
 @contextlib.contextmanager

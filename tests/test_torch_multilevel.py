@@ -259,6 +259,8 @@ def test_solve_mp_forwards_a_float64_hierarchy_to_solve(jax_ml, ports,
                                         return_info=True)
         _, info_ref = jax_ml.solve_mp(b, tol=1e-10, accel=accel,
                                       return_info=True)
+        # the port's info counts its device reads besides
+        assert info.pop("host_syncs") > info["inner_iterations"]
         assert info == info_ref and info["rounds"] == 1
         assert _relres(A, b, x) <= 1e-9
 

@@ -16,6 +16,13 @@ computes the same function:
   Gauss-Seidel V-cycles to 1e-8; all 15 of the setup's masked products are
   recorded, checked and timed on both kernel bodies (tiled, and the first
   slotwise one kept as a comparator);
+* HPCG's 27-point operator (26 on the diagonal, -1 on each of the 26
+  neighbours) on the 104^3 grid of its ``hpcg.dat``, as plain CSR through
+  ``parallel.general_sa_setup_sharded`` in float32 (phase 39): every
+  masked product of the setup held against the twin, the tiled bodies bit
+  for bit, and level-0 A*P (27 wide) and R*(A*P) (R 125 wide) timed
+  against their bounds beside the setup's own ``spgemm`` spans (kernels:
+  masked_spgemm_banded and masked_spgemm_gather on slabs past 64 slots);
 * the DIA SpMV benchmark (``pyamg_tpu_torch.benchmarks.dia_spmv_bench``) at
   2048^2 and 1024^2: every DIA kernel -- dia_matvec in float32 and on
   bfloat16 diagonals, dia_matvec_v1, dia_matvec_v2 -- beside the plain form
@@ -201,6 +208,12 @@ GENERAL_LEVELS = [(1048576, 5238784), (175104, 1572176), (19537, 175673),
                   (2154, 21246), (219, 2359), (22, 194)]
 
 
+# phase 39: HPCG's 27-point operator on the HPCG_GRID^3 grid of its
+# hpcg.dat through the general setup, as the benchmark's hpcg27_104
+# configuration calls it (float32, every other argument at its default):
+# rows per level, measured on an NVIDIA H100 80GB HBM3
+HPCG_GRID = 104
+HPCG_LEVELS = [1124864, 42875, 1728, 64]
 # the default call's hierarchies of GRID and their solves, measured on an
 # NVIDIA H100 80GB HBM3 (no record of the JAX package at this size exists):
 # rows per level, operator complexity to 3 places, CG iterations to 1e-8
@@ -815,11 +828,12 @@ def check_spgemm(torch, products):
     return hold_spgemm(torch, cases + products)
 
 
-def hold_spgemm(torch, cases):
+def hold_spgemm(torch, cases, bitwise=False):
     """Both SpGEMM kernels' bodies against the plain twin on every ``(label,
     A, B, pattern)`` of ``cases``, in float32 and float64; returns the
-    largest absolute difference per kernel and body.  The launches made
-    here are taken off the kernels' counts."""
+    largest absolute difference per kernel and body.  ``bitwise``: the
+    tiled bodies must give the twin's values bit for bit.  The launches
+    made here are taken off the kernels' counts."""
     from pyamg_tpu_torch.sparse import spgemm_kernel
 
     before = dict(spgemm_kernel.launches)
@@ -843,6 +857,11 @@ def hold_spgemm(torch, cases):
                         and err <= REL_TOL[name_dt] * scale):
                     raise AssertionError(f"{name} {name_dt} {label}: max rel "
                                          f"error {err / scale:.3e}")
+                if (bitwise and not name.endswith("_slotwise")
+                        and not torch.equal(out, ref)):
+                    raise AssertionError(f"{name} {name_dt} {label}: not "
+                                         f"bitwise equal to the twin (max "
+                                         f"abs {err:.1e})")
                 worst[name] = max(worst.get(name, 0.0), err)
             print(f"{name_dt:8s} {label:16s} {tuple(slabs[0].shape)}x"
                   f"{tuple(slabs[2].shape)}->{tuple(slabs[4].shape)}  max abs "
@@ -851,6 +870,101 @@ def hold_spgemm(torch, cases):
     print(f"largest absolute difference from the twin: {worst}")
     spgemm_kernel.launches.update(before)
     return worst
+
+
+def hpcg27_phase(torch):
+    """HPCG's 27-point operator on HPCG_GRID^3 through the general device
+    setup, as the benchmark's hpcg27_104 configuration calls it: every
+    masked product recorded and held against the twin (the tiled bodies
+    bit for bit), level-0 A*P (banded) and R*(A*P) (gather, R 125 wide)
+    timed against their bounds beside the setup's own ``spgemm`` spans;
+    returns the SpGEMM kernels' launch counts over the setup and the
+    largest absolute differences from the twin."""
+    phase(f"39. HPCG's 27-point operator at {HPCG_GRID}^3: the general "
+          f"setup's wide products")
+    from pyamg_tpu_torch.gallery import stencil_grid
+    from pyamg_tpu_torch.parallel import general_sa_setup_sharded
+    from pyamg_tpu_torch.sparse import spgemm_kernel
+    from pyamg_tpu_torch.sparse.spgemm_device import WIDE
+    from pyamg_tpu_torch.util import profiling
+
+    S = -np.ones((3, 3, 3))
+    S[1, 1, 1] = 26.0
+    A = stencil_grid(S, (HPCG_GRID,) * 3, format="csr")
+    before = dict(spgemm_kernel.launches)
+    plain_before = spgemm_kernel.plain_cuda_calls
+    wide_before = profiling.counters.get("spgemm_wide", 0)
+    products = []
+    t0 = time.perf_counter()
+    with recording_products(products, 3 * len(HPCG_LEVELS)):
+        sol = general_sa_setup_sharded(A, dtype=np.float32, device="cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    launches = {name: count - before[name]
+                for name, count in spgemm_kernel.launches.items()}
+    plain_calls = spgemm_kernel.plain_cuda_calls - plain_before
+    wide = profiling.counters.get("spgemm_wide", 0) - wide_before
+    spans = [r[5] for r in sol.inner.span_log.setup if r[2] == "spgemm"]
+    rows = [lvl.A_csr.shape[0] for lvl in sol.levels]
+    print(f"setup_s {setup_s:.3f}  levels {rows}  launches {launches}  "
+          f"spgemm_wide {wide}  plain twin calls on CUDA {plain_calls}")
+    for (label, *_), a in zip(products, spans):
+        print(f"product {label:13s} {a['route']:6s} A ({a['n']}, "
+              f"{a['w_a']}) B ({a['nb']}, {a['w_b']}) out ({a['n']}, "
+              f"{a['w_out']})  in the setup's span "
+              f"{a.get('device_us', float('nan')):.1f} us device")
+    n_wide = sum(max(A_.width, B_.width, pat.width) > WIDE
+                 for _, A_, B_, pat in products)
+    if rows != HPCG_LEVELS:
+        raise AssertionError(f"levels {rows}, expected {HPCG_LEVELS}")
+    if plain_calls:
+        raise AssertionError(f"the setup ran the plain twin on CUDA "
+                             f"{plain_calls} times")
+    if not (len(products) == len(spans) == sum(launches.values())
+            == 3 * (len(rows) - 1)):
+        raise AssertionError(f"recorded {len(products)} masked products "
+                             f"and {len(spans)} spans, the kernels "
+                             f"launched {launches}")
+    if not all(a.get("device_us", 0) > 0 for a in spans):
+        raise AssertionError("a product's span carries no device time")
+    if wide != n_wide or products[2][1].width < 125:
+        raise AssertionError(f"spgemm_wide {wide}, {n_wide} products past "
+                             f"{WIDE} slots; level-0 R {products[2][1].width}"
+                             f" wide")
+    worst = hold_spgemm(torch, products, bitwise=True)
+
+    by_label = {label: (i, A_, B_, pat)
+                for i, (label, A_, B_, pat) in enumerate(products)}
+    for name, label in (("masked_spgemm_banded", "level 0 A*P"),
+                        ("masked_spgemm_gather", "level 0 R*AP")):
+        i, A_, B_, pattern = by_label[label]
+        slabs, bodies = spgemm_bodies(A_, B_, pattern)
+        if routed(bodies) != name:
+            raise AssertionError(f"{label} routed to {routed(bodies)}")
+        kernel, slotwise, geom = bodies[name]
+        plain = functools.partial(spgemm_kernel.masked_matmul_vals_plain,
+                                  *slabs)
+        library, same, rel = spgemm_library(torch, A_, B_, pattern, kernel())
+        k_ms, s_ms, p_ms, lib_ms = _medians(torch, kernel, slotwise, plain,
+                                            library, samples=10)
+        b_ms, b_by, nbytes, needed = spgemm_bound(A_, B_, slabs)
+        print(f"{name} float32: {label} A {tuple(slabs[0].shape)} B "
+              f"{tuple(slabs[2].shape)} out {tuple(slabs[4].shape)} (tile "
+              f"{geom.rows} rows x {geom.lanes} lanes, {geom.threads} "
+              f"threads, {geom.blocks} blocks, {geom.shared_bytes} B shared)"
+              f"  kernel {k_ms * 1e3:.1f} us device (in the setup's span "
+              f"{spans[i]['device_us']:.1f} us);  slotwise body "
+              f"{s_ms * 1e3:.1f} us;  plain {p_ms * 1e3:.1f} us, "
+              f"plain/kernel {p_ms / k_ms:.2f}")
+        print(f"{name} float32: {label} bound {b_ms * 1e3:.1f} us by "
+              f"{b_by} ({nbytes / 1e6:.1f} MB, {needed} products), "
+              f"kernel/bound {k_ms / b_ms:.2f};  cuSPARSE SpGEMM "
+              f"(torch.sparse.mm, int32 CSR) {lib_ms * 1e3:.1f} us device, "
+              f"library/kernel {lib_ms / k_ms:.2f}; library pattern equals "
+              f"the mask: {same}; max rel difference from the kernel "
+              f"{rel:.2e}")
+    del sol, products, by_label
+    return launches, worst
 
 
 def _sample(torch, fn, inner=10):
@@ -4671,6 +4785,10 @@ def main():
     launches["dia_matvec"] = dia_launches
     worst.update(check_spgemm(torch, products))
     times = time_kernels(torch, ml, products)
+    hpcg_launches, hpcg_worst = hpcg27_phase(torch)
+    for name, count in hpcg_launches.items():
+        launches[name] += count
+        worst[name] = max(worst[name], hpcg_worst.get(name, 0.0))
     from pyamg_tpu_torch.benchmarks import dia_spmv_bench
 
     bench = dia_spmv_bench.problem(BENCH_GRIDS[0], "cuda")

@@ -49,6 +49,11 @@
 //    issues kUnroll steps' B loads together, finds its output slot in the
 //    staged pattern row (a linear scan up to 8 slots, a binary search
 //    beyond) and adds into a shared-memory accumulator;
+//  * a slab of any width whose tile fits a block's shared memory runs: the
+//    wrapper lowers the tile to 16 rows, and below 16 (8, 4, 2, 1) only
+//    where a 16-row tile would not fit.  Rows wider than the register
+//    classes (R of a 3-D operator: 125 slots and more) take the
+//    shared-memory accumulator, whose binary search serves any pattern;
 //  * the block writes the tile's outputs with coalesced stores at the end;
 //  * banded only: A's values are mapped once per (row, offset) into
 //    adia[k][r] when the tile arrives, so step k reads B row i + off_k with
@@ -77,7 +82,10 @@
 //
 // The launchers run on the caller's stream, allocate nothing, and return
 // cudaGetLastError() (or cudaErrorInvalidValue for a geometry the kernel
-// refuses) so that the Python wrapper can raise.
+// refuses) so that the Python wrapper can raise.  The tiled launchers take
+// two CUDA events (or null) that they record on that stream just before
+// and after the kernel, after the kernel's function attributes are set:
+// the pair then holds the kernel, not the first use's loading of it.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -88,7 +96,6 @@ constexpr int kThreads = 256;             // slotwise bodies
 // 8 resident blocks of 256 threads fill an SM's 2048 thread slots; 132 SMs.
 constexpr int64_t kMaxBlocks = 132 * 8;
 constexpr int kMaxOffsets = 64;
-constexpr int kMaxWidth = 64;
 constexpr int kTileThreads = 256;         // most threads of a tiled block
 constexpr int kMaxTileRows = 256;
 constexpr int64_t kMaxSharedBytes = 232448;   // a block's, on sm_90
@@ -590,13 +597,13 @@ int launch_tiled(const void* ad, const void* ac, int w_a, int64_t n,
                  const void* bd, const void* bc, int w_b, int64_t nb,
                  const void* pat, int w_out, void* out,
                  const int32_t* offsets, int k, int rows, int lanes_log2,
-                 int threads, int blocks, void* stream, int device) {
+                 int threads, int blocks, void* stream, int device,
+                 void* ev_start, void* ev_end) {
     Offsets offs{};
     if (!offsets_from(offsets, kBanded ? k : 0, &offs) || rows < 1
         || rows > kMaxTileRows || lanes_log2 < 0 || lanes_log2 > 5
         || threads < 32 || threads > kTileThreads || threads % 32 != 0
-        || blocks < 1 || w_a < 0 || w_a > kMaxWidth || w_b < 0
-        || w_b > kMaxWidth || w_out > kMaxWidth) {
+        || blocks < 1 || w_a < 0 || w_b < 0 || w_out < 0) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
     const Layout L = tile_layout(rows, w_a, w_out, sizeof(T), offs.k);
@@ -618,12 +625,21 @@ int launch_tiled(const void* ad, const void* ac, int w_a, int64_t n,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(L.total));
     if (err != cudaSuccess) return static_cast<int>(err);
-    kernel<<<blocks, threads, L.total, static_cast<cudaStream_t>(stream)>>>(
+    const cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (ev_start != nullptr) {
+        err = cudaEventRecord(static_cast<cudaEvent_t>(ev_start), s);
+        if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    kernel<<<blocks, threads, L.total, s>>>(
         static_cast<const T*>(ad), static_cast<const int32_t*>(ac), w_a, n,
         static_cast<const T*>(bd), static_cast<const int32_t*>(bc), w_b, nb,
         static_cast<const int32_t*>(pat), w_out, static_cast<T*>(out), rows,
         lanes_log2, offs);
-    return static_cast<int>(cudaGetLastError());
+    err = cudaGetLastError();
+    if (err == cudaSuccess && ev_end != nullptr) {
+        err = cudaEventRecord(static_cast<cudaEvent_t>(ev_end), s);
+    }
+    return static_cast<int>(err);
 }
 
 template <typename T>
@@ -679,44 +695,46 @@ extern "C" int masked_spgemm_gather_f32(
     const void* ad, const void* ac, int w_a, int64_t n, const void* bd,
     const void* bc, int w_b, int64_t nb, const void* pat, int w_out,
     void* out, int rows, int lanes_log2, int threads, int blocks,
-    void* stream, int device) {
+    void* stream, int device, void* ev_start, void* ev_end) {
     return launch_tiled<float, false>(ad, ac, w_a, n, bd, bc, w_b, nb, pat,
                                       w_out, out, nullptr, 0, rows,
                                       lanes_log2, threads, blocks, stream,
-                                      device);
+                                      device, ev_start, ev_end);
 }
 
 extern "C" int masked_spgemm_gather_f64(
     const void* ad, const void* ac, int w_a, int64_t n, const void* bd,
     const void* bc, int w_b, int64_t nb, const void* pat, int w_out,
     void* out, int rows, int lanes_log2, int threads, int blocks,
-    void* stream, int device) {
+    void* stream, int device, void* ev_start, void* ev_end) {
     return launch_tiled<double, false>(ad, ac, w_a, n, bd, bc, w_b, nb, pat,
                                        w_out, out, nullptr, 0, rows,
                                        lanes_log2, threads, blocks, stream,
-                                       device);
+                                       device, ev_start, ev_end);
 }
 
 extern "C" int masked_spgemm_banded_f32(
     const void* ad, const void* ac, int w_a, int64_t n, const void* bd,
     const void* bc, int w_b, int64_t nb, const void* pat, int w_out,
     void* out, const int32_t* offsets, int k, int rows, int lanes_log2,
-    int threads, int blocks, void* stream, int device) {
+    int threads, int blocks, void* stream, int device, void* ev_start,
+    void* ev_end) {
     return launch_tiled<float, true>(ad, ac, w_a, n, bd, bc, w_b, nb, pat,
                                      w_out, out, offsets, k, rows,
                                      lanes_log2, threads, blocks, stream,
-                                     device);
+                                     device, ev_start, ev_end);
 }
 
 extern "C" int masked_spgemm_banded_f64(
     const void* ad, const void* ac, int w_a, int64_t n, const void* bd,
     const void* bc, int w_b, int64_t nb, const void* pat, int w_out,
     void* out, const int32_t* offsets, int k, int rows, int lanes_log2,
-    int threads, int blocks, void* stream, int device) {
+    int threads, int blocks, void* stream, int device, void* ev_start,
+    void* ev_end) {
     return launch_tiled<double, true>(ad, ac, w_a, n, bd, bc, w_b, nb, pat,
                                       w_out, out, offsets, k, rows,
                                       lanes_log2, threads, blocks, stream,
-                                      device);
+                                      device, ev_start, ev_end);
 }
 
 extern "C" int masked_spgemm_gather_slotwise_f32(

@@ -228,9 +228,11 @@ def _galerkin(A_s, P_s, patterns, rows, crows, nc, dt):
                                 product=masked_spgemm_auto)
         Ac_s = masked_spgemm_mesh(R_s, AP, _pattern_rows(patAc, crows, dt),
                                   product=masked_spgemm_auto)
-    # the wait for the products, then host work on the coarse operator
+    # the wait for the products, then host work on the coarse operator;
+    # the products' device times are read once the wait is over
     with profiling.span("readback", host=None):
         Ac_host = host_values(Ac_s)[:nc, :nc].tocsr()
+        profiling.resolve_device_times()
         Ac_host.eliminate_zeros()
         Ac_host.sort_indices()
     return R_s, Ac_host

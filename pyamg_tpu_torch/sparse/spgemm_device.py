@@ -11,8 +11,11 @@ phase runs on the device over fixed-width slabs:
 JAX package's XLA gather formulation) and the twin of both hand-written
 kernels.  :func:`masked_spgemm_auto` is what the setup calls: on a CUDA
 tensor it runs the banded kernel when A has at most 64 distinct offsets
-and the gather kernel otherwise, at every size; on a CPU tensor it runs
-the plain form.  It never sends a CUDA tensor to the plain form.
+and the gather kernel otherwise, at every size and at every width whose
+tile fits a block's shared memory; on a CPU tensor it runs the plain
+form.  It never sends a CUDA tensor to the plain form.  Each call is a
+span ``spgemm`` (``util/profiling.py``) with its route and shapes, and
+on a card, inside a set-up's log, the device time of its launch.
 
 Port of ``pyamg_tpu/sparse/spgemm_device.py``.
 """
@@ -22,12 +25,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..util import profiling
 from .ell import SparseELL
 from .spgemm_kernel import masked_matmul_vals_plain, masked_spgemm_gather
 
 __all__ = ["masked_spgemm_ell", "masked_spgemm_auto", "spgemm_plan",
            "pattern_spgemm", "rap_pattern", "sentinel_cols",
-           "ell_transpose_onto"]
+           "ell_transpose_onto", "WIDE"]
+
+# a product with a slab wider than this counts in ``spgemm_wide``
+WIDE = 64
 
 
 def sentinel_cols(pattern: SparseELL) -> torch.Tensor:
@@ -120,22 +127,39 @@ def masked_spgemm_auto(A: SparseELL, B: SparseELL,
     """``masked_spgemm_ell``'s product, routed to a hand-written kernel.
 
     CUDA: the banded kernel when A has at most 64 distinct ``col - row``
-    offsets, else the gather kernel; a slab wider than the kernels take
-    (64) raises.  ``plan``: the route from :func:`spgemm_plan` for these
-    A, B widths and pattern, when the caller has it; by default it is
-    decided here.  The JAX router's size floors (2^17 rows for the banded
-    kernel, 2^19 for the gather kernel) were the TPU's dispatch floor and
-    are not ported: every product goes to a kernel.  The JAX package's
-    ``MaskedSpgemmPlan`` (``spgemm_pallas.py``) is not ported either: its
-    tiles, chunks and one-hot column tables feed the TPU's matrix unit,
-    and the gather kernel follows A's column slab directly.  CPU: the
-    plain form."""
-    if A.data.device.type == "cpu":
-        return masked_spgemm_ell(A, B, pattern)
-    if plan is None:
+    offsets and its tile fits, else the gather kernel; slabs whose tile
+    does not fit a block's shared memory at one row raise.  ``plan``: the
+    route from :func:`spgemm_plan` for these A, B widths and pattern, when
+    the caller has it; by default it is decided here.  The JAX router's
+    size floors (2^17 rows for the banded kernel, 2^19 for the gather
+    kernel) were the TPU's dispatch floor and are not ported: every
+    product goes to a kernel.  The JAX package's ``MaskedSpgemmPlan``
+    (``spgemm_pallas.py``) is not ported either: its tiles, chunks and
+    one-hot column tables feed the TPU's matrix unit, and the gather
+    kernel follows A's column slab directly.  CPU: the plain form.
+
+    The call runs in the span ``spgemm``: ``route`` (``banded`` or
+    ``gather``, the kernel it takes; ``plain`` on the CPU), ``n`` and
+    ``nb`` (A's and B's rows), ``w_a``, ``w_b``, ``w_out`` and ``dtype``;
+    on a card, inside a set-up's log, the kernel's launcher records CUDA
+    events around the kernel (``device_us``, once the set-up reads them).
+    A product with a slab wider than :data:`WIDE` counts in
+    ``spgemm_wide``."""
+    cpu = A.data.device.type == "cpu"
+    if plan is None and not cpu:
         plan = spgemm_plan(A, B, pattern)
-    if plan.feasible:
-        return plan(A, B)
-    vals = masked_spgemm_gather(A.data, A.cols, B.data, B.cols,
-                                sentinel_cols(pattern))
+    widths = (A.width, B.width, pattern.width)
+    if max(widths) > WIDE:
+        profiling.count("spgemm_wide")
+    route = "plain" if cpu else "banded" if plan.feasible else "gather"
+    with profiling.span("spgemm", route=route, n=int(A.shape[0]),
+                        nb=int(B.shape[0]), w_a=widths[0], w_b=widths[1],
+                        w_out=widths[2],
+                        dtype=str(A.data.dtype).replace("torch.", "")):
+        if cpu:
+            return masked_spgemm_ell(A, B, pattern)
+        if plan.feasible:
+            return plan(A, B)
+        vals = masked_spgemm_gather(A.data, A.cols, B.data, B.cols,
+                                    sentinel_cols(pattern))
     return SparseELL(vals, pattern.cols, pattern.row_nnz, pattern.shape)

@@ -13,8 +13,9 @@ offsets, so that neighbouring threads read neighbouring B rows.
 Port of ``BandedSpgemmPlan`` (``pyamg_tpu/sparse/spgemm_dia.py``): the
 offsets and the ``max_k = 64`` feasibility rule with its 4096-row sample
 probe are kept; the TPU's VMEM, halo and width caps are not (the kernel
-takes any width up to 64).  The kernel computes in the input dtype; the
-TPU kernel's cast to float32 is not ported.
+takes any widths whose tile fits a block's shared memory).  The kernel
+computes in the input dtype; the TPU kernel's cast to float32 is not
+ported.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import torch
 
 from .ell import SparseELL
 from .spgemm_device import sentinel_cols
-from .spgemm_kernel import MAX_OFFSETS, MAX_WIDTH, masked_spgemm_banded
+from .spgemm_kernel import MAX_OFFSETS, masked_spgemm_banded, tile_geometry
 
 __all__ = ["BandedSpgemmPlan"]
 
@@ -43,15 +44,14 @@ class BandedSpgemmPlan:
     distinct ``col - row`` offsets.
 
     ``feasible`` is False when A has more than 64 distinct offsets
-    or a slab is wider than the kernel takes; the caller then takes the
-    gather kernel (:func:`~.spgemm_kernel.masked_spgemm_gather`)."""
+    or the banded kernel's tile (A by diagonal besides the gather
+    kernel's slabs) does not fit a block's shared memory; the caller then
+    takes the gather kernel (:func:`~.spgemm_kernel.masked_spgemm_gather`)."""
 
     def __init__(self, A: SparseELL, B: SparseELL, pattern: SparseELL):
         self.feasible = False
         self.w_A, self.w_B, self.w_out = A.width, B.width, pattern.width
         self.offsets = ()
-        if max(self.w_A, self.w_B, self.w_out) > MAX_WIDTH:
-            return
         n = A.shape[0]
         if n > 16384:
             # cheap probe: a 4k-row sample of an irregular matrix already
@@ -64,7 +64,13 @@ class BandedSpgemmPlan:
         offs = _distinct_offsets(A)
         if offs.numel() > MAX_OFFSETS:
             return
-        self.offsets = tuple(int(o) for o in offs.tolist()) or (0,)
+        offsets = tuple(int(o) for o in offs.tolist()) or (0,)
+        try:
+            tile_geometry(n, self.w_A, self.w_B, self.w_out,
+                          A.data.element_size(), len(offsets))
+        except ValueError:
+            return
+        self.offsets = offsets
         self._pattern = pattern
         self._pat_cols = sentinel_cols(pattern)
         self.feasible = True

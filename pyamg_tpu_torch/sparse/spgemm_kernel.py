@@ -16,7 +16,11 @@ its valid columns in ascending order.
 Both kernels give each block a tile of consecutive output rows, staged in
 shared memory; :func:`tile_geometry` chooses the tile and the grid and
 raises ``ValueError`` on a geometry that would not fit a block's shared
-memory, on every device, so a CUDA tensor never reaches the twin.
+memory, on every device, so a CUDA tensor never reaches the twin.  That
+is the only limit on the slabs' widths: A and the pattern are staged, so
+their widths bound the tile (a tile of one row takes A and a pattern up
+to 8,296 float32 or 5,808 float64 slots wide each), and B is read from
+global memory at any width.
 
 On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
 tensor each runs :func:`masked_matmul_vals_plain`, the JAX package's XLA
@@ -36,12 +40,13 @@ from typing import NamedTuple
 
 import torch
 
+from ..util import profiling
+
 __all__ = ["masked_spgemm_gather", "masked_spgemm_banded",
            "masked_matmul_vals_plain", "launches", "plain_cuda_calls",
-           "MAX_WIDTH", "MAX_OFFSETS", "TileGeometry", "tile_geometry",
+           "MAX_OFFSETS", "TileGeometry", "tile_geometry",
            "shared_bytes", "load"]
 
-MAX_WIDTH = 64          # widest A, B or output slab the kernels take
 MAX_OFFSETS = 64        # most diagonals of a banded A
 TILE_THREADS = 256      # threads of a block (kTileThreads)
 TILE_ROWS = (256, 128, 64, 32, 16)     # tile heights, tallest first
@@ -67,9 +72,11 @@ def load() -> ctypes.CDLL:
         p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         offs = ctypes.POINTER(ctypes.c_int32)
         slabs = [p, p, i, i64, p, p, i, i64, p, i, p]
+        # the tiled entries end in two CUDA events (or null) recorded
+        # around the kernel alone
         signatures = {
-            "masked_spgemm_gather": slabs + [i, i, i, i, p, i],
-            "masked_spgemm_banded": slabs + [offs, i, i, i, i, i, p, i],
+            "masked_spgemm_gather": slabs + [i, i, i, i, p, i, p, p],
+            "masked_spgemm_banded": slabs + [offs, i, i, i, i, i, p, i, p, p],
             "masked_spgemm_gather_slotwise": slabs + [p, i],
             "masked_spgemm_banded_slotwise": slabs + [offs, i, p, i],
         }
@@ -127,9 +134,11 @@ def tile_geometry(n, w_a, w_b, w_out, itemsize, k=0,
     :data:`ROW_THREADS`); then more, up to ``w_b`` rounded up.  ``rows``:
     the tallest tile of :data:`TILE_ROWS` that ``TILE_THREADS`` threads
     cover in one pass and whose shared memory stays within
-    :data:`SHARED_TARGET`.  Blocks: as many as ``sms`` SMs hold at once, at
-    most one a tile.  Raises ValueError when the tile does not fit a
-    block's shared memory."""
+    :data:`SHARED_TARGET`, else the shortest of them; where even that
+    overflows a block's shared memory (A or the pattern some hundreds of
+    slots wide), half as many rows, down to one.  Blocks: as many as
+    ``sms`` SMs hold at once, at most one a tile.  Raises ValueError when
+    a tile of one row does not fit a block's shared memory."""
     lanes = 1
     while lanes < min(32, w_b) and n * lanes < ROW_THREADS:
         lanes *= 2
@@ -139,6 +148,9 @@ def tile_geometry(n, w_a, w_b, w_out, itemsize, k=0,
             if shared_bytes(r, w_a, w_out, itemsize, k) <= SHARED_TARGET]
     rows = fits[0] if fits else one_pass[-1]
     smem = shared_bytes(rows, w_a, w_out, itemsize, k)
+    while smem > MAX_SHARED_BYTES and rows > 1:
+        rows //= 2
+        smem = shared_bytes(rows, w_a, w_out, itemsize, k)
     if smem > MAX_SHARED_BYTES:
         raise ValueError(
             f"masked SpGEMM tile of {rows} rows (A {w_a} wide, pattern "
@@ -187,10 +199,6 @@ def _check(name, Ad, Ac, Bd, Bc, pat_cols):
         raise ValueError(f"{name}: A {tuple(Ad.shape)}/{tuple(Ac.shape)}, "
                          f"B {tuple(Bd.shape)}/{tuple(Bc.shape)}, pattern "
                          f"{tuple(pat_cols.shape)} do not fit")
-    widest = max(Ad.shape[1], Bd.shape[1], pat_cols.shape[1])
-    if widest > MAX_WIDTH:
-        raise ValueError(f"{name} takes slabs up to {MAX_WIDTH} wide, "
-                         f"not {widest}")
     if not all(t.is_contiguous() for t in (Ad, Ac, Bd, Bc, pat_cols)):
         raise ValueError(f"{name}: every slab must be contiguous")
 
@@ -203,15 +211,25 @@ def _check_offsets(name, offsets):
         raise ValueError(f"{name}: offsets must be strictly ascending")
 
 
-def _launch(name, fn, Ad, Ac, Bd, Bc, pat_cols, *extra, count=True):
+def _launch(name, fn, Ad, Ac, Bd, Bc, pat_cols, *extra, count=True,
+            timed=False):
+    """Launch ``fn`` on the slabs; ``timed``: a tiled entry, which takes
+    the CUDA events of a recorded span open around it (the set-up's
+    ``spgemm``, ``profiling.device_events``) and records them around its
+    kernel."""
     n, w_out = pat_cols.shape
     out = torch.empty((n, w_out), dtype=Ad.dtype, device=Ad.device)
     if n == 0 or w_out == 0:
         return out
     stream = torch.cuda.current_stream(Ad.device).cuda_stream
-    err = fn(Ad.data_ptr(), Ac.data_ptr(), Ad.shape[1], n, Bd.data_ptr(),
-             Bc.data_ptr(), Bd.shape[1], Bd.shape[0], pat_cols.data_ptr(),
-             w_out, out.data_ptr(), *extra, stream, Ad.device.index)
+    args = (Ad.data_ptr(), Ac.data_ptr(), Ad.shape[1], n, Bd.data_ptr(),
+            Bc.data_ptr(), Bd.shape[1], Bd.shape[0], pat_cols.data_ptr(),
+            w_out, out.data_ptr(), *extra, stream, Ad.device.index)
+    if timed:
+        with profiling.device_events(Ad.device) as events:
+            err = fn(*args, *(events or (None, None)))
+    else:
+        err = fn(*args)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     if count:
@@ -255,7 +273,7 @@ def masked_spgemm_gather(Ad, Ac, Bd, Bc, pat_cols) -> torch.Tensor:
     if not _route(name, Ad):
         return masked_matmul_vals_plain(Ad, Ac, Bd, Bc, pat_cols)
     return _launch(name, _entry(name, Ad), Ad, Ac, Bd, Bc, pat_cols,
-                   *_tiled(geom))
+                   *_tiled(geom), timed=True)
 
 
 def masked_spgemm_banded(Ad, Ac, Bd, Bc, pat_cols, offsets) -> torch.Tensor:
@@ -271,7 +289,7 @@ def masked_spgemm_banded(Ad, Ac, Bd, Bc, pat_cols, offsets) -> torch.Tensor:
         return masked_matmul_vals_plain(Ad, Ac, Bd, Bc, pat_cols)
     offs = (ctypes.c_int32 * max(len(offsets), 1))(*offsets)
     return _launch(name, _entry(name, Ad), Ad, Ac, Bd, Bc, pat_cols, offs,
-                   len(offsets), *_tiled(geom))
+                   len(offsets), *_tiled(geom), timed=True)
 
 
 def _masked_spgemm_gather_slotwise(Ad, Ac, Bd, Bc, pat_cols):

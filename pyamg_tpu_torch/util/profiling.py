@@ -31,6 +31,13 @@ constructor wrapped by :func:`setup_spans` puts its set-up's there.
 ``count(name, n)`` adds to ``counters``.  ``read_back(t, site)`` is the
 one place the solve path reads the device: it counts ``host_syncs`` and
 records a fine ``sync`` span.
+
+``device_events(device)`` gives a pair of CUDA events for the innermost
+open span, which a kernel's launcher records around its kernel; the events
+are read by :func:`resolve_device_times`, which a set-up calls where it
+already waits on the device, and give that span's attribute
+``device_us``.  No event is made on the CPU or for a span that records
+nowhere.
 """
 
 from __future__ import annotations
@@ -48,7 +55,7 @@ import torch
 
 __all__ = ["profile_cycles", "trace", "hierarchy_spectrum", "solve_timings",
            "span", "fine", "enable", "count", "counters", "read_back",
-           "SpanLog", "setup_spans"]
+           "SpanLog", "setup_spans", "device_events", "resolve_device_times"]
 
 PREFIX = "pyamg_tpu_torch."
 
@@ -56,6 +63,8 @@ counters = {"host_syncs": 0}
 
 _fine_on = False
 _ids = itertools.count(1)
+# (attrs, start, end) of the device-timed spans whose events are not read
+_pending_events = []
 _local = threading.local()
 _profiler_enabled = torch.autograd._profiler_enabled
 
@@ -151,6 +160,10 @@ def setup_spans(constructor):
         with span("setup", into=log.setup, constructor=constructor.__name__,
                   rows=int(A.shape[0])):
             built = constructor(A, *args, **kwargs)
+        # events still running are dropped: waiting for them would add a
+        # synchronization to the set-up
+        resolve_device_times()
+        _pending_events.clear()
         getattr(built, "inner", built).span_log = log
         return built
     return timed
@@ -182,6 +195,43 @@ def enable(on=True):
 def count(name, n=1):
     """Add ``n`` to the counter ``name``."""
     counters[name] = counters.get(name, 0) + n
+
+
+@contextlib.contextmanager
+def device_events(device):
+    """A pair of CUDA events on ``device`` for the innermost open span,
+    where it records somewhere and ``device`` is a card, else None: the
+    block records them around its launch (a kernel's own launcher records
+    them around the kernel alone), and :func:`resolve_device_times` puts
+    the microseconds between them into the span's ``attrs["device_us"]``.
+    Each is recorded here once on the current stream so that it exists; a
+    block that does not record them again times itself, host time
+    included."""
+    stack = _open_spans()
+    s = stack[-1] if stack else None
+    if s is None or s.into is None or torch.device(device).type != "cuda":
+        yield None
+        return
+    stream = torch.cuda.current_stream(device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record(stream)
+    end.record(stream)
+    yield start, end
+    _pending_events.append((s.attrs, start, end))
+
+
+def resolve_device_times():
+    """Read the events of :func:`device_events` whose work has finished
+    (``query`` only: this never waits) into their spans' ``device_us``;
+    the others stay pending."""
+    left = []
+    for attrs, start, end in _pending_events:
+        if end.query():
+            attrs["device_us"] = start.elapsed_time(end) * 1e3
+        else:
+            left.append((attrs, start, end))
+    _pending_events[:] = left
 
 
 def read_back(t, site):

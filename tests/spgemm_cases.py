@@ -78,6 +78,49 @@ def aggregation(n, size, seed):
                          shape=(n, -(-n // size)))
 
 
+def dense_rows(n, m, width, seed):
+    """(n, m) matrix whose row i holds ``width`` consecutive columns from
+    ``i * (m - width) // (n - 1)``, random values."""
+    rng = np.random.default_rng(seed)
+    start = np.arange(n) * (m - width) // max(n - 1, 1)
+    cols = (start[:, None] + np.arange(width)[None, :]).ravel()
+    return sp.csr_matrix((rng.standard_normal(n * width), cols,
+                          np.arange(n + 1) * width), shape=(n, m))
+
+
+def p27_products(N, omega=0.5):
+    """``(A, P, R, A P)`` of HPCG's 27-point operator (26 on the
+    diagonal, -1 off it) on N^3 with aggregates of 3 x 3 x 3 nodes and
+    P = (I - omega D^-1 A) T: the operands of the set-up's A P and
+    R (A P)."""
+    idx = np.arange(N ** 3).reshape(N, N, N)
+    rows, cols = [], []
+    for d in np.ndindex(3, 3, 3):
+        lo = [max(0, 1 - k) for k in d]
+        hi = [N - max(0, k - 1) for k in d]
+        src = idx[lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]]
+        dst = idx[lo[0] + d[0] - 1:hi[0] + d[0] - 1,
+                  lo[1] + d[1] - 1:hi[1] + d[1] - 1,
+                  lo[2] + d[2] - 1:hi[2] + d[2] - 1]
+        rows.append(src.ravel())
+        cols.append(dst.ravel())
+    rows, cols = np.concatenate(rows), np.concatenate(cols)
+    A = sp.csr_matrix((np.where(rows == cols, 26.0, -1.0), (rows, cols)),
+                      shape=(N ** 3, N ** 3))
+    M = -(-N // 3)
+    i, j, k = np.meshgrid(*(np.arange(N) // 3,) * 3, indexing="ij")
+    agg = ((i * M + j) * M + k).ravel()
+    T = sp.csr_matrix((np.ones(N ** 3), (np.arange(N ** 3), agg)),
+                      shape=(N ** 3, M ** 3))
+    P = sp.csr_matrix((sp.identity(N ** 3) - omega / 26.0 * A) @ T)
+    R = sp.csr_matrix(P.T)
+    for X in (A, P, R):
+        X.sort_indices()
+    AP = sp.csr_matrix(A @ P)
+    AP.sort_indices()
+    return A, P, R, AP
+
+
 def empty_rows(A, every):
     """``A`` with every ``every``-th row left empty (all padding in ELL)."""
     A = sp.csr_matrix(A).tolil()
@@ -136,11 +179,35 @@ EDGES = {
     "empty_rows": lambda: (empty_rows(banded(500, [-1, 0, 1], seed=24), 7),
                            near_band(500, 170, 2, per_row=3, seed=25)),
 }
+# slabs wider than 64 slots: A, B and the pattern wider than 64 (gather),
+# B and the pattern wider than 64 under a banded A, and the products of
+# HPCG's 27-point operator on 12^3 with 3x3x3 aggregates: A P and R (A P),
+# R 125 slots wide
+WIDE = {
+    "wide_gather": lambda: (near_band(160, 1200, 120, per_row=110, seed=30),
+                            near_band(1200, 400, 60, per_row=120, seed=31)),
+    "wide_banded": lambda: (banded(300, list(range(-30, 30)), seed=32),
+                            near_band(300, 300, 60, per_row=120, seed=33)),
+    "p27_ap": lambda: p27_products(12)[:2],
+    "p27_rap": lambda: p27_products(12)[2:],
+}
 # cases whose A has more than 64 offsets: the gather kernel's alone
-NOT_BANDED = {*GENERAL, "block64"}
+NOT_BANDED = {*GENERAL, "block64", "wide_gather", "p27_rap",
+              "wide_rows_2^17", "one_row_tiles"}
 # too large for the Pallas interpreter; run on the card only
 LARGE = {
     "5pt_2^18": lambda: (banded(1 << 18, [-512, -1, 0, 1, 512], seed=10),
                          near_band(1 << 18, 1 << 16, 3, per_row=4, seed=11)),
+    # a row to a thread (enough rows) with A and the pattern over 64 wide
+    "wide_rows_2^17": lambda: (near_band(1 << 17, 1 << 17, 60, per_row=100,
+                                         seed=36),
+                               near_band(1 << 17, 1 << 16, 20, per_row=8,
+                                         seed=37)),
 }
-ALL = {**BANDED, **GENERAL, **EDGES, **LARGE}
+ALL = {**BANDED, **GENERAL, **EDGES, **WIDE, **LARGE}
+# A and the pattern so wide (4,600 and 4,200 slots) that a tile holds one
+# row in float32 and in float64: near the kernels' limit; on the card only
+AT_THE_LIMIT = {
+    "one_row_tiles": lambda: (dense_rows(24, 9000, 4600, seed=34),
+                              near_band(9000, 9000, 1, per_row=2, seed=35)),
+}

@@ -10,7 +10,9 @@ in float64 and from the same numpy inputs:
   Poisson grids and on an unstructured graph;
 * the hierarchy: the level count, every level's A, P and R to 1e-12
   relative, the color masks exactly, the operator complexity -- whether or
-  not the JAX package's native library loaded in this process;
+  not the JAX package's native library loaded in this process -- on 2-D
+  Poisson grids and on HPCG's 27-point operator on 12^3 (R 125 and more
+  slots wide);
 * the solve: through ``ell_hierarchy_from_numpy`` on the JAX-built
   hierarchy, the CG iteration count exactly and the residual history to
   1e-10 relative; the port's own setup and solve, the same count;
@@ -29,6 +31,7 @@ from pyamg_tpu.aggregation.aggregate import naive_aggregation as jax_naive
 from pyamg_tpu.aggregation.aggregate import standard_aggregation as jax_std
 from pyamg_tpu.aggregation.tentative import fit_candidates as jax_fit
 from pyamg_tpu.gallery import poisson as jax_poisson
+from pyamg_tpu.gallery import stencil_grid as jax_stencil_grid
 from pyamg_tpu.graph import vertex_coloring as jax_coloring
 from pyamg_tpu.parallel import general_sa_setup_sharded as jax_setup
 from pyamg_tpu.parallel import make_mesh
@@ -180,7 +183,15 @@ def _jax_matrix(N, drop_diag=False):
     return A
 
 
-def _jax_reference(A):
+def _hpcg27(N):
+    """HPCG's 27-point operator (26 on the diagonal, -1 off it) on N^3:
+    its 3 x 3 x 3 aggregates give R rows 125 slots wide and more."""
+    S = -np.ones((3, 3, 3))
+    S[1, 1, 1] = 26.0
+    return sp.csr_matrix(jax_stencil_grid(S, (N, N, N), format="csr"))
+
+
+def _jax_reference(A, **kw):
     """The JAX package's setup of A in float64 with first-fit colors.
 
     The JAX package colors with first-fit when its native library loaded
@@ -192,7 +203,7 @@ def _jax_reference(A):
     Python fallback computes the first-fit colors identically."""
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jax_core, "have_native", lambda: True)
-        return jax_setup(A, mesh=make_mesh(1), dtype=np.float64)
+        return jax_setup(A, mesh=make_mesh(1), dtype=np.float64, **kw)
 
 
 def _assert_levels_match(A, ours, ref):
@@ -221,13 +232,20 @@ def _assert_levels_match(A, ours, ref):
         assert abs(ours.levels[0].P.to_scipy()[0]).sum() > 0
 
 
-@pytest.fixture(scope="module", params=["48", "128", "32-no-diagonal"])
+@pytest.fixture(scope="module", params=["48", "128", "32-no-diagonal",
+                                        "hpcg27-12"])
 def pair(request):
-    N = int(request.param.split("-")[0])
-    A = _jax_matrix(N, drop_diag="no-diagonal" in request.param)
-    ref = _jax_reference(A)
+    kw = {}
+    if request.param.startswith("hpcg27"):
+        # 12^3 coarsens to 64 rows, below the default max_coarse of 100:
+        # 20 keeps a level below it, whose products are wide too
+        A, kw = _hpcg27(int(request.param.split("-")[1])), {"max_coarse": 20}
+    else:
+        N = int(request.param.split("-")[0])
+        A = _jax_matrix(N, drop_diag="no-diagonal" in request.param)
+    ref = _jax_reference(A, **kw)
     ours = parallel.general_sa_setup_sharded(A.copy(), dtype=np.float64,
-                                             device="cpu")
+                                             device="cpu", **kw)
     return A, ours, ref
 
 
@@ -293,7 +311,7 @@ def _export(sol):
         sol.inner._coarse_mat_override)
 
 
-@pytest.mark.parametrize("pair", ["48", "128"], indirect=True)
+@pytest.mark.parametrize("pair", ["48", "128", "hpcg27-12"], indirect=True)
 def test_solve_matches_jax(pair):
     A, ours, ref = pair
     b = A @ np.random.default_rng(0).random(A.shape[0])

@@ -420,11 +420,37 @@ def test_cuda_spgemm_kernels_on_the_smallest_tile(cuda_device, monkeypatch):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_wide_spgemm_kernels_equal_the_twin(cuda_device, dtype):
+    # slabs wider than 64 slots, down to tiles of one row: each kernel the
+    # router may take gives the plain twin's values bit for bit
+    cases = {**spgemm_cases.WIDE, **spgemm_cases.AT_THE_LIMIT,
+             "wide_rows_2^17": spgemm_cases.LARGE["wide_rows_2^17"]}
+    for label, case in cases.items():
+        A_csr, B_csr = case()
+        A = SparseELL.from_scipy(A_csr, dtype=dtype, device=cuda_device)
+        B = SparseELL.from_scipy(B_csr, dtype=dtype, device=cuda_device)
+        pat_ell = pattern_spgemm(A_csr, B_csr, device=cuda_device)
+        slabs = (A.data, A.cols, B.data, B.cols, sentinel_cols(pat_ell))
+        ref = spgemm_kernel.masked_matmul_vals_plain(*slabs)
+        plan = BandedSpgemmPlan(A, B, pat_ell)
+        assert plan.feasible == (label not in spgemm_cases.NOT_BANDED), label
+        outs = {"masked_spgemm_gather":
+                spgemm_kernel.masked_spgemm_gather(*slabs)}
+        if plan.feasible:
+            outs["masked_spgemm_banded"] = plan(A, B).data
+        torch.cuda.synchronize()
+        for name, out in outs.items():
+            assert torch.equal(out, ref), (label, name)
+
+
+@pytest.mark.cuda
 def test_cuda_shared_bytes_agree_with_the_kernel(cuda_device):
     lib = spgemm_kernel.load()
-    for rows in spgemm_kernel.TILE_ROWS:
+    for rows in spgemm_kernel.TILE_ROWS + (8, 4, 2, 1):
         for w_a, w_out, itemsize, k in [(15, 10, 4, 0), (5, 6, 4, 5),
-                                        (64, 64, 8, 64), (1, 1, 8, 1)]:
+                                        (64, 64, 8, 64), (1, 1, 8, 1),
+                                        (125, 27, 4, 0), (4600, 4195, 8, 0)]:
             assert lib.masked_spgemm_shared_bytes(rows, w_a, w_out, itemsize,
                                                   k) == spgemm_kernel.\
                 shared_bytes(rows, w_a, w_out, itemsize, k)

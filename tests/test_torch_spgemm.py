@@ -10,7 +10,10 @@ the largest value of the reference product:
 
 * K4 is exact float32 arithmetic: 1e-6 (summation order only);
 * K5 contracts in three bf16 passes: 5e-5 (its own tests' bound);
-* the JAX XLA form: 1e-6 in float32, 1e-12 in float64.
+* the JAX XLA form: 1e-6 in float32, 1e-12 in float64;
+* on slabs wider than 64 slots, the plain-PyTorch reference
+  (``amgbench/reference/masked_product.py``, a dense product a block of
+  rows at a time): 1e-12 in float64, 1e-6 in float32.
 
 The CUDA kernels themselves run only on the card
 (tests/test_torch_kernel.py); here every wrapper takes its CPU branch.
@@ -21,6 +24,7 @@ import pytest
 import scipy.sparse as sp
 import torch
 
+from amgbench.reference.masked_product import masked_product
 from pyamg_tpu.gallery import poisson
 from pyamg_tpu.sparse import spgemm_dia as jax_spd
 from pyamg_tpu.sparse import spgemm_pallas as jax_spp
@@ -39,7 +43,7 @@ from pyamg_tpu_torch.sparse.spgemm_device import (ell_transpose_onto,
 from pyamg_tpu_torch.sparse.spgemm_dia import BandedSpgemmPlan
 from pyamg_tpu_torch.sparse.spgemm_kernel import (MAX_SHARED_BYTES, TILE_ROWS,
                                                   shared_bytes, tile_geometry)
-from spgemm_cases import (BANDED, EDGES, GENERAL, NOT_BANDED, banded,
+from spgemm_cases import (BANDED, EDGES, GENERAL, NOT_BANDED, WIDE, banded,
                           irregular, near_band)
 
 torch.set_num_threads(1)
@@ -224,24 +228,99 @@ def test_alias_cases_put_padding_on_a_stored_column(case):
 
 
 # ---------------------------------------------------------------------------
+# slabs wider than 64 slots: the twin against the plain reference
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,tol", [(np.float32, 1e-6), (np.float64, 1e-12)])
+@pytest.mark.parametrize("case", sorted(WIDE))
+def test_twin_matches_the_plain_reference_on_wide_slabs(case, dtype, tol):
+    A_csr, B_csr = WIDE[case]()
+    A, B = _ell(A_csr, dtype), _ell(B_csr, dtype)
+    pat = pattern_spgemm(A_csr, B_csr, dtype=dtype, device="cpu")
+    widths = (A.width, B.width, pat.width)
+    if case == "wide_gather":
+        assert min(widths) > 64
+    elif case == "wide_banded":
+        assert min(widths[1:]) > 64
+    elif case == "p27_rap":
+        assert widths == (125, 27, 27)
+    slabs = (A.data, A.cols, B.data, B.cols, sentinel_cols(pat))
+    twin = masked_spgemm_ell(A, B, pat)
+    ref = masked_product(*slabs)
+    assert ref.dtype == torch.float64
+    assert _rel(twin.data, ref) <= tol
+    if dtype == np.float64:
+        exact = (A_csr @ B_csr).tocsr()
+        assert abs(twin.to_scipy() - exact).max() <= tol * abs(exact).max()
+    # the wrappers and the router on CPU tensors run the twin; the banded
+    # plan takes a banded A at these widths
+    assert torch.equal(spgemm_kernel.masked_spgemm_gather(*slabs), twin.data)
+    plan = BandedSpgemmPlan(A, B, pat)
+    assert plan.feasible == (case not in NOT_BANDED)
+    if plan.feasible:
+        assert torch.equal(plan(A, B).data, twin.data)
+    assert torch.equal(masked_spgemm_auto(A, B, pat).data, twin.data)
+
+
+def test_plain_reference_reads_padding_and_empty_rows_as_zero():
+    A_csr, B_csr = EDGES["empty_rows"]()
+    A, B = _ell(A_csr, np.float64), _ell(B_csr, np.float64)
+    pat = pattern_spgemm(A_csr, B_csr, dtype=np.float64, device="cpu")
+    ref = masked_product(A.data, A.cols, B.data, B.cols, sentinel_cols(pat),
+                         block=7)
+    assert _rel(ref, masked_spgemm_ell(A, B, pat).data) <= 1e-12
+    assert not ref[~pat.valid_mask()].any()
+
+
+# ---------------------------------------------------------------------------
 # the tiled kernels' launch geometry
 # ---------------------------------------------------------------------------
+
+def _widest_square(itemsize, k):
+    """The widest w such that A and the pattern w slots wide fit a tile of
+    one row."""
+    lo, hi = 1, 1 << 16
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        if shared_bytes(1, mid, mid, itemsize, k) <= MAX_SHARED_BYTES:
+            lo = mid
+        else:
+            hi = mid - 1
+    return lo
+
 
 @pytest.mark.parametrize("itemsize", [4, 8])
 def test_tile_geometry_fits_every_width(itemsize):
     # B is not staged, so w_b only sets the lanes a row; k = 64 is the
-    # banded kernel's widest case, k = 0 the gather kernel's
-    for w_a in range(1, 65):
-        for w_out in range(1, 65):
-            for w_b, k, n in ((1, 0, 1 << 20), (64, 64, 1000)):
+    # banded kernel's widest case, k = 0 the gather kernel's.  Up to 64
+    # slots a tile of 16 rows or more fits within the target; past that
+    # the tile shrinks, below 16 rows only where 16 would not fit a block
+    for w_b, k, n in ((1, 0, 1 << 20), (64, 64, 1000), (125, 0, 41_600)):
+        top = _widest_square(itemsize, k)
+        widths = list(range(1, 65)) + list(range(65, top, 97)) + [top]
+        for w_a in widths:
+            for w_out in widths:
                 g = tile_geometry(n, w_a, w_b, w_out, itemsize, k)
                 assert g.shared_bytes <= MAX_SHARED_BYTES
                 assert g.shared_bytes == shared_bytes(g.rows, w_a, w_out,
                                                       itemsize, k)
-                assert g.rows in TILE_ROWS and g.blocks <= g.tiles
+                if max(w_a, w_out) <= 64:
+                    assert g.rows in TILE_ROWS
+                elif g.rows not in TILE_ROWS:
+                    assert g.rows & (g.rows - 1) == 0 and shared_bytes(
+                        2 * g.rows, w_a, w_out, itemsize, k) > \
+                        MAX_SHARED_BYTES
+                assert g.blocks <= g.tiles
                 assert g.threads % 32 == 0 and g.threads <= 256
+        # one slot more than a tile of one row holds
+        with pytest.raises(ValueError, match="shared memory"):
+            tile_geometry(n, top + 1, w_b, top + 1, itemsize, k)
     # R = 64 fits the widest case on its own
     assert shared_bytes(64, 64, 64, 8, 64) <= MAX_SHARED_BYTES
+    # R (A P) of the 27-point operator at 104^3: 42,875 rows of R 125
+    # slots wide, A P and the pattern 27: tiles of 16 rows, four lanes a row
+    g = tile_geometry(42_875, 125, 27, 27, itemsize)
+    assert (g.rows, g.lanes) == (16, 4)
 
 
 def test_tile_geometry_gives_few_rows_more_lanes():
@@ -274,7 +353,8 @@ def test_wrappers_raise_on_a_geometry_that_does_not_fit(monkeypatch):
     A_csr, B_csr = EDGES["alias"]()
     A, B = _ell(A_csr, np.float32), _ell(B_csr, np.float32)
     pat = sentinel_cols(pattern_spgemm(A_csr, B_csr, device="cpu"))
-    monkeypatch.setattr(spgemm_kernel, "MAX_SHARED_BYTES", 1024)
+    # a block too small for a tile of one row of these slabs
+    monkeypatch.setattr(spgemm_kernel, "MAX_SHARED_BYTES", 64)
     before = (dict(spgemm_kernel.launches), spgemm_kernel.plain_cuda_calls,
               spgemm_kernel._lib)
     with pytest.raises(ValueError, match="shared memory"):
@@ -336,14 +416,36 @@ def test_banded_probe_rejects_a_large_irregular_left_operand():
 
 
 def test_plans_refuse_slabs_wider_than_64():
+    # slabs 70 wide, once refused, are taken; a banded A whose pattern is
+    # one slot wider than a one-row tile holds is refused by the plan and
+    # by both kernels, at one slot fewer taken
     A_csr = sp.csr_matrix(np.ones((4, 70)))
     B_csr = sp.csr_matrix(np.ones((70, 3)))
     A, B = _ell(A_csr, np.float32), _ell(B_csr, np.float32)
     pat = pattern_spgemm(A_csr, B_csr, device="cpu")
-    assert not BandedSpgemmPlan(A, B, pat).feasible
-    with pytest.raises(ValueError, match="up to 64"):
-        spgemm_kernel.masked_spgemm_gather(A.data, A.cols, B.data, B.cols,
-                                           sentinel_cols(pat))
+    assert not BandedSpgemmPlan(A, B, pat).feasible      # 70 offsets
+    slabs = (A.data, A.cols, B.data, B.cols, sentinel_cols(pat))
+    assert torch.equal(spgemm_kernel.masked_spgemm_gather(*slabs),
+                       masked_spgemm_ell(A, B, pat).data)
+    top = max(w for w in range(1, 1 << 16)
+              if shared_bytes(1, 1, w, 4, 1) <= MAX_SHARED_BYTES
+              and w % 64 == 0)
+    for w, fits in ((top, True), (top + 64, False)):
+        I_csr = sp.identity(2, format="csr")
+        D_csr = sp.csr_matrix(np.ones((2, w)))
+        I, D = _ell(I_csr, np.float32), _ell(D_csr, np.float32)
+        pat = pattern_spgemm(I_csr, D_csr, device="cpu")
+        assert pat.width == w
+        assert BandedSpgemmPlan(I, D, pat).feasible == fits
+        slabs = (I.data, I.cols, D.data, D.cols, sentinel_cols(pat))
+        if fits:
+            assert torch.equal(spgemm_kernel.masked_spgemm_banded(
+                *slabs, (0,)), D.data)
+            continue
+        with pytest.raises(ValueError, match="shared memory"):
+            spgemm_kernel.masked_spgemm_gather(*slabs)
+        with pytest.raises(ValueError, match="shared memory"):
+            spgemm_kernel.masked_spgemm_banded(*slabs, (0,))
 
 
 def test_router_on_cpu_runs_the_twin_and_launches_nothing():
@@ -371,8 +473,12 @@ def test_wrapper_argument_checks(bad):
     elif bad == "int64_cols":
         Ac, err = Ac.long(), TypeError
     elif bad == "wide":
-        Ad = torch.zeros((50, 65))
-        Ac = torch.zeros((50, 65), dtype=torch.int32)
+        # one slot wider than a tile of one row holds, beside this pattern
+        w = next(w for w in range(1, 1 << 16)
+                 if shared_bytes(1, w, pat.shape[1], 4, 0)
+                 > MAX_SHARED_BYTES)
+        Ad = torch.zeros((50, w))
+        Ac = torch.zeros((50, w), dtype=torch.int32)
     elif bad == "offsets":
         offsets = tuple(range(65))
     elif bad == "unsorted_offsets":

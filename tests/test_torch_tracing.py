@@ -11,9 +11,14 @@
   iterations times, every read through ``profiling.read_back``, and its x
   is bitwise the x of a solve whose reads are plain ``.item()`` calls;
 * the solve log keeps within its cap, the set-up records kept;
+* every masked product of a general set-up is one ``spgemm`` span with
+  its route and widths, under ``smooth_p`` or ``galerkin``; on the CPU it
+  carries no device time, and the products of HPCG's 27-point operator
+  wider than 64 slots count in ``spgemm_wide``; the set-up reads nothing
+  back through ``read_back`` and the solve's reads stay as they were;
 * on the card (marked ``cuda``), torch's sync debug mode finds exactly
   ``info["host_syncs"]`` synchronizing calls in a warm solve, each one in
-  ``read_back``.
+  ``read_back``; the set-up's products carry their device times.
 """
 
 import collections
@@ -25,7 +30,7 @@ import pytest
 import torch
 
 from pyamg_tpu_torch.aggregation.device_setup import structured_sa_setup
-from pyamg_tpu_torch.gallery import poisson
+from pyamg_tpu_torch.gallery import poisson, stencil_grid
 from pyamg_tpu_torch.parallel.setup import general_sa_setup_sharded
 from pyamg_tpu_torch.util import profiling
 
@@ -202,6 +207,78 @@ def test_host_syncs_and_the_answer(kind, monkeypatch):
     assert torch.equal(x, x_traced)
 
 
+def hpcg27(N):
+    """HPCG's 27-point operator (26 on the diagonal, -1 off it) on N^3."""
+    S = -np.ones((3, 3, 3))
+    S[1, 1, 1] = 26.0
+    return stencil_grid(S, (N, N, N), format="csr")
+
+
+@pytest.mark.parametrize("operator", ["poisson", "hpcg27"])
+def test_general_setup_records_each_product(operator):
+    if operator == "poisson":
+        A, kw = poisson(GRID, format="csr"), {}
+    else:
+        A, kw = hpcg27(12), {"max_coarse": 20}
+    wide = profiling.counters.get("spgemm_wide", 0)
+    syncs = profiling.counters["host_syncs"]
+    ml = general_sa_setup_sharded(A, device="cpu", **kw).inner
+    assert profiling.counters["host_syncs"] == syncs
+    recs = ml.span_log.setup
+    ids = by_id(recs)
+    prods = [r for r in recs if r[2] == "spgemm"]
+    # S T under smooth_p, then A P and R (A P) under galerkin, a level
+    # above the coarsest
+    levels = ml.levels[:-1]
+    assert [ids[r[1]][2] for r in prods] == \
+        ["smooth_p", "galerkin", "galerkin"] * len(levels)
+    for lvl, (st, ap, rap) in zip(levels, zip(*[iter(prods)] * 3)):
+        n, nc = lvl.A.shape[0], lvl.R.shape[0]
+        for r in (st, ap, rap):
+            a = r[5]
+            assert set(a) == {"route", "n", "nb", "w_a", "w_b", "w_out",
+                              "dtype"}
+            assert a["route"] == "plain"          # no kernel on the CPU
+            assert a["dtype"] == "float32"
+        assert (st[5]["n"], st[5]["nb"], st[5]["w_a"], st[5]["w_b"],
+                st[5]["w_out"]) == (n, n, lvl.A.width, 1, lvl.P.width)
+        assert (ap[5]["n"], ap[5]["nb"], ap[5]["w_a"], ap[5]["w_b"]) == \
+            (n, n, lvl.A.width, lvl.P.width)
+        assert (rap[5]["n"], rap[5]["nb"], rap[5]["w_a"], rap[5]["w_b"]) \
+            == (nc, n, lvl.R.width, ap[5]["w_out"])
+    n_wide = sum(max(r[5]["w_a"], r[5]["w_b"], r[5]["w_out"]) > 64
+                 for r in prods)
+    assert profiling.counters.get("spgemm_wide", 0) - wide == n_wide
+    if operator == "hpcg27":
+        assert prods[2][5]["w_a"] >= 125 and n_wide >= 1
+    else:
+        assert n_wide == 0
+    b = rhs(ml)
+    _x, info = ml.solve_mp(b, tol=1e-10, method="defect", return_info=True)
+    assert info["host_syncs"] == 1 + info["rounds"] + \
+        info["inner_iterations"]
+
+
+def test_device_events_make_no_event_on_the_cpu(monkeypatch):
+    def refuse(*a, **kw):
+        raise AssertionError("a CUDA event made off the card")
+
+    monkeypatch.setattr(torch.cuda, "Event", refuse)
+    log = profiling.SpanLog()
+    with profiling.span("setup", into=log.setup):
+        with profiling.span("spgemm"):
+            with profiling.device_events(torch.device("cpu")) as ev:
+                assert ev is None
+    with profiling.span("spgemm"):               # records nowhere
+        with profiling.device_events("cuda") as ev:
+            assert ev is None
+    with profiling.device_events("cuda") as ev:  # no span open
+        assert ev is None
+    assert profiling._pending_events == []
+    profiling.resolve_device_times()
+    assert "device_us" not in log.setup[0][5]
+
+
 def test_solve_log_keeps_its_cap(monkeypatch):
     monkeypatch.setattr(profiling.SpanLog, "CAP", 200)
     ml, _ = build("structured")
@@ -258,3 +335,19 @@ def test_every_sync_of_a_solve_is_a_read_back_on_the_card(kind):
     assert sites == [profiling.__file__] * info["host_syncs"]
     assert info["host_syncs"] == 1 + info["rounds"] + \
         info["inner_iterations"]
+
+
+@pytest.mark.cuda
+def test_setup_products_carry_device_times_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    ml = general_sa_setup_sharded(hpcg27(15), max_coarse=20,
+                                  device="cuda").inner
+    prods = [r[5] for r in ml.span_log.setup if r[2] == "spgemm"]
+    assert prods and all(p["device_us"] > 0 for p in prods)
+    assert profiling._pending_events == []
+    # S T, A P and R (A P) a level: A P on the banded kernel; level 0's R
+    # (125 wide) has as many offsets as rows, so the gather kernel
+    assert len(prods) == 3 * (len(ml.levels) - 1)
+    assert all(p["route"] == "banded" for p in prods[1::3])
+    assert prods[2]["route"] == "gather" and prods[2]["w_a"] >= 125
